@@ -11,8 +11,9 @@ Phases, each fatal on failure:
    made on the card from a numpy seed; for nbits 8, 16 and 24 the CUDA
    pack/unpack kernels must equal their plain PyTorch versions bit for bit,
    ref/scale on the card must equal the CPU's, and the round trip must stay
-   within quantum*1.01 + 2 ulp; kernel and plain times are CUDA-event
-   medians, beside the bound set by the card's memory rate;
+   within quantum*1.01 + 2 ulp; kernel, plain and library times come from
+   CUDA events around runs of back-to-back launches, beside the bound set
+   by the card's memory rate;
 3. path: the tiered codec deployment (number=0 to a 16-bit DAOS tier, the
    rest to a 24-bit POSIX tier) archives one output step of 2 members x 16
    fields with archive_fields, flushes, and reads it back with
@@ -20,7 +21,7 @@ Phases, each fatal on failure:
    tier's quantum, every payload header well formed, and the CUDA kernels
    must have been launched exactly as often as the codec says.  The step
    runs twice: untraced for the numbers, then traced for the span
-   breakdown; then one tier's codec steps are timed one by one.
+   breakdown, which splits each codec launch into its host and card steps.
 
 The line before the last is one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -90,9 +91,30 @@ def make_fields(f: int, h: int, w: int, seed: int, device) -> torch.Tensor:
     return out
 
 
-def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, launches: int = 20, reps: int = 5, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: one CUDA-event pair around
+    ``launches`` back-to-back calls, divided by their count, so the host's
+    launch cost hides behind the queued work; the median over ``reps``."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
+def call_ms(fn, reps: int = 20) -> float:
+    """Time of one call of ``fn`` from an idle stream, its host-side checks,
+    allocation and launch included: a CUDA-event pair around a single call,
+    median over ``reps``.  Beside :func:`device_ms` it shows the wrapper's cost."""
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -104,6 +126,13 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def library_unpack(codes: torch.Tensor, ref: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The one PyTorch call that computes codes*scale + ref per field (int32
+    codes promote to float32); timed as the library yardstick, used nowhere
+    in the port."""
+    return torch.addcmul(ref[:, None, None], codes, scale[:, None, None])
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -121,41 +150,6 @@ def within_quantum(x: torch.Tensor, y: torch.Tensor, nbits: int) -> tuple[bool, 
     bound = quantum * 1.01 + 2 * ulp
     err = (y - x).abs().amax(dim=(1, 2)).double()
     return bool((err <= bound).all()), float((err / bound).max())
-
-
-def codec_steps(xs: torch.Tensor, nbits: int, gops) -> dict[str, float]:
-    """The steps encode_fields and decode_payloads take for one tier's slice,
-    each timed on the host clock after a synchronize (these launches come
-    after the path's counts were read)."""
-    dtype = gops.payload_dtype(nbits)
-    clock = time.perf_counter
-    steps, t = {}, clock()
-
-    def lap(name: str) -> None:
-        nonlocal t
-        torch.cuda.synchronize()
-        now = clock()
-        steps[name] = (now - t) * 1e3
-        t = now
-
-    codes, ref, scale = gops.grib_pack(xs, nbits=nbits)
-    lap("pack: stats+kernel")
-    codes_h = codes.cpu()
-    lap("pack: codes to host")
-    narrow = codes_h.numpy().astype(dtype)
-    lap("pack: narrow to container")
-    frames = [bytes(32) + narrow[j].tobytes() for j in range(narrow.shape[0])]
-    lap("pack: frame payloads")
-    wide = np.stack([np.frombuffer(f, dtype=dtype, offset=32).reshape(xs.shape[1:]).astype(np.int32)
-                     for f in frames])
-    lap("unpack: widen codes")
-    dev_codes = torch.from_numpy(wide).to(xs.device)
-    lap("unpack: codes to card")
-    out = gops.grib_unpack(dev_codes, ref, scale)
-    lap("unpack: kernel")
-    out.cpu().numpy()
-    lap("unpack: fields to host")
-    return steps
 
 
 def drive_path(x: torch.Tensor, keys: list, *, trace: bool) -> dict:
@@ -212,9 +206,11 @@ def drive_path(x: torch.Tensor, keys: list, *, trace: bool) -> dict:
                 wire += len(payload)
             eff = fdb.stats_snapshot()["effective_bytes_written"]
             assert eff == x.numel() * 4, eff
-            spans: dict[str, float] = {}
+            spans: dict[str, list] = {}
             for sp in fdb._trace.spans():
-                spans[sp.name] = spans.get(sp.name, 0.0) + sp.duration_s
+                tot = spans.setdefault(sp.name, [0.0, 0])
+                tot[0] += sp.duration_s
+                tot[1] += 1
     return {"archive_s": t_archive, "retrieve_s": t_retrieve, "launches": launches,
             "codec_counts": codec_counts, "wire": wire, "spans": spans}
 
@@ -277,10 +273,10 @@ def main() -> int:
         max_err["grib_unpack"] = max(max_err["grib_unpack"], unpack_err)
         ok, frac = within_quantum(x, out, nbits)
         assert ok, f"round trip outside quantum*1.01 + 2 ulp at nbits={nbits} ({frac:.3f} of bound)"
-        pk = median_ms(lambda: gk.grib_pack_call(x, ref, inv, nbits=nbits))
-        pp = median_ms(lambda: pack_ref(x, lo, inv, nbits))
-        uk = median_ms(lambda: gk.grib_unpack_call(codes, ref, scale))
-        up = median_ms(lambda: unpack_ref(codes, ref, scale))
+        pk = device_ms(lambda: gk.grib_pack_call(x, ref, inv, nbits=nbits))
+        pp = device_ms(lambda: pack_ref(x, lo, inv, nbits))
+        uk = device_ms(lambda: gk.grib_unpack_call(codes, ref, scale))
+        up = device_ms(lambda: unpack_ref(codes, ref, scale))
         nbytes = 8 * n + 8 * F
         bound = nbytes / HBM_RATE * 1e3
         say(f"[kernels] nbits={nbits} exact vs plain, round trip {frac:.3f} of its bound; "
@@ -288,7 +284,9 @@ def main() -> int:
             f"unpack {uk:.4f} ms ({nbytes / uk / 1e6:.0f} GB/s) plain {up:.4f} ms; "
             f"{nbytes / 1e9:.3f} GB moved per pass, bound {bound:.4f} ms")
         del codes, ref, scale, lo, sc, inv, plain_codes, out, plain_out
-    say("[kernels] library_ms: no single PyTorch call computes GRIB simple packing or unpacking")
+    say("[kernels] library_ms of grib_pack: none, no single PyTorch call computes GRIB simple "
+        "packing (min/max, scale, round half to even, clip, cast); grib_unpack's library call "
+        "is torch.addcmul(ref, codes, scale)")
 
     # the main path packs and unpacks one tier's slice: (16, H, W) per launch
     xs = x[:PER_MEMBER]
@@ -298,16 +296,25 @@ def main() -> int:
         codes, ref, scale = gops.grib_pack(xs, nbits=nbits)
         _, _, inv = field_stats(xs, nbits)
         assert torch.equal(codes, pack_ref(xs, ref, inv, nbits))
-        assert torch.equal(bits(gops.grib_unpack(codes, ref, scale)), bits(unpack_ref(codes, ref, scale)))
+        out = gops.grib_unpack(codes, ref, scale)
+        assert torch.equal(bits(out), bits(unpack_ref(codes, ref, scale)))
+        lib_err = float((library_unpack(codes, ref, scale) - out).abs().max())
+        pack_call = lambda: gk.grib_pack_call(xs, ref, inv, nbits=nbits)  # noqa: E731
+        unpack_call = lambda: gk.grib_unpack_call(codes, ref, scale)  # noqa: E731
         timing[nbits] = {
-            "grib_pack": (median_ms(lambda: gk.grib_pack_call(xs, ref, inv, nbits=nbits)),
-                          median_ms(lambda: pack_ref(xs, ref, inv, nbits))),
-            "grib_unpack": (median_ms(lambda: gk.grib_unpack_call(codes, ref, scale)),
-                            median_ms(lambda: unpack_ref(codes, ref, scale))),
+            "grib_pack": {"ms": device_ms(pack_call), "call_ms": call_ms(pack_call),
+                          "plain_ms": device_ms(lambda: pack_ref(xs, ref, inv, nbits)),
+                          "library_ms": None},
+            "grib_unpack": {"ms": device_ms(unpack_call), "call_ms": call_ms(unpack_call),
+                            "plain_ms": device_ms(lambda: unpack_ref(codes, ref, scale)),
+                            "library_ms": device_ms(lambda: library_unpack(codes, ref, scale))},
         }
         say(f"[kernels] main-path shape {tuple(xs.shape)} nbits={nbits}: "
-            + "; ".join(f"{k} {v[0]:.4f} ms plain {v[1]:.4f} ms" for k, v in timing[nbits].items()))
-    del codes, ref, scale, inv
+            + "; ".join(f"{k} {v['ms']:.4f} ms (one call from idle {v['call_ms']:.4f} ms) "
+                        f"plain {v['plain_ms']:.4f} ms" for k, v in timing[nbits].items())
+            + f"; library addcmul {timing[nbits]['grib_unpack']['library_ms']:.4f} ms, "
+            f"max |addcmul - kernel| {lib_err:.3g}")
+    del codes, ref, scale, inv, out
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 3. path
@@ -331,10 +338,14 @@ def main() -> int:
     say(f"[path] kernel launches {launches}, codec counts {run['codec_counts']}")
     traced = drive_path(x, keys, trace=True)  # the same run again, traced
     say(f"[path] traced run: archive {traced['archive_s']:.3f} s, retrieve {traced['retrieve_s']:.3f} s; "
-        "span seconds (nested spans overlap): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(traced["spans"].items(), key=lambda kv: -kv[1])))
-    say("[path] one tier's codec steps, timed apart (ms): "
-        + ", ".join(f"{k} {v:.1f}" for k, v in codec_steps(xs, 16, gops).items()))
+        "span seconds over the step, with counts (nested spans overlap): "
+        + ", ".join(f"{k} {v[0]:.4f} ({v[1]})"
+                    for k, v in sorted(traced["spans"].items(), key=lambda kv: -kv[1][0])))
+    for side in ("pack", "unpack"):
+        steps = {k: v for k, v in traced["spans"].items() if k.startswith(f"codec.{side}.")}
+        assert steps, f"the traced run recorded no codec.{side} step spans"
+        say(f"[path] codec.{side} steps over both tiers (ms): "
+            + ", ".join(f"{k.rsplit('.', 1)[1]} {v[0] * 1e3:.1f}" for k, v in steps.items()))
 
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -342,8 +353,7 @@ def main() -> int:
 
     kernels = []
     for kname, line in (("grib_pack", 31), ("grib_unpack", 39)):
-        ms = timing[16][kname][0]
-        plain = timing[16][kname][1]
+        t = timing[16][kname]
         nbytes = 8 * ns + 8 * PER_MEMBER
         ops = (5 if kname == "grib_pack" else 3) * ns
         kernels.append({
@@ -353,11 +363,11 @@ def main() -> int:
             "replaces": f"src/repro/kernels/grib_pack/kernel.py:{line}",
             "launches": launches[kname],
             "max_abs_err": max_err[kname],
-            "ms": ms,
-            "plain_ms": plain,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": max(nbytes / HBM_RATE, ops / F32_PEAK) * 1e3,
             "bound_by": "bytes" if nbytes / HBM_RATE >= ops / F32_PEAK else "operations",
-            "library_ms": None,
+            "library_ms": t["library_ms"],
         })
     say(json.dumps({"kernels": kernels}))
     say(smi)

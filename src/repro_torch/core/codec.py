@@ -232,6 +232,14 @@ def _as_field_list(fields) -> list[torch.Tensor]:
     return out
 
 
+def _settle(tr, dev: torch.device) -> None:
+    """When tracing, wait for the card so that the span just closing holds
+    the device work it launched (kernels and copies are asynchronous).  The
+    untraced path never synchronises here."""
+    if tr.enabled and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def encode_fields(fields, *, nbits: int = 16, stats=None, tracer=None,
                   device=None) -> list[bytes]:
     """Bit-pack a batch of fields into wire payloads.
@@ -241,7 +249,11 @@ def encode_fields(fields, *, nbits: int = 16, stats=None, tracer=None,
     distinct shape when ragged) — the per-launch dispatch cost is amortised
     exactly like the backends amortise per-op I/O costs in
     ``archive_batch``.  Returns one payload per field, in input order.
-    ``tracer`` records one span per kernel launch with effective/wire bytes.
+    ``tracer`` records one ``codec.pack`` span per kernel launch with
+    effective/wire bytes, and inside it one child span per step:
+    ``.gather`` (the batch onto the device), ``.kernel`` (stats and pack),
+    ``.to_host`` (codes, ref and scale), ``.narrow`` (int32 codes to the
+    container dtype) and ``.frame`` (headers and payload bytes).
     ``device`` is where the fields are packed (None: the default device).
     """
     dtype = payload_dtype(nbits)  # validates nbits before any device work
@@ -258,17 +270,25 @@ def encode_fields(fields, *, nbits: int = 16, stats=None, tracer=None,
     for shape, idxs in groups.items():
         h, w = shape
         with tr.span("codec.pack") as sp:
-            batch = torch.stack([flist[i].to(dev) for i in idxs])  # (f, H, W) float32
-            _count_launch("pack")
-            codes, ref, scale = grib_pack(batch, nbits=nbits, device=dev)
-            codes = codes.cpu().numpy().astype(dtype)
-            ref = ref.cpu().numpy().astype(np.float64)
-            scale = scale.cpu().numpy().astype(np.float64)
-            for j, i in enumerate(idxs):
-                header = struct.pack(
-                    _HEADER_FMT, _MAGIC, _VERSION, nbits, 0, h, w, ref[j], scale[j]
-                )
-                payloads[i] = header + codes[j].tobytes()
+            with tr.span("codec.pack.gather"):
+                batch = torch.stack([flist[i].to(dev) for i in idxs])  # (f, H, W) float32
+                _settle(tr, dev)
+            with tr.span("codec.pack.kernel"):
+                _count_launch("pack")
+                codes, ref, scale = grib_pack(batch, nbits=nbits, device=dev)
+                _settle(tr, dev)
+            with tr.span("codec.pack.to_host"):
+                codes = codes.cpu().numpy()
+                ref = ref.cpu().numpy().astype(np.float64)
+                scale = scale.cpu().numpy().astype(np.float64)
+            with tr.span("codec.pack.narrow"):
+                codes = codes.astype(dtype)
+            with tr.span("codec.pack.frame"):
+                for j, i in enumerate(idxs):
+                    header = struct.pack(
+                        _HEADER_FMT, _MAGIC, _VERSION, nbits, 0, h, w, ref[j], scale[j]
+                    )
+                    payloads[i] = header + codes[j].tobytes()
             if tr.enabled:
                 sp.set("nbits", nbits)
                 sp.set("fields", len(idxs))
@@ -302,7 +322,10 @@ def decode_payloads(
     ``None`` entries (absent fields) pass through.  All payloads decode in
     ONE ``grib_unpack`` kernel launch per distinct field shape.  ``labels``
     (e.g. the MARS keys) contextualise :class:`CodecError` messages.
-    ``tracer`` records one span per kernel launch with effective/wire bytes.
+    ``tracer`` records one ``codec.unpack`` span per kernel launch with
+    effective/wire bytes, and inside it one child span per step:
+    ``.widen`` (container codes to int32, header scalars to float32),
+    ``.to_card``, ``.kernel`` and ``.to_host`` (the decoded fields).
     ``device`` is where the codes are unpacked (None: the default device).
     """
     tr = tracer if tracer is not None else NULL_TRACER
@@ -320,19 +343,29 @@ def decode_payloads(
         groups.setdefault((hdr.height, hdr.width, hdr.nbits), []).append(i)
     for (h, w, nbits), idxs in groups.items():
         with tr.span("codec.unpack") as sp:
-            dtype = payload_dtype(nbits)
-            codes = np.stack(
-                [
-                    np.frombuffer(payloads[i], dtype=dtype, offset=CODEC_HEADER_SIZE)
-                    .reshape(h, w)
-                    .astype(np.int32)
-                    for i in idxs
-                ]
-            )
-            ref = np.asarray([headers[i].ref for i in idxs], dtype=np.float32)
-            scale = np.asarray([headers[i].scale for i in idxs], dtype=np.float32)
-            _count_launch("unpack")
-            decoded = grib_unpack(codes, ref, scale, device=dev).cpu().numpy()
+            with tr.span("codec.unpack.widen"):
+                dtype = payload_dtype(nbits)
+                codes = np.stack(
+                    [
+                        np.frombuffer(payloads[i], dtype=dtype, offset=CODEC_HEADER_SIZE)
+                        .reshape(h, w)
+                        .astype(np.int32)
+                        for i in idxs
+                    ]
+                )
+                ref = np.asarray([headers[i].ref for i in idxs], dtype=np.float32)
+                scale = np.asarray([headers[i].scale for i in idxs], dtype=np.float32)
+            with tr.span("codec.unpack.to_card"):
+                codes_d = torch.from_numpy(codes).to(dev)
+                ref_d = torch.from_numpy(ref).to(dev)
+                scale_d = torch.from_numpy(scale).to(dev)
+                _settle(tr, dev)
+            with tr.span("codec.unpack.kernel"):
+                _count_launch("unpack")
+                decoded = grib_unpack(codes_d, ref_d, scale_d, device=dev)
+                _settle(tr, dev)
+            with tr.span("codec.unpack.to_host"):
+                decoded = decoded.cpu().numpy()
             for j, i in enumerate(idxs):
                 out[i] = decoded[j]
             if tr.enabled:

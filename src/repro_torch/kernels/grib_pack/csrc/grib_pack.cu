@@ -23,8 +23,9 @@
 // INT32_MAX as in XLA.  Unpack multiplies and adds with __fmul_rn/__fadd_rn,
 // because nvcc would otherwise contract them into one FMA.
 //
-// Each entry point launches on the caller's stream, does not synchronise,
-// allocates nothing and returns cudaGetLastError().
+// Each entry point launches on the caller's stream and the calling thread's
+// current device (the caller makes it the tensors' device), does not
+// synchronise, allocates nothing and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -127,10 +128,7 @@ extern "C" {
 // codes[f, i] = clip(rint((x[f, i] - ref[f]) * inv_scale[f]), 0, maxcode); vec != 0
 // requires field_size % 4 == 0 and 16-byte aligned x and codes
 int grib_pack_f32(const float* x, const float* ref, const float* inv_scale, int32_t* codes,
-                  int64_t n_fields, int64_t field_size, float maxcode, int vec, int device,
-                  void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                  int64_t n_fields, int64_t field_size, float maxcode, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec) {
     grib_pack_kernel<true><<<grid_for(n_fields, field_size / 4), kThreads, 0, st>>>(
@@ -144,9 +142,7 @@ int grib_pack_f32(const float* x, const float* ref, const float* inv_scale, int3
 
 // out[f, i] = codes[f, i] * scale[f] + ref[f], product and sum rounded apart; vec as above
 int grib_unpack_f32(const int32_t* codes, const float* ref, const float* scale, float* out,
-                    int64_t n_fields, int64_t field_size, int vec, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                    int64_t n_fields, int64_t field_size, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec) {
     grib_unpack_kernel<true><<<grid_for(n_fields, field_size / 4), kThreads, 0, st>>>(

@@ -81,10 +81,10 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             ptr, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
             lib.grib_pack_f32.argtypes = [
-                ptr, ptr, ptr, ptr, i64, i64, ctypes.c_float, c_int, c_int, ptr,
+                ptr, ptr, ptr, ptr, i64, i64, ctypes.c_float, c_int, ptr,
             ]
             lib.grib_pack_f32.restype = c_int
-            lib.grib_unpack_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, c_int, c_int, ptr]
+            lib.grib_unpack_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, c_int, ptr]
             lib.grib_unpack_f32.restype = c_int
             lib.grib_error_string.argtypes = [c_int]
             lib.grib_error_string.restype = ctypes.c_char_p
@@ -129,12 +129,12 @@ def grib_pack_call(x: torch.Tensor, ref: torch.Tensor, inv_scale: torch.Tensor,
     codes = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     f, h, w = x.shape
     lib = _load()
-    err = lib.grib_pack_f32(
-        x.data_ptr(), ref.data_ptr(), inv_scale.data_ptr(), codes.data_ptr(),
-        f, h * w, float((1 << nbits) - 1), _vectorisable(h * w, x, codes),
-        x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # the C side launches on the current device
+        err = lib.grib_pack_f32(
+            x.data_ptr(), ref.data_ptr(), inv_scale.data_ptr(), codes.data_ptr(),
+            f, h * w, float((1 << nbits) - 1), _vectorisable(h * w, x, codes),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     _check(lib, err, "grib_pack")
     return codes
 
@@ -145,11 +145,11 @@ def grib_unpack_call(codes: torch.Tensor, ref: torch.Tensor, scale: torch.Tensor
     out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
     f, h, w = codes.shape
     lib = _load()
-    err = lib.grib_unpack_f32(
-        codes.data_ptr(), ref.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        f, h * w, _vectorisable(h * w, codes, out),
-        codes.device.index,
-        torch.cuda.current_stream(codes.device).cuda_stream,
-    )
+    with torch.cuda.device(codes.device):
+        err = lib.grib_unpack_f32(
+            codes.data_ptr(), ref.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            f, h * w, _vectorisable(h * w, codes, out),
+            torch.cuda.current_stream(codes.device).cuda_stream,
+        )
     _check(lib, err, "grib_unpack")
     return out

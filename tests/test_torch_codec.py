@@ -198,6 +198,27 @@ class TestEncodeDecode:
         assert tcodec.encode_fields([torch.from_numpy(f) for f in x]) == want
         assert tcodec.encode_fields(list(x.astype(np.float64))) == want
 
+    def test_traced_codec_records_each_step_inside_its_launch_span(self):
+        from repro_torch.obs.tracer import Tracer
+
+        x = temperature_fields(np.random.default_rng(15), 3, 8, 128)
+        tr = Tracer()
+        payloads = tcodec.encode_fields(x, tracer=tr)
+        decoded = tcodec.decode_payloads(payloads, tracer=tr)
+        assert payloads == tcodec.encode_fields(x)  # tracing changes no byte
+        for a, b in zip(decoded, tcodec.decode_payloads(payloads)):
+            assert np.array_equal(a, b)
+        spans = tr.spans()
+        steps = {
+            "pack": ["gather", "kernel", "to_host", "narrow", "frame"],
+            "unpack": ["widen", "to_card", "kernel", "to_host"],
+        }
+        for side, names in steps.items():
+            (parent,) = [s for s in spans if s.name == f"codec.{side}"]
+            children = [s for s in spans if s.parent_id == parent.span_id]
+            assert [s.name for s in children] == [f"codec.{side}.{n}" for n in names]
+            assert sum(s.duration_s for s in children) <= parent.duration_s
+
     def test_take_fields_all_forms(self):
         arr = temperature_fields(np.random.default_rng(13), 4, 8, 128)
         assert np.array_equal(tcodec.take_fields(arr, [2, 0])[0], arr[2])
