@@ -21,7 +21,20 @@ Phases, each fatal on failure:
    tier's quantum, every payload header well formed, and the CUDA kernels
    must have been launched exactly as often as the codec says.  The step
    runs twice: untraced for the numbers, then traced for the span
-   breakdown, which splits each codec launch into its host and card steps.
+   breakdown, which splits each codec launch into its host and card steps;
+4. attention: the flash-attention kernel against its plain PyTorch version
+   at the full-width prefill shape of qwen2.5-3b (16 query heads over 2 KV
+   heads, 2048 tokens, head dim 128, bf16, causal), a ragged causal 1000,
+   the shapes of tests/test_kernels.py in float32 and bf16, a q_offset
+   window and every head dim the source instantiates (2e-4 in float32,
+   2e-2 in bf16); kernel, plain and scaled_dot_product_attention times at
+   the full-width shape beside the bound;
+5. serve: qwen2.5-3b at full width (36 layers, bf16, random weights from
+   --seed made on the card) behind ServeEngine(max_batch=4, cache_len=2048)
+   answers 8 requests of ragged prompt lengths, 16 greedy tokens each; the
+   kernel must have been launched once per layer per prefill, the first
+   token's logits through the kernel must agree with attn_impl="naive", and
+   the batched tokens are compared with sequential prefill + decode.
 
 The line before the last is one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -50,6 +63,26 @@ TIER_NBITS = {"0": 16, "1": 24}  # number=0 -> hot DAOS tier, else cold POSIX
 # peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 HBM_RATE = 3.35e12  # bytes/s
 F32_PEAK = 67e12  # float32 operations/s outside the tensor cores
+BF16_PEAK = 989e12  # bf16 dense operations/s on the tensor cores
+ATTN_TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4),  # tests/test_kernels.py:21-22
+            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+ATTN_FULL = (2, 8, 2048, 128)  # qwen2.5-3b prefill: KV heads, groups, tokens, head dim
+ATTN_CASES = [  # (KV heads x batch, groups, Sq, Sk, d, causal, q_offset)
+    (2, 8, 1000, 1000, 128, True, 0),  # ragged causal
+    *[(b * kh, g, sq, sk, d, causal, 0)  # tests/test_kernels.py:28-34
+      for b, sq, sk, kh, g, d in ((1, 128, 128, 1, 1, 64), (2, 256, 256, 2, 3, 64),
+                                  (1, 128, 384, 2, 2, 128), (2, 64, 64, 4, 1, 32))
+      for causal in (True, False)],
+    (1, 1, 64, 192, 64, True, 128),  # the q_offset window, tests/test_kernels.py:48-58
+    *[(2, 3, 77, 77, d, True, 0) for d in (16, 32, 96, 112)],  # the other head dims
+]
+SERVE_REQUESTS, SERVE_TOKENS = 8, 16
+SERVE_BATCH, SERVE_CACHE = 4, 2048
+# first-token logits through the kernel against attn_impl="naive", both bf16:
+# the naive path rounds scores, softmax weights and P.V to bf16 where the
+# kernel keeps float32, in each of the 36 layers.  8 bf16 ulps at the largest
+# logits (magnitude 4 to 8); an H100 run measured 2 (0.0625).
+LOGITS_TOL = 0.25
 
 TIERED_CODEC_CONFIG = {
     "type": "select",
@@ -215,6 +248,216 @@ def drive_path(x: torch.Tensor, keys: list, *, trace: bool) -> dict:
             "codec_counts": codec_counts, "wire": wire, "spans": spans}
 
 
+def attention_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
+    """(query, key) pairs a row attends, summed over the rows of one head."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, i + q_offset + 1) for i in range(sq))
+
+
+def attention_bound(bh: int, bk: int, sq: int, sk: int, d: int, itemsize: int,
+                    causal: bool, q_offset: int = 0) -> tuple[float, str]:
+    """Least time in ms: q, k, v read once and o written once over HBM, or
+    4*d operations per attended pair at the bf16 tensor-core rate."""
+    nbytes = (2 * bh * sq + 2 * bk * sk) * d * itemsize
+    ops = 4 * d * attention_pairs(sq, sk, causal, q_offset) * bh
+    t_bytes, t_ops = nbytes / HBM_RATE, ops / BF16_PEAK
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def attention_phase(dev, seed: int) -> dict:
+    """The flash-attention kernel against its plain version, and its times."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def make(bk, groups, sq, sk, d, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((bk * groups, sq, d), (bk, sk, d), (bk, sk, d))]
+
+    kh, g, s, d = ATTN_FULL
+    full = (kh, g, s, s, d, True, 0)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for bk, groups, sq, sk, hd, causal, off in [full, *ATTN_CASES]:
+            if dtype == torch.float32 and (bk, groups, sq) == (kh, g, s):
+                continue  # the full-width shape is a bf16 shape
+            q, k, v = make(bk, groups, sq, sk, hd, dtype)
+            out = fk.flash_attention_call(q, k, v, groups=groups, causal=causal, q_offset=off)
+            ref = flash_attention_ref(q, k, v, groups=groups, causal=causal, q_offset=off)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            worst = max(worst, err)
+            torch.testing.assert_close(out.float(), ref.float(), **ATTN_TOL[dtype])
+            say(f"[attention] {str(dtype)[6:]} q ({bk * groups}, {sq}, {hd}) k ({bk}, {sk}, {hd}) "
+                f"causal={causal} q_offset={off}: max |kernel - plain| {err:.3g}")
+
+    q, k, v = make(kh, g, s, s, d, torch.bfloat16)
+    call = lambda: fk.flash_attention_call(q, k, v, groups=g, causal=True)  # noqa: E731
+    plain = lambda: flash_attention_ref(q, k, v, groups=g, causal=True)  # noqa: E731
+    qs, ks, vs = q[None], k[None], v[None]  # (1, heads, S, d): SDPA's layout, no copy
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs, ks, vs, is_causal=True, enable_gqa=True)
+    lib_err = float((library()[0].float() - call().float()).abs().max())
+    timing = {"ms": device_ms(call), "call_ms": call_ms(call),
+              "plain_ms": device_ms(plain, launches=5), "library_ms": device_ms(library)}
+    bound, by = attention_bound(kh * g, kh, s, s, d, 2, True)
+    flops = 4 * d * attention_pairs(s, s, True, 0) * kh * g
+    say(f"[attention] full width q ({kh * g}, {s}, {d}) bf16 causal: kernel {timing['ms']:.4f} ms "
+        f"({flops / timing['ms'] / 1e9:.1f} TFLOP/s; one call from idle {timing['call_ms']:.4f} ms), "
+        f"plain {timing['plain_ms']:.4f} ms, scaled_dot_product_attention "
+        f"{timing['library_ms']:.4f} ms (max |sdpa - kernel| {lib_err:.3g}); bound {bound:.4f} ms "
+        f"by {by} ({flops / 1e9:.2f} GFLOP at {BF16_PEAK / 1e12:.0f} TFLOP/s bf16)")
+    return {**timing, "max_abs_err": worst, "bound_ms": bound, "bound_by": by}
+
+
+def profile_call(fn) -> tuple[float, float, list]:
+    """One call of ``fn`` (after one warm-up call) under torch.profiler: its
+    host wall ms, the ms the card spent in kernels and copies, and the five
+    kernels that took the most of it as (name, ms, count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            tot = by_name.setdefault(e.name, [0.0, 0])
+            tot[0] += e.time_range.elapsed_us() / 1e3
+            tot[1] += 1
+    busy = sum(v[0] for v in by_name.values())
+    top = sorted(((k, v[0], v[1]) for k, v in by_name.items()), key=lambda kv: -kv[1])[:5]
+    return wall * 1e3, busy, top
+
+
+def serve_phase(dev, seed: int) -> dict:
+    """qwen2.5-3b at full width behind ServeEngine, with every check of the phase."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), attn_impl="pallas")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    say(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} query "
+        f"/ {cfg.n_kv_heads} KV heads, head dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.padded_vocab}, {cfg.dtype}: {n_params / 1e9:.3f} B parameters, "
+        f"{weight_bytes / 1e9:.2f} GB, made on the card in {time.perf_counter() - t0:.2f} s")
+    assert cfg.n_layers == 36 and cfg.d_model == 2048 and weight_bytes > 6.5e9
+
+    rng = np.random.default_rng(seed)
+    lengths = [int(n) + (int(n) % 128 == 0) for n in rng.integers(100, 1501, SERVE_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lengths]
+
+    with torch.inference_mode():  # warm-up: cuBLAS handles, allocator, the kernel's library
+        warm = ServeEngine(params, cfg, max_batch=1, cache_len=256)
+        warm.submit(Request(prompt=prompts[0][:100], max_new_tokens=2))
+        warm.run()
+        del warm
+
+    engine = ServeEngine(params, cfg, max_batch=SERVE_BATCH, cache_len=SERVE_CACHE)
+    reqs = [Request(prompt=p, max_new_tokens=SERVE_TOKENS) for p in prompts]
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    fops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fops.KERNEL_LAUNCHES["flash_attention"]
+
+    st = engine.stats
+    assert len(done) == SERVE_REQUESTS and all(r.done for r in reqs)
+    for r in reqs:
+        assert len(r.generated) == SERVE_TOKENS, (r.rid, len(r.generated))
+        assert all(0 <= t < cfg.vocab for t in r.generated), r.rid
+    assert st["prefills"] == SERVE_REQUESTS
+    assert launches == cfg.n_layers * st["prefills"], (launches, st["prefills"])
+    say(f"[serve] {SERVE_REQUESTS} requests, prompt lengths {lengths}, {SERVE_TOKENS} tokens each, "
+        f"max_batch {SERVE_BATCH}, cache_len {SERVE_CACHE}: wall {wall:.3f} s; "
+        f"flash_attention launches {launches} = {cfg.n_layers} layers x {st['prefills']} prefills")
+    prefill_tps = st["prefill_tokens"] / st["prefill_s"]
+    decode_tps = st["decode_tokens"] / st["decode_s"]
+    say(f"[serve] prefill {st['prefill_tokens']} tokens in {st['prefill_s']:.3f} s = "
+        f"{prefill_tps:.1f} tok/s; decode {st['decode_tokens']} tokens in {st['decode_steps']} "
+        f"steps, {st['decode_s']:.3f} s = {decode_tps:.1f} tok/s "
+        f"({st['decode_s'] / st['decode_steps'] * 1e3:.2f} ms per step)")
+
+    # the kernel's share: its time at each served prompt's shape, per layer
+    kh, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(dev).manual_seed(seed)
+    kernel_s = 0.0
+    for n in lengths:
+        q = torch.randn((kh * g, n, hd), generator=gen, device=dev).bfloat16()
+        k = torch.randn((kh, n, hd), generator=gen, device=dev).bfloat16()
+        kernel_s += cfg.n_layers * device_ms(
+            lambda: fk.flash_attention_call(q, k, k, groups=g, causal=True)) / 1e3
+    say(f"[serve] kernel time at the served shapes (CUDA events, {cfg.n_layers} launches per "
+        f"prefill): {kernel_s * 1e3:.3f} ms = {100 * kernel_s / wall:.3f} % of the wall time, "
+        f"{100 * kernel_s / st['prefill_s']:.3f} % of the prefill time")
+
+    with torch.inference_mode():
+        # first-token logits through the kernel and through naive attention
+        naive = dataclasses.replace(cfg, attn_impl="naive")
+        tokens = torch.tensor(prompts[0], device=dev)[None]
+        lk, _ = prefill(params, cfg, tokens, init_cache(cfg, 1, lengths[0], device=dev))
+        ln, _ = prefill(params, naive, tokens, init_cache(naive, 1, lengths[0], device=dev))
+        logit_err = float((lk.float() - ln.float()).abs().max())
+        top = float(ln.float().abs().max())
+        say(f"[serve] first-token logits of prompt 0 ({lengths[0]} tokens), kernel vs naive "
+            f"attention: max |diff| {logit_err:.4g} (max |logit| {top:.4g}, tolerance "
+            f"{LOGITS_TOL}); argmax {int(lk[0, :cfg.vocab].argmax())} vs "
+            f"{int(ln[0, :cfg.vocab].argmax())}")
+        assert logit_err <= LOGITS_TOL, logit_err
+
+        # batched engine against sequential prefill + greedy decode, per request
+        agree = 0
+        for p, r in zip(prompts, reqs):
+            cache = init_cache(cfg, 1, SERVE_CACHE, device=dev)
+            logits, cache = prefill(params, cfg, torch.tensor(p, device=dev)[None], cache)
+            seq = [int(logits[0, :cfg.vocab].argmax())]
+            for _ in range(SERVE_TOKENS - 1):
+                logits, cache = decode_step(params, cfg, torch.tensor([[seq[-1]]], device=dev), cache)
+                seq.append(int(logits[0, :cfg.vocab].argmax()))
+            agree += sum(a == b for a, b in zip(seq, r.generated))
+        say(f"[serve] batched vs sequential greedy tokens: {agree} of "
+            f"{SERVE_REQUESTS * SERVE_TOKENS} agree (bf16: batched matmuls may break near-ties)")
+
+        # where the time goes: one prefill of prompt 0 and one batched decode step
+        cache = init_cache(cfg, SERVE_BATCH, SERVE_CACHE, device=dev)
+        cache["pos"] = torch.tensor(lengths[:SERVE_BATCH], dtype=torch.int32, device=dev)
+        step_tokens = torch.tensor([[int(p[-1])] for p in prompts[:SERVE_BATCH]], device=dev)
+        for what, fn in (
+            (f"prefill of {lengths[0]} tokens", lambda: prefill(
+                params, cfg, tokens, init_cache(cfg, 1, SERVE_CACHE, device=dev))),
+            (f"decode step at batch {SERVE_BATCH}", lambda: decode_step(
+                params, cfg, step_tokens, cache)),
+        ):
+            wall_ms, busy_ms, top = profile_call(fn)
+            say(f"[serve] profiled {what}: wall {wall_ms:.3f} ms, card busy {busy_ms:.3f} ms "
+                f"({100 * busy_ms / wall_ms:.1f} %, idle {100 - 100 * busy_ms / wall_ms:.1f} %); "
+                "top kernels: " + "; ".join(f"{n[:60]} {t:.3f} ms x{c}" for n, t, c in top))
+    return {"launches": launches, "wall_s": wall, "prefill_tps": prefill_tps,
+            "decode_tps": decode_tps, "kernel_s": kernel_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -225,6 +468,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import Key
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.grib_pack import kernel as gk
     from repro_torch.kernels.grib_pack import ops as gops
     from repro_torch.kernels.grib_pack.ref import field_stats, pack_ref, unpack_ref
@@ -242,8 +487,8 @@ def main() -> int:
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}"
         f" devices {torch.cuda.device_count()} memory rate used for bounds {HBM_RATE / 1e12:.2f} TB/s")
     t0 = time.perf_counter()
-    lib = gk.build()  # one source, one nvcc
-    say(f"[build] {lib.name} in {time.perf_counter() - t0:.2f} s")
+    libs = _build.build_all([gk.LIBRARY, fk.LIBRARY])  # one nvcc per source, all at once
+    say(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
 
     # ------------------------------------------------------------- 2. kernels
     t0 = time.perf_counter()
@@ -347,6 +592,14 @@ def main() -> int:
         say(f"[path] codec.{side} steps over both tiers (ms): "
             + ", ".join(f"{k.rsplit('.', 1)[1]} {v[0] * 1e3:.1f}" for k, v in steps.items()))
 
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 4. attention
+    attn = attention_phase(dev, args.seed)
+
+    # --------------------------------------------------------------- 5. serve
+    serve = serve_phase(dev, args.seed)
+
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not loaded, f"the port loaded {loaded}"
@@ -369,6 +622,15 @@ def main() -> int:
             "bound_by": "bytes" if nbytes / HBM_RATE >= ops / F32_PEAK else "operations",
             "library_ms": t["library_ms"],
         })
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
+        "launches": serve["launches"],
+        **{k: attn[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+    })
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -422,9 +422,45 @@ def validate_config(config: Mapping) -> None:
             )
         validate_config(config["inner"])
     elif t == "cache":
-        raise ConfigError("cache config is not yet ported to repro_torch")
+        if config.get("inner") is None:
+            raise ConfigError("cache config requires 'inner'")
+        mb = config.get("max_bytes")
+        if mb is not None and (not isinstance(mb, int) or isinstance(mb, bool) or mb < 1):
+            raise ConfigError(f"cache max_bytes must be a positive int, got {mb!r}")
+        for knob in ("shards", "replicas"):
+            v = config.get(knob)
+            if v is not None and (not isinstance(v, int) or isinstance(v, bool) or v < 1):
+                raise ConfigError(f"cache {knob!r} must be a positive int, got {v!r}")
+        ttl = config.get("ttl_s")
+        if ttl is not None and (not isinstance(ttl, (int, float)) or isinstance(ttl, bool) or ttl < 0):
+            raise ConfigError(f"cache ttl_s must be a non-negative number, got {ttl!r}")
+        neg = config.get("negative_ttl")
+        if neg is not None and (not isinstance(neg, (int, float)) or isinstance(neg, bool) or neg < 0):
+            raise ConfigError(f"cache negative_ttl must be a non-negative number, got {neg!r}")
+        rules = config.get("dataset_ttl", ())
+        if not isinstance(rules, (list, tuple)):
+            raise ConfigError("cache 'dataset_ttl' must be a list")
+        for rule in rules:
+            if not isinstance(rule, Mapping) or "match" not in rule or "ttl_s" not in rule:
+                raise ConfigError("each cache dataset_ttl rule needs 'match' and 'ttl_s'")
+        validate_config(config["inner"])
     elif t == "lifecycle":
-        raise ConfigError("lifecycle config is not yet ported to repro_torch")
+        if config.get("inner") is None:
+            raise ConfigError("lifecycle config requires 'inner'")
+        policies = config.get("policies")
+        if not isinstance(policies, (list, tuple)) or not policies:
+            raise ConfigError("lifecycle config needs a non-empty 'policies' list")
+        from ..lifecycle.policy import LifecyclePolicy
+
+        for p in policies:
+            try:
+                LifecyclePolicy.from_dict(p)
+            except ValueError as e:
+                raise ConfigError(str(e)) from None
+        bs = config.get("batch_size")
+        if bs is not None and (not isinstance(bs, int) or isinstance(bs, bool) or bs < 1):
+            raise ConfigError(f"lifecycle batch_size must be a positive int, got {bs!r}")
+        validate_config(config["inner"])
     elif t == "remote":
         raise ConfigError("remote config is not yet ported to repro_torch")
 

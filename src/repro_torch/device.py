@@ -1,9 +1,10 @@
-"""Where the port's codec and kernels run.
+"""Where the port's codec, models and kernels run.
 
 The default is the CUDA card.  A caller that wants the CPU says so, either
 once per process with :func:`set_default_device` or per call with
-``device="cpu"``.  A codec call that would run on CUDA when no CUDA device
-is present raises :class:`RuntimeError`; it never quietly runs on the CPU.
+``device="cpu"``.  A codec, parameter or cache call that would run on CUDA
+when no CUDA device is present raises :class:`RuntimeError`; it never
+quietly runs on the CPU.
 """
 
 from __future__ import annotations

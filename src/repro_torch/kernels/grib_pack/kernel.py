@@ -4,98 +4,34 @@ The CUDA source replaces the Pallas TPU kernels ``_pack_kernel`` and
 ``_unpack_kernel`` of ``repro.kernels.grib_pack.kernel``; its header says
 what bounds them on the card (HBM bytes) and what the design does about it.
 
-The source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
-a plain C interface, at the first launch of either kernel, and loaded with
-``ctypes``.  The library lands in ``src/repro_torch/build/`` under a name
-keyed by a hash of the source and the flags, so an edit rebuilds.  Nothing
-happens at import time: the CPU tests import this module on machines that
-have no ``nvcc`` and no card.
+The source is built and loaded by :mod:`repro_torch.kernels._build` at the
+first launch of either kernel; nothing happens at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 
 import torch
 
-__all__ = ["build", "grib_pack_call", "grib_unpack_call", "library_path"]
+from .._build import CudaLibrary
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "grib_pack.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+__all__ = ["LIBRARY", "grib_pack_call", "grib_unpack_call"]
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.grib_pack_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, ctypes.c_float, c_int, ptr]
+    lib.grib_pack_f32.restype = c_int
+    lib.grib_unpack_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, c_int, ptr]
+    lib.grib_unpack_f32.restype = c_int
+
+
+LIBRARY = CudaLibrary(
+    "grib_pack", Path(__file__).resolve().parent / "csrc" / "grib_pack.cu", _bind,
+    error_fn="grib_error_string",
 )
-
-_lib: ctypes.CDLL | None = None
-_lib_mu = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
-
-
-def library_path() -> Path:
-    """Where the library built from the current source and flags lives."""
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / f"libgrib_pack_{digest[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the source unless a library of the same hash exists; return its path."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError:
-        raise RuntimeError(
-            f"cannot build the grib_pack CUDA kernels: {cmd[0]} not found "
-            "(set CUDA_HOME to the CUDA toolkit)"
-        ) from None
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {_SRC.name} (exit {proc.returncode}):\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
-    return out
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_mu:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            ptr, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            lib.grib_pack_f32.argtypes = [
-                ptr, ptr, ptr, ptr, i64, i64, ctypes.c_float, c_int, ptr,
-            ]
-            lib.grib_pack_f32.restype = c_int
-            lib.grib_unpack_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, c_int, ptr]
-            lib.grib_unpack_f32.restype = c_int
-            lib.grib_error_string.argtypes = [c_int]
-            lib.grib_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
-
-
-def _check(lib: ctypes.CDLL, err: int, name: str) -> None:
-    if err != 0:
-        msg = lib.grib_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
 
 
 def _check_inputs(name: str, big: torch.Tensor, dtype: torch.dtype,
@@ -128,14 +64,14 @@ def grib_pack_call(x: torch.Tensor, ref: torch.Tensor, inv_scale: torch.Tensor,
     _check_inputs("grib_pack", x, torch.float32, ref, inv_scale)
     codes = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     f, h, w = x.shape
-    lib = _load()
+    lib = LIBRARY.load()
     with torch.cuda.device(x.device):  # the C side launches on the current device
         err = lib.grib_pack_f32(
             x.data_ptr(), ref.data_ptr(), inv_scale.data_ptr(), codes.data_ptr(),
             f, h * w, float((1 << nbits) - 1), _vectorisable(h * w, x, codes),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _check(lib, err, "grib_pack")
+    LIBRARY.check(err, "grib_pack")
     return codes
 
 
@@ -144,12 +80,12 @@ def grib_unpack_call(codes: torch.Tensor, ref: torch.Tensor, scale: torch.Tensor
     _check_inputs("grib_unpack", codes, torch.int32, ref, scale)
     out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
     f, h, w = codes.shape
-    lib = _load()
+    lib = LIBRARY.load()
     with torch.cuda.device(codes.device):
         err = lib.grib_unpack_f32(
             codes.data_ptr(), ref.data_ptr(), scale.data_ptr(), out.data_ptr(),
             f, h * w, _vectorisable(h * w, codes, out),
             torch.cuda.current_stream(codes.device).cuda_stream,
         )
-    _check(lib, err, "grib_unpack")
+    LIBRARY.check(err, "grib_unpack")
     return out

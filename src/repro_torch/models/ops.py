@@ -1,0 +1,200 @@
+"""Model building blocks: norms, RoPE, attention (naive/chunked/decode), FFN.
+
+Plain functions on tensors, each the counterpart of the function of the same
+name in ``repro.models.ops`` with the same cast order: bf16 compute with
+float32 softmax and norm accumulations.  ``impl`` selects between the naive
+S^2 attention, the chunked online-softmax attention in plain PyTorch, and
+the hand-written flash-attention kernel (``"pallas"``, the reference's name
+for its kernel path).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..distributed.sharding import constrain
+
+__all__ = [
+    "rms_norm",
+    "rope",
+    "swiglu",
+    "gqa_attention",
+    "decode_attention",
+    "causal_mask_bias",
+]
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Normalise in float32, cast back, then scale in the model dtype."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    # a Python-scalar base: a tensor made from one on the card would cost a
+    # blocking host-to-device copy in every layer
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / torch.pow(theta, exps)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, d), positions: broadcastable to (..., S):
+    (S,) at prefill, (B, 1) at decode."""
+    d = x.shape[-1]
+    freqs = _rope_freqs(d, theta, x.device)  # (d/2,)
+    angles = positions[..., :, None, None].float() * freqs  # (..., S, 1, d/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = torch.matmul(x, w_gate)
+    u = torch.matmul(x, w_up)
+    h = F.silu(g) * u
+    h = constrain(h, "batch", "seq", "d_ff")
+    return torch.matmul(h, w_down)
+
+
+def causal_mask_bias(s_q: int, s_k: int, q_offset: int = 0, dtype=torch.float32,
+                     device=None) -> torch.Tensor:
+    """(s_q, s_k) additive bias; query i attends keys j <= i + q_offset."""
+    qi = torch.arange(s_q, device=device)[:, None] + q_offset
+    kj = torch.arange(s_k, device=device)[None, :]
+    zero = torch.zeros((), dtype=dtype, device=device)
+    return torch.where(kj <= qi, zero, float("-inf")).to(dtype)
+
+
+def _split_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B, S, H, d) -> (B, S, K, G, d) with H = K*G."""
+    b, s, h, d = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, d)
+
+
+def _naive_attention(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
+    """q: (B,S,K,G,d), k/v: (B,T,K,d) -> (B,S,K,G,d).  fp32 softmax."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bskgd,btkd->bkgst", q, k).float() * scale
+    if causal:
+        scores = scores + causal_mask_bias(q.shape[1], k.shape[1], q_offset, device=q.device)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bkgst,btkd->bskgd", w, v)
+
+
+def _chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0, chunk: int = 1024,
+                       sm_dtype=torch.float32) -> torch.Tensor:
+    """Online softmax over KV chunks in plain PyTorch.
+
+    Never materialises the full (S, T) score matrix: peak scratch is
+    (B,K,G,S,chunk).  Chunks wholly above the causal diagonal are skipped by
+    the Python loop, as the reference skips them at trace time.
+    """
+    b, s, kh, g, d = q.shape
+    t = k.shape[1]
+    nk = (t + chunk - 1) // chunk
+    pad = nk * chunk - t
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    kc = k.reshape(b, nk, chunk, kh, d)
+    vc = v.reshape(b, nk, chunk, kh, d)
+    qchunk = min(chunk, s)
+    nq = (s + qchunk - 1) // qchunk
+    qpad = nq * qchunk - s
+    if qpad:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, qpad))
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    neg_inf = torch.full((), float("-inf"), dtype=sm_dtype, device=dev)
+
+    out_blocks = []
+    for qi in range(nq):
+        qb = q[:, qi * qchunk: (qi + 1) * qchunk]
+        q_hi = qi * qchunk + qchunk - 1 + q_offset  # last absolute q position
+        m = torch.full((b, kh, g, qchunk), float("-inf"), dtype=sm_dtype, device=dev)
+        l = torch.zeros((b, kh, g, qchunk), dtype=sm_dtype, device=dev)
+        acc = torch.zeros((b, qchunk, kh, g, d), dtype=sm_dtype, device=dev)
+        for ci in range(nk):
+            if causal and ci * chunk > q_hi:
+                continue  # chunk wholly above the causal diagonal
+            kb, vb = kc[:, ci], vc[:, ci]
+            scores = torch.einsum("bskgd,btkd->bkgst", qb, kb).to(sm_dtype) * scale
+            kpos = ci * chunk + torch.arange(chunk, device=dev)
+            valid = kpos < t
+            diagonal = causal and (ci + 1) * chunk - 1 > qi * qchunk + q_offset
+            if diagonal or qpad:
+                qpos = qi * qchunk + torch.arange(qchunk, device=dev) + q_offset
+                keep = valid[None, :]
+                if causal:
+                    keep = keep & (kpos[None, :] <= qpos[:, None])
+                scores = torch.where(keep, scores, neg_inf)
+            elif pad:
+                scores = torch.where(valid, scores, neg_inf)
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            # guard fully-masked rows (m_new = -inf): exp(-inf - -inf) -> nan
+            m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+            alpha = torch.exp(torch.where(torch.isfinite(m), m - m_safe, neg_inf))
+            p = torch.exp(scores - m_safe[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bkgst,btkd->bskgd", p.to(vb.dtype), vb).float()
+            acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv
+            m = m_new
+        denom = torch.clamp(l, min=1e-37).permute(0, 3, 1, 2)[..., None]
+        out_blocks.append((acc / denom).to(q.dtype))
+    out = torch.cat(out_blocks, dim=1)
+    return out[:, :s] if qpad else out
+
+
+def gqa_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    q_offset: int = 0,
+    impl: str = "naive",
+    chunk: int = 1024,
+    sm_dtype=torch.float32,
+) -> torch.Tensor:
+    """Grouped-query attention.  q: (B,S,H,d), k/v: (B,T,K,d) -> (B,S,H,d)."""
+    b, s, h, d = q.shape
+    n_kv = k.shape[2]
+    qg = _split_gqa(q, n_kv)
+    if impl == "pallas":
+        from ..kernels.flash_attention import ops as fa_ops
+
+        out = fa_ops.flash_attention(qg, k, v, causal=causal, q_offset=q_offset)
+    elif impl == "chunked":
+        out = _chunked_attention(qg, k, v, causal=causal, q_offset=q_offset, chunk=chunk,
+                                 sm_dtype=sm_dtype)
+    else:
+        out = _naive_attention(qg, k, v, causal=causal, q_offset=q_offset)
+    return out.reshape(b, s, h, d)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     length) -> torch.Tensor:
+    """Single-position attention against a cache.
+
+    q: (B,1,H,d); k/v_cache: (B,T,K,d); length: () or (B,) valid lengths —
+    per-row lengths support continuous batching (rows at different depths).
+    """
+    b, _, h, d = q.shape
+    n_kv = k_cache.shape[2]
+    qg = _split_gqa(q, n_kv)
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k_cache).float() * scale
+    t = k_cache.shape[1]
+    length = torch.as_tensor(length, device=q.device).broadcast_to((b,))
+    valid = torch.arange(t, device=q.device)[None, None, None, None, :] \
+        < length[:, None, None, None, None]
+    scores = scores.masked_fill(~valid, float("-inf"))
+    w = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v_cache)
+    return out.reshape(b, 1, h, d)

@@ -1,4 +1,4 @@
-"""The Hopper GRIB kernels on the card, against their plain PyTorch version.
+"""The Hopper kernels on the card, against their plain PyTorch versions.
 
 Every case needs a CUDA card and ``nvcc``; each is marked ``cuda`` and skips
 with a reason where there is none.  This file imports no JAX, so it runs
@@ -12,11 +12,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
+
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import codec  # noqa: E402
 from repro_torch.device import default_device, set_default_device  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grib_pack as gp  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.grib_pack import kernel as gk  # noqa: E402
 from repro_torch.kernels.grib_pack.ref import field_stats, pack_ref, unpack_ref  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
+from repro_torch.serving import Request, ServeEngine  # noqa: E402
 
 NBITS_ALL = (1, 8, 16, 24, 31)
 
@@ -103,3 +111,78 @@ def test_card_payloads_equal_cpu_payloads(cuda, nbits):
     assert on_card == codec.encode_fields(x, nbits=nbits, device="cpu")
     for a, b in zip(decoded, codec.decode_payloads(on_card, device="cpu")):
         assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+# ---------------------------------------------------------------------------
+# flash attention (tolerances of tests/test_kernels.py:21-22)
+# ---------------------------------------------------------------------------
+
+def attn_tol(dtype):
+    return dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 else dict(atol=2e-4, rtol=2e-4)
+
+
+def attn_inputs(cuda, seed, bk, groups, sq, sk, d, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(cuda, dtype)
+            for s in ((bk * groups, sq, d), (bk, sk, d), (bk, sk, d))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", fk.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,off", [(64, 64, 0), (100, 100, 0), (77, 200, 123)])
+def test_flash_kernel_equals_plain_version(cuda, dtype, d, causal, sq, sk, off):
+    q, k, v = attn_inputs(cuda, d + sq, 2, 3, sq, sk, d, dtype)
+    out = fk.flash_attention_call(q, k, v, groups=3, causal=causal, q_offset=off)
+    ref = flash_attention_ref(q, k, v, groups=3, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), **attn_tol(dtype))
+
+
+def test_flash_wrapper_counts_each_launch(cuda):
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 40, 2, 4, 64), dtype=np.float32)).to(cuda)
+    k = torch.from_numpy(rng.standard_normal((1, 40, 2, 64), dtype=np.float32)).to(cuda)
+    fa.reset_kernel_launches()
+    out = fa.flash_attention(q, k, k, causal=True)
+    assert fa.KERNEL_LAUNCHES == {"flash_attention": 1}
+    cpu = fa.flash_attention(q.cpu(), k.cpu(), k.cpu(), causal=True)
+    assert fa.KERNEL_LAUNCHES == {"flash_attention": 1}
+    torch.testing.assert_close(out.cpu(), cpu, atol=2e-4, rtol=2e-4)
+
+
+def test_flash_kernel_refuses_bad_inputs(cuda):
+    q = torch.zeros((4, 8, 64), device=cuda)
+    k = torch.zeros((2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fk.flash_attention_call(q.half(), k.half(), k.half(), groups=2, causal=True)
+    with pytest.raises(ValueError, match="head dim 48"):
+        fk.flash_attention_call(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                k[..., :48].contiguous(), groups=2, causal=True)
+    with pytest.raises(ValueError, match="query rows"):
+        fk.flash_attention_call(q, k, k, groups=3, causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.flash_attention_call(q.transpose(0, 1).contiguous().transpose(0, 1), k, k,
+                                groups=2, causal=True)
+    with pytest.raises(ValueError, match="k is torch.bfloat16"):
+        fk.flash_attention_call(q, k.bfloat16(), k, groups=2, causal=True)
+
+
+def test_serving_on_the_card_launches_the_kernel_per_layer_and_matches_the_cpu(cuda):
+    """reduced(qwen2.5-3b) in float32 with attn_impl="pallas": one kernel
+    launch per layer per prefill, and the card's tokens equal the CPU's."""
+    cfg = dataclasses.replace(reduced(get_config("qwen2.5-3b")), attn_impl="pallas")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32) for n in (5, 70, 33)]
+    gens = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(params.to(dev), cfg, max_batch=2, cache_len=96)
+        for p in prompts:
+            eng.submit(Request(prompt=p, max_new_tokens=6))
+        fa.reset_kernel_launches()
+        gens[dev] = [r.generated for r in sorted(eng.run(), key=lambda r: r.rid)]
+        launches = fa.KERNEL_LAUNCHES["flash_attention"]
+        assert launches == (cfg.n_layers * len(prompts) if dev == "cuda" else 0)
+    assert gens["cuda"] == gens["cpu"]

@@ -13,6 +13,23 @@ REF, PORT = SRC / "repro", SRC / "repro_torch"
 
 #: modules copied from repro and kept equal to it
 CARRIED = (
+    "cache/__init__.py",
+    "cache/fdb.py",
+    "cache/shard.py",
+    "cache/singleflight.py",
+    "configs/__init__.py",
+    "configs/base.py",
+    "configs/granite_moe_3b_a800m.py",
+    "configs/internlm2_20b.py",
+    "configs/internvl2_76b.py",
+    "configs/mamba2_370m.py",
+    "configs/nwp_100m.py",
+    "configs/phi35_moe_42b.py",
+    "configs/phi3_mini_3_8b.py",
+    "configs/qwen25_3b.py",
+    "configs/whisper_tiny.py",
+    "configs/yi_34b.py",
+    "configs/zamba2_7b.py",
     "core/__init__.py",
     "core/async_fdb.py",
     "core/catalogue.py",
@@ -42,6 +59,9 @@ CARRIED = (
     "core/posix/store.py",
     "fields/__init__.py",
     "fields/synthetic.py",
+    "lifecycle/__init__.py",
+    "lifecycle/engine.py",
+    "lifecycle/policy.py",
     "metrics/__init__.py",
     "metrics/contention.py",
     "metrics/histogram.py",
@@ -54,11 +74,23 @@ CARRIED = (
 #: modules the port rewrote for torch (same path as a reference module)
 PORTED = (
     "core/codec.py",
+    "distributed/__init__.py",
+    "distributed/sharding.py",
     "kernels/__init__.py",
+    "kernels/flash_attention/__init__.py",
+    "kernels/flash_attention/kernel.py",
+    "kernels/flash_attention/ops.py",
+    "kernels/flash_attention/ref.py",
     "kernels/grib_pack/__init__.py",
     "kernels/grib_pack/kernel.py",
     "kernels/grib_pack/ops.py",
     "kernels/grib_pack/ref.py",
+    "models/__init__.py",
+    "models/init.py",
+    "models/model.py",
+    "models/ops.py",
+    "serving/__init__.py",
+    "serving/engine.py",
 )
 
 _REBASE = re.compile(r"^(\s*)(from|import) repro(?=[.\s])", re.M)
@@ -94,11 +126,7 @@ def _drop_remote_exports(text: str) -> str:
 
 
 ALLOWED = {
-    "core/config.py": [
-        ("cache node not yet ported", _guard("cache")),
-        ("lifecycle node not yet ported", _guard("lifecycle")),
-        ("remote node not yet ported", _guard("remote")),
-    ],
+    "core/config.py": [("remote node not yet ported", _guard("remote"))],
     "core/__init__.py": [("remote exports dropped", _drop_remote_exports)],
 }
 

@@ -216,8 +216,6 @@ class TestTieredCodec:
 
     @pytest.mark.parametrize("node", [
         {"type": "remote", "addr": "127.0.0.1:1"},
-        {"type": "cache", "inner": {"backend": "daos"}},
-        {"type": "lifecycle", "inner": {"backend": "daos"}, "policies": [{}]},
     ])
     def test_unported_nodes_raise_config_error(self, node):
         with pytest.raises(tcore.ConfigError, match="not yet ported to repro_torch"):

@@ -18,6 +18,7 @@ from repro.kernels.grib_pack import ref as jref  # noqa: E402
 from repro_torch.device import default_device, set_default_device  # noqa: E402
 from repro_torch.kernels import grib_pack as tgp  # noqa: E402
 from repro_torch.kernels.grib_pack import kernel as tkernel  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.grib_pack import ref as tref  # noqa: E402
 
 NBITS_ALL = (1, 8, 16, 24, 31)
@@ -295,16 +296,17 @@ class TestDispatch:
             tkernel.grib_unpack_call(x.to(torch.int32), r, r)
 
     def test_build_names_a_missing_compiler(self, monkeypatch, tmp_path):
-        monkeypatch.setattr(tkernel, "_BUILD_DIR", tmp_path)
-        monkeypatch.setattr(tkernel, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
+        monkeypatch.setattr(tkernel.LIBRARY, "build_dir", tmp_path)
+        monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
         with pytest.raises(RuntimeError, match="not found"):
-            tkernel.build()
+            tkernel.LIBRARY.build()
         assert list(tmp_path.iterdir()) == []
 
     def test_library_is_keyed_by_the_source(self, monkeypatch, tmp_path):
-        a = tkernel.library_path()
-        assert a == tkernel.library_path()
+        a = tkernel.LIBRARY.path()
+        assert a == tkernel.LIBRARY.path()
+        assert a.name.startswith("libgrib_pack_") and a.parent == _build.BUILD_DIR
         src = tmp_path / "grib_pack.cu"
-        src.write_bytes(tkernel._SRC.read_bytes() + b"\n// edited\n")
-        monkeypatch.setattr(tkernel, "_SRC", src)
-        assert tkernel.library_path() != a
+        src.write_bytes(tkernel.LIBRARY.source.read_bytes() + b"\n// edited\n")
+        monkeypatch.setattr(tkernel.LIBRARY, "source", src)
+        assert tkernel.LIBRARY.path() != a

@@ -28,6 +28,7 @@ SUITES = (
     "test_config.py",
     "test_core_fdb.py",
     "test_fields.py",
+    "test_lifecycle.py",
     "test_metrics.py",
     "test_request.py",
     "test_select.py",
