@@ -34,7 +34,20 @@ Phases, each fatal on failure:
    answers 8 requests of ragged prompt lengths, 16 greedy tokens each; the
    kernel must have been launched once per layer per prefill, the first
    token's logits through the kernel must agree with attn_impl="naive", and
-   the batched tokens are compared with sequential prefill + decode.
+   the batched tokens are compared with sequential prefill + decode;
+6. ssm: the SSD-scan kernel against its plain PyTorch version at the shapes
+   of tests/test_kernels.py and the reduced configs' in float32 and bf16,
+   its chunk-independence case, and in bf16 the zamba2-7b and mamba2-370m
+   head and state sizes and the full-width scoring shape (2e-4 in float32,
+   5e-2 in bf16); kernel,
+   plain and ssd_chunked times at the full-width shape beside the bound.
+   Then mamba2-370m at full width (48 layers, bf16, random weights from
+   --seed made on the card) trains through Trainer with async checkpoints
+   to the emulated DAOS FDB: 6 steps of 8 x 2048 tokens, a checkpoint every
+   3, one injected failure at step 4 and a resume from step 3, whose
+   restored state must equal the saved one leaf by leaf.  The trained
+   weights then score a held-out batch through the kernel (one launch per
+   layer) and through ssd_chunked, and the two losses must agree.
 
 The line before the last is one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -78,6 +91,29 @@ ATTN_CASES = [  # (KV heads x batch, groups, Sq, Sk, d, causal, q_offset)
 ]
 SERVE_REQUESTS, SERVE_TOKENS = 8, 16
 SERVE_BATCH, SERVE_CACHE = 4, 2048
+SSD_TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4),  # tests/test_kernels.py:96
+           torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
+SSD_CARRY_TOL = dict(atol=1e-4, rtol=1e-4)  # tests/test_kernels.py:112
+SSD_CASES = [  # (batch, seq, heads, head dim, state, chunk), float32 and bf16
+    (1, 64, 1, 8, 4, 16), (2, 128, 3, 16, 8, 32),  # tests/test_kernels.py:76-83
+    (1, 256, 2, 64, 16, 64), (2, 96, 2, 16, 8, 32),
+    (2, 128, 4, 16, 16, 32),  # reduced configs: head dim 16, state 16, chunk 32
+]
+SSD_FULL = (8, 2048, 32, 64, 128, 256)  # mamba2-370m scoring: batch 8 x 2048 tokens
+# the full-size heads in bf16, as the models run them: float32 sums of a
+# 256-row chunk's terms reach a few hundred, and two summation orders then
+# differ by more than 2e-4 near zero
+SSD_BF16_CASES = [
+    (1, 512, 4, 64, 64, 256),  # zamba2-7b: head dim 64, state 64
+    (1, 512, 4, 64, 128, 256),  # mamba2-370m: head dim 64, state 128
+    SSD_FULL,
+]
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CKPT_EVERY, FAIL_AT = 8, 2048, 6, 3, 4
+# held-out loss through the kernel against ssd_chunked, both bf16: ssd_chunked
+# rounds its scores, chunk states and inter-chunk term to bf16 where the
+# kernel keeps float32, in each of 48 layers.  A CPU run of 12 reduced bf16
+# layers measured 0.0022 on a loss of 8.83.
+SCORE_TOL = 0.05
 # first-token logits through the kernel against attn_impl="naive", both bf16:
 # the naive path rounds scores, softmax weights and P.V to bf16 where the
 # kernel keeps float32, in each of the 36 layers.  8 bf16 ulps at the largest
@@ -458,6 +494,200 @@ def serve_phase(dev, seed: int) -> dict:
             "decode_tps": decode_tps, "kernel_s": kernel_s}
 
 
+def ssd_inputs(gen, b, s, h, p, n, dtype, dev):
+    """x, dt, A, B, C, D as tests/test_kernels.py:86-91 draws them, on the card."""
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x = normal(b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(normal(b, s, h))
+    A = -torch.exp(normal(h))
+    B, C = normal(b, s, n).to(dtype), normal(b, s, n).to(dtype)
+    return x, dt, A, B, C, torch.ones(h, device=dev)
+
+
+def ssd_flat(x, dt, A, B, C, D):
+    """The kernel's operands, flattened as ops.ssd_scan flattens them."""
+    from repro_torch.kernels.ssd_scan.ops import flatten
+
+    xf, dtf, af, df = flatten(x, dt, A, D)
+    return xf.contiguous(), dtf.contiguous(), af, B, C, df
+
+
+def ssd_bound(bh: int, s: int, p: int, n: int, q: int, bg: int, itemsize: int) -> tuple[float, str]:
+    """Least time in ms: x, dt, A, D, B, C read once and y written once over
+    HBM, or the Pallas body's operations at the bf16 tensor-core rate: per
+    (batch-head, chunk) 2(Q^2 N + Q^2 P + 2 Q N P) for C.B^T, scores.x, the
+    inter-chunk product and the state update."""
+    nbytes = (2 * bh * s * p + 2 * bg * s * n) * itemsize + bh * s * 4 + 2 * bh * 4
+    ops = 2 * (q * q * n + q * q * p + 2 * q * n * p) * bh * (s // q)
+    t_bytes, t_ops = nbytes / HBM_RATE, ops / BF16_PEAK
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ssd_phase(dev, seed: int) -> dict:
+    """The SSD-scan kernel against its plain version, and its times."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models.ssm import ssd_chunked
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h, p, n, chunk in [*SSD_CASES, *(SSD_BF16_CASES if dtype == torch.bfloat16 else [])]:
+            flat = ssd_flat(*ssd_inputs(gen, b, s, h, p, n, dtype, dev))
+            out = sk.ssd_scan_call(*flat, heads=h, chunk=chunk)
+            ref = ssd_scan_ref(*flat, heads=h, chunk=chunk)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            worst = max(worst, err)
+            torch.testing.assert_close(out.float(), ref.float(), **SSD_TOL[dtype])
+            say(f"[ssm] ssd_scan {str(dtype)[6:]} x ({b * h}, {s}, {p}) B ({b}, {s}, {n}) "
+                f"chunk {chunk}: max |kernel - plain| {err:.3g} (max |plain| "
+                f"{float(ref.float().abs().max()):.3g})")
+    # tests/test_kernels.py:100-112: one long chunk against many small ones
+    flat = ssd_flat(*ssd_inputs(gen, 1, 128, 2, 8, 4, torch.float32, dev))
+    flat = (*flat[:5], torch.zeros_like(flat[5]))
+    one = sk.ssd_scan_call(*flat, heads=2, chunk=128)
+    many = sk.ssd_scan_call(*flat, heads=2, chunk=16)
+    carry_err = float((one - many).abs().max())
+    torch.testing.assert_close(one, many, **SSD_CARRY_TOL)
+    say(f"[ssm] ssd_scan state carry, chunk 128 vs 16: max |diff| {carry_err:.3g}")
+
+    b, s, h, p, n, chunk = SSD_FULL
+    x, dt, A, B, C, D = ssd_inputs(gen, b, s, h, p, n, torch.bfloat16, dev)
+    flat = ssd_flat(x, dt, A, B, C, D)
+    call = lambda: sk.ssd_scan_call(*flat, heads=h, chunk=chunk)  # noqa: E731
+    plain = lambda: ssd_scan_ref(*flat, heads=h, chunk=chunk)  # noqa: E731
+    chunked = lambda: ssd_chunked(x, dt, A, B, C, D, chunk=chunk)  # noqa: E731
+    timing = {"ms": device_ms(call), "call_ms": call_ms(call),
+              "plain_ms": device_ms(plain, launches=5), "chunked_ms": device_ms(chunked, launches=5)}
+    bound, by = ssd_bound(b * h, s, p, n, chunk, b, 2)
+    flops = 2 * (chunk * chunk * n + chunk * chunk * p + 2 * chunk * n * p) * b * h * (s // chunk)
+    say(f"[ssm] ssd_scan full width x ({b * h}, {s}, {p}) B ({b}, {s}, {n}) bf16 chunk {chunk}: "
+        f"kernel {timing['ms']:.4f} ms ({flops / timing['ms'] / 1e9:.1f} TFLOP/s of the Pallas "
+        f"body's work; one call from idle {timing['call_ms']:.4f} ms), plain "
+        f"{timing['plain_ms']:.4f} ms; bound {bound:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP at "
+        f"{BF16_PEAK / 1e12:.0f} TFLOP/s bf16)")
+    say(f"[ssm] yardstick, not a library call: ssd_chunked (plain PyTorch, the training path) "
+        f"at the same shape {timing['chunked_ms']:.4f} ms; library_ms of ssd_scan: none, no "
+        "single PyTorch call computes the SSD scan")
+    return {**timing, "max_abs_err": worst, "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def checksums(state) -> dict[str, float]:
+    """Per reference leaf name, the float64 sum of its values."""
+    from repro_torch.tree import leaf_groups
+
+    names, sums = [], []
+    for name, group, _ in leaf_groups(state):
+        names.append(name)
+        sums.append(torch.stack([t.detach().double().sum() for t in group]).sum())
+    return dict(zip(names, torch.stack(sums).tolist()))
+
+
+def train_phase(dev, seed: int) -> dict:
+    """mamba2-370m at full width through Trainer with FDB checkpoints and one
+    injected failure, then scored through the kernel and through ssd_chunked."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import CHECKPOINT_SCHEMA, make_fdb
+    from repro_torch.core.daos import DaosEngine
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.models import train_loss
+    from repro_torch.training import Trainer
+
+    cfg = dataclasses.replace(get_config("mamba2-370m"), attn_impl="naive", remat="full")
+    assert (cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_heads, cfg.ssm.head_dim,
+            cfg.ssm.d_state, cfg.padded_vocab) == (48, 1024, 2048, 32, 64, 128, 50432), cfg
+    hp = TrainConfig(learning_rate=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS,
+                     checkpoint_every=CKPT_EVERY, async_checkpoint=True, seed=seed)
+    fdb = make_fdb("daos", schema=CHECKPOINT_SCHEMA, engine=DaosEngine())
+    trainer = Trainer(cfg, hp, fdb, run="mamba2-370m", global_batch=TRAIN_BATCH,
+                      seq_len=TRAIN_SEQ, device=dev)
+    saved, restored = {}, {}
+    save, restore = trainer.ckpt.save, trainer.ckpt.restore
+
+    def save_and_sum(step, state, **kw):
+        saved[step] = checksums(state)
+        return save(step, state, **kw)
+
+    def restore_and_sum(template, step=None, **kw):
+        got, state = restore(template, step, **kw)
+        restored[got] = checksums(state)
+        return got, state
+
+    trainer.ckpt.save, trainer.ckpt.restore = save_and_sum, restore_and_sum
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = trainer.train(TRAIN_STEPS, fail_at=FAIL_AT, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    params = trainer.params
+    n_params = sum(p.numel() for p in params.parameters())
+    say(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+        f"{cfg.ssm_heads} SSM heads of {cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, vocab "
+        f"{cfg.padded_vocab}, {cfg.dtype}, attn_impl {cfg.attn_impl}, remat {cfg.remat}: "
+        f"{n_params:,} parameters (the analytic param_count() gives {cfg.param_count():,}: it "
+        "leaves out dt_bias, the conv biases, the inner norm's extra width and final_norm)")
+    # the reference's init_params makes the same leaves at this config
+    assert n_params == 420_136_448 and cfg.param_count() == 419_974_144, n_params
+    losses = [loss for _, loss in report.losses]
+    steady = report.step_s[1:]
+    step_med = statistics.median(steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    say(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, checkpoint every "
+        f"{CKPT_EVERY} (async, emulated DAOS), failure injected at step {FAIL_AT}: wall {wall:.2f} s, "
+        f"{len(report.step_s)} steps taken, restarts {report.restarts}, final step {report.final_step}")
+    say(f"[train] step seconds {[round(x, 4) for x in report.step_s]}; median after the first "
+        f"{step_med:.4f} s = {tokens / step_med:.1f} tokens/s; peak card memory "
+        f"{peak / 1e9:.2f} GB")
+    say(f"[train] losses (step, loss): {[(s_, round(x, 5)) for s_, x in report.losses]}")
+    for rec in trainer.ckpt.timings:
+        if rec["op"] == "save":
+            say(f"[train] checkpoint step {rec['step']}: {rec['bytes'] / 1e9:.3f} GB, snapshot to "
+                f"host {rec['snapshot_s']:.3f} s (blocks the step loop), write + publish "
+                f"{rec['write_s']:.3f} s (writer thread)")
+        else:
+            say(f"[train] restore step {rec['step']}: {rec['bytes'] / 1e9:.3f} GB in "
+                f"{rec['restore_s']:.3f} s")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert report.restarts == 1 and report.final_step == TRAIN_STEPS, report
+    assert list(restored) == [CKPT_EVERY], restored.keys()
+    assert restored[CKPT_EVERY] == saved[CKPT_EVERY], "restored state != saved state"
+    say(f"[train] restored step {CKPT_EVERY}: {len(restored[CKPT_EVERY])} leaves, every float64 "
+        "checksum equal to the saved state's")
+
+    held = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed + 1).batch_for_step(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in held.items()}
+    kernel_cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    with torch.no_grad():
+        train_loss(params, kernel_cfg, batch)  # warm-up
+        torch.cuda.synchronize()
+        sops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        lk, _ = train_loss(params, kernel_cfg, batch)
+        lk = float(lk)
+        kernel_s = time.perf_counter() - t0
+        launches = sops.KERNEL_LAUNCHES["ssd_scan"]
+        train_loss(params, cfg, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ln = float(train_loss(params, cfg, batch)[0])
+        naive_s = time.perf_counter() - t0
+    say(f"[score] held-out batch {TRAIN_BATCH} x {TRAIN_SEQ}, trained weights: loss through the "
+        f"kernel {lk:.6f} ({kernel_s:.3f} s), through ssd_chunked {ln:.6f} ({naive_s:.3f} s); "
+        f"|diff| {abs(lk - ln):.3g} (tolerance {SCORE_TOL}); ssd_scan launches {launches} = "
+        f"{cfg.n_layers} layers x 1 pass")
+    assert math.isfinite(lk) and math.isfinite(ln), (lk, ln)
+    assert launches == cfg.n_layers, launches
+    assert abs(lk - ln) <= SCORE_TOL, (lk, ln)
+    return {"launches": launches, "step_s": step_med, "losses": losses, "peak": peak}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -473,9 +703,14 @@ def main() -> int:
     from repro_torch.kernels.grib_pack import kernel as gk
     from repro_torch.kernels.grib_pack import ops as gops
     from repro_torch.kernels.grib_pack.ref import field_stats, pack_ref, unpack_ref
+    from repro_torch.kernels.ssd_scan import kernel as sk
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # float32 matmuls and convolutions in full float32, not TF32, for every
+    # comparison with a plain version
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
 
     # ---------------------------------------------------------------- 1. card
@@ -487,7 +722,7 @@ def main() -> int:
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}"
         f" devices {torch.cuda.device_count()} memory rate used for bounds {HBM_RATE / 1e12:.2f} TB/s")
     t0 = time.perf_counter()
-    libs = _build.build_all([gk.LIBRARY, fk.LIBRARY])  # one nvcc per source, all at once
+    libs = _build.build_all([gk.LIBRARY, fk.LIBRARY, sk.LIBRARY])  # one nvcc per source, all at once
     say(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
 
     # ------------------------------------------------------------- 2. kernels
@@ -599,6 +834,12 @@ def main() -> int:
 
     # --------------------------------------------------------------- 5. serve
     serve = serve_phase(dev, args.seed)
+    torch.cuda.empty_cache()  # the serving phase's weights are gone
+
+    # ----------------------------------------------------------------- 6. ssm
+    ssd = ssd_phase(dev, args.seed)
+    torch.cuda.empty_cache()
+    train = train_phase(dev, args.seed)
 
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -630,6 +871,15 @@ def main() -> int:
         "launches": serve["launches"],
         **{k: attn[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")},
+    })
+    kernels.append({
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:30",
+        "launches": train["launches"],
+        **{k: ssd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
     })
     say(json.dumps({"kernels": kernels}))
     say(smi)

@@ -3,11 +3,14 @@
 - grib_pack: GRIB-style simple-packing field codec (the NWP I/O-plane hotspot)
 - flash_attention: tiled online-softmax attention (causal/bidir, GQA), the
   prefill attention of the serving path
+- ssd_scan: the Mamba2 SSD chunked scan with a carried state, the scoring
+  path of the ssm family
 
 Each package mirrors the reference's three files: ``kernel.py`` builds and
 binds the CUDA source under ``csrc/``, ``ops.py`` is the public wrapper that
 dispatches (a CPU tensor goes to the plain version, a CUDA tensor to the
 kernel) and counts kernel launches, and ``ref.py`` is the plain PyTorch
-version.  Nothing is compiled when a module is imported: :mod:`._build`
+version.  The kernels have no backward, as the reference's have no VJP
+(:mod:`._autograd`).  Nothing is compiled when a module is imported: :mod:`._build`
 builds a kernel's library with ``nvcc`` at its first launch.
 """

@@ -5,8 +5,8 @@ part of the contract: q (B, Sq, K, G, d) and k, v (B, Sk, K, d) are
 flattened to the kernel's (B*K*G, Sq, d) and (B*K, Sk, d), and the result
 comes back as (B, Sq, K, G, d).  A CPU tensor goes to the plain version in
 :mod:`.ref`, a CUDA tensor to the hand-written kernel in :mod:`.kernel` (or
-the launch raises).  :data:`KERNEL_LAUNCHES` counts launches of the CUDA
-kernel only.
+the launch raises).  Neither has a backward: the reference kernel has no
+VJP.  :data:`KERNEL_LAUNCHES` counts launches of the CUDA kernel only.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import threading
 
 import torch
 
+from .._autograd import forward_only
 from .kernel import flash_attention_call
 from .ref import flash_attention_ref
 
@@ -28,6 +29,16 @@ _launch_mu = threading.Lock()
 def reset_kernel_launches() -> None:
     with _launch_mu:
         KERNEL_LAUNCHES["flash_attention"] = 0
+
+
+def _attend(qf, kf, vf, groups: int, causal: bool, q_offset: int) -> torch.Tensor:
+    if qf.device.type == "cpu":
+        return flash_attention_ref(qf, kf, vf, groups=groups, causal=causal, q_offset=q_offset)
+    out = flash_attention_call(qf.contiguous(), kf.contiguous(), vf.contiguous(),
+                               groups=groups, causal=causal, q_offset=q_offset)
+    with _launch_mu:
+        KERNEL_LAUNCHES["flash_attention"] += 1
+    return out
 
 
 def flash_attention(
@@ -45,11 +56,5 @@ def flash_attention(
     qf = q.permute(0, 2, 3, 1, 4).reshape(b * kh * g, sq, d)
     kf = k.permute(0, 2, 1, 3).reshape(b * kh, sk, d)
     vf = v.permute(0, 2, 1, 3).reshape(b * kh, sk, d)
-    if qf.device.type == "cpu":
-        out = flash_attention_ref(qf, kf, vf, groups=g, causal=causal, q_offset=q_offset)
-    else:
-        out = flash_attention_call(qf.contiguous(), kf.contiguous(), vf.contiguous(),
-                                   groups=g, causal=causal, q_offset=q_offset)
-        with _launch_mu:
-            KERNEL_LAUNCHES["flash_attention"] += 1
+    out = forward_only("flash_attention", _attend, qf, kf, vf, g, causal, q_offset)
     return out.reshape(b, kh, g, sq, d).permute(0, 3, 1, 2, 4)

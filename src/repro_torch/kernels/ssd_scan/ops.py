@@ -1,0 +1,67 @@
+"""Public wrapper: the SSD scan on the card, or plainly on the CPU.
+
+The transposes and broadcasts of the reference's ``ops.ssd_scan`` are part
+of the contract: x (B, S, H, P) and dt (B, S, H) are flattened to the
+kernel's (B*H, S, P) and (B*H, S), A and D are broadcast to (B*H, 1), and B
+and C stay (B, S, N), shared by the heads of a batch entry.  A CPU tensor
+goes to the plain version in :mod:`.ref`, a CUDA tensor to the hand-written
+kernel in :mod:`.kernel` (or the launch raises).  Neither has a backward:
+the reference kernel has no VJP.  :data:`KERNEL_LAUNCHES` counts launches of
+the CUDA kernel only.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from .._autograd import forward_only
+from .kernel import ssd_scan_call
+from .ref import ssd_scan_ref
+
+__all__ = ["KERNEL_LAUNCHES", "flatten", "ssd_scan", "reset_kernel_launches"]
+
+#: launches of the CUDA kernel (the plain CPU version is not counted)
+KERNEL_LAUNCHES = {"ssd_scan": 0}
+_launch_mu = threading.Lock()
+
+
+def reset_kernel_launches() -> None:
+    with _launch_mu:
+        KERNEL_LAUNCHES["ssd_scan"] = 0
+
+
+def _scan(x, dt, A, B_, C_, D_, heads: int, chunk: int) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, A, B_, C_, D_, heads=heads, chunk=chunk)
+    out = ssd_scan_call(x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
+                        B_.contiguous(), C_.contiguous(), D_.float().contiguous(),
+                        heads=heads, chunk=chunk)
+    with _launch_mu:
+        KERNEL_LAUNCHES["ssd_scan"] += 1
+    return out
+
+
+def ssd_scan(
+    x: torch.Tensor,   # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)
+    A: torch.Tensor,   # (H,)
+    B_: torch.Tensor,  # (B, S, N)
+    C_: torch.Tensor,  # (B, S, N)
+    D_: torch.Tensor,  # (H,)
+    *,
+    chunk: int = 256,
+) -> torch.Tensor:
+    b, s, h, p = x.shape
+    xf, dtf, af, df = flatten(x, dt, A, D_)
+    out = forward_only("ssd_scan", _scan, xf, dtf, af, B_, C_, df, h, chunk)
+    return out.reshape(b, h, s, p).permute(0, 2, 1, 3)
+
+
+def flatten(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, D_: torch.Tensor):
+    """x (B,S,H,P), dt (B,S,H), A and D (H,) -> the kernel's x (B*H,S,P),
+    dt (B*H,S), A and D (B*H,1), as the reference's wrapper makes them."""
+    b, s, h, p = x.shape
+    return (x.permute(0, 2, 1, 3).reshape(b * h, s, p), dt.permute(0, 2, 1).reshape(b * h, s),
+            A[None, :].expand(b, h).reshape(b * h, 1), D_[None, :].expand(b, h).reshape(b * h, 1))

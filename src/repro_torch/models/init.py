@@ -1,4 +1,4 @@
-"""Parameters of the dense family as ``nn.Module``s, drawn or carried over.
+"""Parameters of the dense and ssm families as ``nn.Module``s, drawn or carried over.
 
 The reference keeps its parameters as a pytree with layer-stacked leaves
 (``params["blocks"]["wq"]`` of shape (L, D, H, hd)).  The port keeps one
@@ -7,7 +7,11 @@ like the reference's key: ``params["blocks"][i]["wq"]`` has shape
 (D, H, hd).  :func:`init_params` draws the reference's distributions from a
 ``torch.Generator`` (it does not reproduce JAX's random numbers);
 :func:`params_from_numpy` carries a reference pytree across, given as numpy
-arrays.
+arrays.  ``A_log`` and ``D_skip`` of the ssm family stay float32 in a bf16
+model, as in the reference.
+
+Parameters are made with ``requires_grad=False``, which is what serving and
+scoring want; a trainer switches them on with ``params.requires_grad_(True)``.
 """
 
 from __future__ import annotations
@@ -22,9 +26,11 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 
-__all__ = ["ParamDict", "DenseParams", "init_params", "params_from_numpy", "torch_dtype"]
+__all__ = ["ParamDict", "ModelParams", "init_params", "params_from_numpy", "torch_dtype"]
 
 _ROADMAP_ITEM = {"moe": 6, "ssm": 5, "hybrid": 5, "audio": 6, "vlm": 6}
+#: leaves kept in float32 whatever the model dtype (``repro/models/init.py:201-206``)
+FLOAT32_LEAVES = ("A_log", "D_skip")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -32,13 +38,14 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def require_dense(cfg: ModelConfig, what: str) -> None:
-    """Raise NotImplementedError for a family this slice does not port."""
-    if cfg.family != "dense":
+def require_family(cfg: ModelConfig, what: str, families: tuple[str, ...] = ("dense",)) -> None:
+    """Raise NotImplementedError for a family that ``what`` is not ported for."""
+    if cfg.family not in families:
         raise NotImplementedError(
             f"{what} for the {cfg.family} family is not ported yet "
             f"(ROADMAP queue 1, item {_ROADMAP_ITEM.get(cfg.family, 6)}); "
-            "repro_torch serves the dense family"
+            f"repro_torch runs it for the {' and '.join(families)} famil"
+            f"{'ies' if len(families) > 1 else 'y'}"
         )
 
 
@@ -53,10 +60,13 @@ class ParamDict(nn.Module):
     def __getitem__(self, name: str) -> torch.Tensor:
         return getattr(self, name)
 
+    def tree(self) -> dict[str, nn.Parameter]:
+        return dict(self.named_parameters())
 
-class DenseParams(nn.Module):
-    """The dense family's parameters: ``embed``, ``blocks`` (one ParamDict per
-    layer), ``final_norm`` and, unless tied, ``lm_head``."""
+
+class ModelParams(nn.Module):
+    """A model's parameters: ``embed``, ``blocks`` (one ParamDict per layer),
+    ``final_norm`` and, unless tied, ``lm_head``."""
 
     def __init__(self, embed: torch.Tensor, blocks: list[Mapping[str, torch.Tensor]],
                  final_norm: torch.Tensor, lm_head: torch.Tensor | None):
@@ -74,9 +84,28 @@ class DenseParams(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def tree(self) -> dict:
+        """The parameters as the reference's pytree, with ``blocks`` a list of
+        per-layer dicts: ``{"embed": p, "blocks": [{"wq": p, ...}, ...], ...}``."""
+        out = {name: p for name, p in self.named_parameters(recurse=False)}
+        out["blocks"] = [bp.tree() for bp in self.blocks]
+        return out
 
-def _block_shapes(cfg: ModelConfig) -> dict[str, tuple]:
-    """One layer's shapes (``repro/models/init.py::_attn_shapes`` + ``_ffn_shapes``)."""
+    @torch.no_grad()
+    def copy_from(self, tree: Mapping) -> None:
+        """Copy a tree shaped like :meth:`tree` into the parameters, in place,
+        casting each leaf to its parameter's dtype and device."""
+        for name, p in self.named_parameters(recurse=False):
+            p.copy_(tree[name])
+        if len(tree["blocks"]) != len(self.blocks):
+            raise ValueError(f"tree has {len(tree['blocks'])} layers, the model {len(self.blocks)}")
+        for bp, src in zip(self.blocks, tree["blocks"]):
+            for name, p in bp.named_parameters():
+                p.copy_(src[name])
+
+
+def _attn_ffn_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    """``repro/models/init.py::_attn_shapes`` + ``_ffn_shapes``."""
     hd, d = cfg.resolved_head_dim, cfg.d_model
     s: dict[str, tuple] = {
         "attn_norm": (d,),
@@ -96,6 +125,35 @@ def _block_shapes(cfg: ModelConfig) -> dict[str, tuple]:
     return s
 
 
+def _ssm_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    """``repro/models/init.py::_ssm_shapes``."""
+    di, n, h, k = cfg.d_inner, cfg.ssm.d_state, cfg.ssm_heads, cfg.ssm.d_conv
+    return {
+        "norm_in": (cfg.d_model,),
+        "w_z": (cfg.d_model, di),
+        "w_x": (cfg.d_model, di),
+        "w_B": (cfg.d_model, n),
+        "w_C": (cfg.d_model, n),
+        "w_dt": (cfg.d_model, h),
+        "dt_bias": (h,),
+        "conv_x": (k, di),
+        "conv_x_b": (di,),
+        "conv_B": (k, n),
+        "conv_B_b": (n,),
+        "conv_C": (k, n),
+        "conv_C_b": (n,),
+        "A_log": (h,),
+        "D_skip": (h,),
+        "norm": (di,),
+        "out_proj": (di, cfg.d_model),
+    }
+
+
+def _block_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    """One layer's shapes."""
+    return _ssm_shapes(cfg) if cfg.family == "ssm" else _attn_ffn_shapes(cfg)
+
+
 def _fan_in(name: str, shape: tuple) -> int:
     """As ``repro/models/init.py::_init_tree``: the first axis, or the first
     two for the output projection."""
@@ -103,15 +161,22 @@ def _fan_in(name: str, shape: tuple) -> int:
     return max(1, fan_in)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) -> DenseParams:
-    """Random parameters of the dense family, with the reference's distributions.
+def _leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if name in FLOAT32_LEAVES else dtype
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) -> ModelParams:
+    """Random parameters of the dense or ssm family, with the reference's
+    distributions (``repro/models/init.py::_init_tree``).
 
     Matrices (and the QKV biases, which the reference draws the same way) are
     normal / sqrt(fan_in) drawn in float32 and cast to ``cfg.dtype``; norm
-    scales are 1.  The draws run on ``generator``'s device and land on
-    ``device`` (default: :func:`repro_torch.device.default_device`).
+    scales are 1, conv biases and ``dt_bias`` 0; ``A_log`` is
+    log(1 + 15 U[0, 1)) and ``D_skip`` 1, both float32.  The draws run on
+    ``generator``'s device and land on ``device`` (default:
+    :func:`repro_torch.device.default_device`).
     """
-    require_dense(cfg, "init_params")
+    require_family(cfg, "init_params", ("dense", "ssm"))
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
 
@@ -119,18 +184,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) ->
         x = torch.randn(shape, generator=generator, dtype=torch.float32, device=generator.device)
         return (x / math.sqrt(fan_in)).to(device=dev, dtype=dtype)
 
-    def ones(shape: tuple) -> torch.Tensor:
-        return torch.ones(shape, dtype=dtype, device=dev)
+    def leaf(name: str, shape: tuple) -> torch.Tensor:
+        if name.endswith(("norm", "_b", "norm_in")) or name == "dt_bias":
+            fill = torch.ones if "norm" in name else torch.zeros
+            return fill(shape, dtype=dtype, device=dev)
+        if name == "A_log":  # A in [1, 16) as in Mamba2
+            u = torch.rand(shape, generator=generator, dtype=torch.float32, device=generator.device)
+            return torch.log(1.0 + 15.0 * u).to(dev)
+        if name == "D_skip":
+            return torch.ones(shape, dtype=torch.float32, device=dev)
+        return dense(shape, _fan_in(name, shape))
 
     embed = dense((cfg.padded_vocab, cfg.d_model), cfg.d_model)
-    blocks = []
-    for _ in range(cfg.n_layers):
-        blocks.append({
-            name: ones(shape) if name.endswith("norm") else dense(shape, _fan_in(name, shape))
-            for name, shape in sorted(_block_shapes(cfg).items())
-        })
+    shapes = sorted(_block_shapes(cfg).items())
+    blocks = [{name: leaf(name, shape) for name, shape in shapes} for _ in range(cfg.n_layers)]
     lm_head = None if cfg.tie_embeddings else dense((cfg.d_model, cfg.padded_vocab), cfg.d_model)
-    return DenseParams(embed, blocks, ones((cfg.d_model,)), lm_head)
+    return ModelParams(embed, blocks, torch.ones((cfg.d_model,), dtype=dtype, device=dev), lm_head)
 
 
 def _tensor(a, device, dtype: torch.dtype) -> torch.Tensor:
@@ -142,18 +211,18 @@ def _tensor(a, device, dtype: torch.dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def params_from_numpy(cfg: ModelConfig, tree: Mapping, *, device=None) -> DenseParams:
+def params_from_numpy(cfg: ModelConfig, tree: Mapping, *, device=None) -> ModelParams:
     """Carry the reference's parameter pytree across, as nested dicts of numpy
     arrays (``jax.tree.map(np.asarray, params)``); bf16 leaves go through a
     uint16 view.  Layer-stacked leaves are split per layer."""
-    require_dense(cfg, "params_from_numpy")
+    require_family(cfg, "params_from_numpy", ("dense", "ssm"))
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     names = set(_block_shapes(cfg))
     if set(tree["blocks"]) != names:
         raise ValueError(f"blocks hold {sorted(tree['blocks'])}, the config needs {sorted(names)}")
-    stacked = {name: _tensor(a, dev, dtype) for name, a in tree["blocks"].items()}
+    stacked = {name: _tensor(a, dev, _leaf_dtype(name, dtype)) for name, a in tree["blocks"].items()}
     blocks = [{name: t[i] for name, t in sorted(stacked.items())} for i in range(cfg.n_layers)]
     lm_head = None if cfg.tie_embeddings else _tensor(tree["lm_head"], dev, dtype)
-    return DenseParams(_tensor(tree["embed"], dev, dtype), blocks,
+    return ModelParams(_tensor(tree["embed"], dev, dtype), blocks,
                        _tensor(tree["final_norm"], dev, dtype), lm_head)

@@ -20,7 +20,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import CACHE_BATCH_AXIS, decode_step, init_cache, prefill
-from ..models.init import DenseParams
+from ..models.init import ModelParams
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -48,7 +48,7 @@ def _insert_slot(batch_cache: dict, single_cache: dict, slot: int) -> dict:
 
 
 class ServeEngine:
-    def __init__(self, params: DenseParams, cfg: ModelConfig, *, max_batch: int = 4,
+    def __init__(self, params: ModelParams, cfg: ModelConfig, *, max_batch: int = 4,
                  cache_len: int = 256):
         self.params = params
         self.cfg = cfg

@@ -23,7 +23,10 @@ from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.grib_pack import kernel as gk  # noqa: E402
 from repro_torch.kernels.grib_pack.ref import field_stats, pack_ref, unpack_ref  # noqa: E402
-from repro_torch.models import init_params  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.models import init_params, train_loss  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 
 NBITS_ALL = (1, 8, 16, 24, 31)
@@ -186,3 +189,100 @@ def test_serving_on_the_card_launches_the_kernel_per_layer_and_matches_the_cpu(c
         launches = fa.KERNEL_LAUNCHES["flash_attention"]
         assert launches == (cfg.n_layers * len(prompts) if dev == "cuda" else 0)
     assert gens["cuda"] == gens["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# SSD scan (tolerances of tests/test_kernels.py:96)
+# ---------------------------------------------------------------------------
+
+def ssd_tol(dtype):
+    return dict(atol=5e-2, rtol=5e-2) if dtype == torch.bfloat16 else dict(atol=2e-4, rtol=2e-4)
+
+
+def ssd_inputs(cuda, seed, b, s, h, p, n, dtype):
+    """Flattened kernel operands: x (b*h, s, p), dt (b*h, s), A and D (b*h, 1), B and C (b, s, n)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b * h, s, p), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b * h, s)))).astype(np.float32)
+    a = np.repeat(-np.exp(rng.standard_normal((1, h))), b, axis=0).reshape(b * h, 1)
+    bb, cc = (rng.standard_normal((b, s, n), dtype=np.float32) for _ in range(2))
+    d = rng.standard_normal((b * h, 1)).astype(np.float32)
+    f32 = [torch.from_numpy(v.astype(np.float32)).to(cuda) for v in (dt, a, d)]
+    x, bb, cc = (torch.from_numpy(v).to(cuda, dtype) for v in (x, bb, cc))
+    return x, f32[0], f32[1], bb, cc, f32[2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", sk.HEAD_DIMS)
+@pytest.mark.parametrize("n", sk.STATE_DIMS)
+@pytest.mark.parametrize("s,chunk", [(128, 64), (96, 96), (64, 16)])
+def test_ssd_kernel_equals_plain_version(cuda, dtype, p, n, s, chunk):
+    args = ssd_inputs(cuda, p + n + s, 2, s, 3, p, n, dtype)
+    out = sk.ssd_scan_call(*args, heads=3, chunk=chunk)
+    ref = ssd_scan_ref(*args, heads=3, chunk=chunk)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == args[0].shape
+    torch.testing.assert_close(out.float(), ref.float(), **ssd_tol(dtype))
+
+
+def test_ssd_wrapper_counts_each_launch(cuda):
+    x, dt, a, bb, cc, d = ssd_inputs(cuda, 0, 2, 64, 3, 16, 8, torch.float32)
+    x4 = x.reshape(2, 3, 64, 16).permute(0, 2, 1, 3)
+    dt4 = dt.reshape(2, 3, 64).permute(0, 2, 1)
+    ss.reset_kernel_launches()
+    out = ss.ssd_scan(x4, dt4, a[:3, 0], bb, cc, d[:3, 0], chunk=32)
+    assert ss.KERNEL_LAUNCHES == {"ssd_scan": 1}
+    cpu = ss.ssd_scan(*(t.cpu() for t in (x4, dt4, a[:3, 0], bb, cc, d[:3, 0])), chunk=32)
+    assert ss.KERNEL_LAUNCHES == {"ssd_scan": 1}
+    torch.testing.assert_close(out.cpu(), cpu, atol=2e-4, rtol=2e-4)
+
+
+def test_ssd_kernel_refuses_bad_inputs(cuda):
+    x, dt, a, bb, cc, d = ssd_inputs(cuda, 1, 1, 64, 2, 32, 8, torch.float32)
+    with pytest.raises(ValueError, match="head dim 32"):
+        sk.ssd_scan_call(x, dt, a, bb, cc, d, heads=2, chunk=32)
+    x, dt, a, bb, cc, d = ssd_inputs(cuda, 1, 1, 64, 2, 16, 32, torch.float32)
+    with pytest.raises(ValueError, match="state size 32"):
+        sk.ssd_scan_call(x, dt, a, bb, cc, d, heads=2, chunk=32)
+    x, dt, a, bb, cc, d = ssd_inputs(cuda, 1, 1, 64, 2, 16, 8, torch.float32)
+    with pytest.raises(ValueError, match="multiple of chunk 48"):
+        sk.ssd_scan_call(x, dt, a, bb, cc, d, heads=2, chunk=48)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sk.ssd_scan_call(x.half(), dt, a, bb.half(), cc.half(), d, heads=2, chunk=32)
+    with pytest.raises(ValueError, match="B is torch.bfloat16"):
+        sk.ssd_scan_call(x, dt, a, bb.bfloat16(), cc, d, heads=2, chunk=32)
+    with pytest.raises(ValueError, match="do not hold 1 heads"):
+        sk.ssd_scan_call(x, dt, a, bb, cc, d, heads=1, chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.ssd_scan_call(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a, bb, cc, d,
+                         heads=2, chunk=32)
+
+
+def test_kernels_refuse_gradients_on_the_card(cuda):
+    x, dt, a, bb, cc, d = ssd_inputs(cuda, 2, 1, 64, 2, 16, 8, torch.float32)
+    x4 = x.reshape(1, 2, 64, 16).permute(0, 2, 1, 3).requires_grad_(True)
+    out = ss.ssd_scan(x4, dt.reshape(1, 2, 64).permute(0, 2, 1), a[:, 0], bb, cc, d[:, 0], chunk=32)
+    with pytest.raises(NotImplementedError, match="no VJP"):
+        out.sum().backward()
+    q, k, _ = attn_inputs(cuda, 3, 2, 2, 16, 16, 64, torch.float32)
+    q = q.reshape(1, 2, 2, 16, 64).permute(0, 3, 1, 2, 4).requires_grad_(True)
+    k = k.reshape(1, 2, 16, 64).permute(0, 2, 1, 3)
+    with pytest.raises(NotImplementedError, match="no VJP"):
+        fa.flash_attention(q, k, k, causal=True).sum().backward()
+
+
+def test_ssm_scoring_on_the_card_launches_the_kernel_per_layer_and_matches_the_cpu(cuda):
+    """reduced(mamba2-370m) in float32 with attn_impl="pallas": one kernel
+    launch per layer per pass, and the card's loss equals the CPU's."""
+    cfg = dataclasses.replace(reduced(get_config("mamba2-370m")), attn_impl="pallas")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = np.random.default_rng(0).integers(1, cfg.vocab, (2, 65)).astype(np.int32)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                 "targets": torch.from_numpy(toks[:, 1:]).to(dev)}
+        ss.reset_kernel_launches()
+        with torch.no_grad():
+            losses[dev] = float(train_loss(params.to(dev), cfg, batch)[0])
+        assert ss.KERNEL_LAUNCHES["ssd_scan"] == (cfg.n_layers if dev == "cuda" else 0)
+    assert losses["cuda"] == pytest.approx(losses["cpu"], abs=1e-4)

@@ -17,6 +17,7 @@ CARRIED = (
     "cache/fdb.py",
     "cache/shard.py",
     "cache/singleflight.py",
+    "checkpoint/__init__.py",
     "configs/__init__.py",
     "configs/base.py",
     "configs/granite_moe_3b_a800m.py",
@@ -57,6 +58,8 @@ CARRIED = (
     "core/posix/catalogue.py",
     "core/posix/stats.py",
     "core/posix/store.py",
+    "data/__init__.py",
+    "data/pipeline.py",
     "fields/__init__.py",
     "fields/synthetic.py",
     "lifecycle/__init__.py",
@@ -73,6 +76,8 @@ CARRIED = (
 
 #: modules the port rewrote for torch (same path as a reference module)
 PORTED = (
+    "checkpoint/manager.py",
+    "checkpoint/serialization.py",
     "core/codec.py",
     "distributed/__init__.py",
     "distributed/sharding.py",
@@ -85,12 +90,20 @@ PORTED = (
     "kernels/grib_pack/kernel.py",
     "kernels/grib_pack/ops.py",
     "kernels/grib_pack/ref.py",
+    "kernels/ssd_scan/__init__.py",
+    "kernels/ssd_scan/kernel.py",
+    "kernels/ssd_scan/ops.py",
+    "kernels/ssd_scan/ref.py",
     "models/__init__.py",
     "models/init.py",
     "models/model.py",
     "models/ops.py",
+    "models/ssm.py",
     "serving/__init__.py",
     "serving/engine.py",
+    "training/__init__.py",
+    "training/loop.py",
+    "training/optimizer.py",
 )
 
 _REBASE = re.compile(r"^(\s*)(from|import) repro(?=[.\s])", re.M)

@@ -221,9 +221,14 @@ def test_params_from_numpy_carries_every_value(dtype):
 @pytest.mark.parametrize("arch", ["mamba2-370m", "granite-moe-3b-a800m", "zamba2-7b",
                                   "whisper-tiny", "internvl2-76b"])
 def test_other_families_are_not_ported_yet(arch):
+    """Serving ports the dense family; the ssm family has parameters (the
+    training slice) but no cache yet."""
     cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        init_params(cfg, torch.Generator().manual_seed(0))
+    if cfg.family == "ssm":
+        assert len(init_params(cfg, torch.Generator().manual_seed(0))["blocks"]) == cfg.n_layers
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
+            init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match=cfg.family):
         init_cache(cfg, 1, 8)
 

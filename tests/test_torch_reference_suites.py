@@ -39,8 +39,6 @@ SUITES = (
 #: cases that need a package of a later slice
 DESELECT = {
     "test_config.py": (
-        # checkpoint/ is not ported
-        "TestConfigWiring::test_checkpoint_manager_from_config",
         # benchmarks/fdb_hammer.py drives the reference package
         "TestConfigWiring::test_hammer_config_mode_tiered",
         "TestConfigWiring::test_hammer_fills_dist_template_roots_per_lane",
