@@ -123,6 +123,52 @@ def test_plain_version_matches_sequential_and_chunked_references(b, s, h, p, n, 
     np.testing.assert_allclose(got, as_np(jssm.ssd_chunked(*j, chunk=chunk)), **kernel_tol(dtype))
 
 
+# The full-size heads at chunk 256: zamba2-7b's state 64 and mamba2-370m's
+# 128, head dim 64.  Every decay there is exp(cum_i - cum_j) of prefixes that
+# reach several hundred, so two float32 evaluations differ by far more than
+# at the small shapes: measured max |plain - interpreted Pallas| 2.2e-3
+# (state 64) and 1.2e-3 (128) on outputs up to 160 in float32, 0.031 and
+# 0.125 (one bf16 ulp) in bf16.
+FULL_CHUNK_TOL = {"float32": dict(atol=5e-3, rtol=2e-4), "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+
+
+def exact_scan(x, dt, A, B, C, D):
+    """The O(S) recurrence in float64 on the given inputs."""
+    x, dt, A, B, C, D = (np.asarray(v, np.float64) for v in (x, dt, A, B, C, D))
+    state = np.zeros((x.shape[0], x.shape[2], x.shape[3], B.shape[-1]))
+    ys = []
+    for t in range(x.shape[1]):
+        state = np.exp(dt[:, t] * A)[..., None, None] * state + np.einsum(
+            "bh,bhp,bn->bhpn", dt[:, t], x[:, t], B[:, t])
+        ys.append(np.einsum("bhpn,bn->bhp", state, C[:, t]))
+    return np.stack(ys, 1) + x * D[None, None, :, None]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [64, 128])
+def test_plain_version_matches_interpreted_pallas_kernel_at_full_chunk(n, dtype):
+    b, s, h, p = 1, 512, 2, 64
+    inputs = ssd_inputs(p + n + s, b, s, h, p, n)
+    want = jssd_scan(*to_jax(dtype, *inputs), chunk=256, interpret=True)
+    got = unflat(ssd_scan_ref(*flat(*to_torch(dtype, *inputs)), heads=h, chunk=256), b, h)
+    np.testing.assert_allclose(as_np(got), as_np(want), **FULL_CHUNK_TOL[dtype])
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_plain_version_error_is_of_the_pallas_kernels_order_at_full_chunk(n):
+    """Against a float64 recurrence, the plain version (float64 prefix sums,
+    each rounded once to float32) errs by no more than 2.5x the reference's
+    own Pallas kernel (float32 prefix sums): both carry the rounding of
+    float32 prefixes near several hundred.  Measured 1.4e-3 against 7.5e-4
+    (state 64) and 9.1e-4 against 5.0e-4 (128)."""
+    b, s, h, p = 1, 512, 2, 64
+    inputs = ssd_inputs(p + n + s, b, s, h, p, n)
+    exact = exact_scan(*inputs)
+    pallas = as_np(jssd_scan(*to_jax("float32", *inputs), chunk=256, interpret=True))
+    plain = as_np(unflat(ssd_scan_ref(*flat(*to_torch("float32", *inputs)), heads=h, chunk=256), b, h))
+    assert np.abs(plain - exact).max() <= 2.5 * np.abs(pallas - exact).max()
+
+
 def test_plain_version_carries_state_across_chunks():
     """tests/test_kernels.py:100-112: one long chunk against many small ones."""
     inputs = to_torch("float32", *ssd_inputs(7, 1, 128, 2, 8, 4, d_zero=True))
