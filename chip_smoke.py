@@ -27,14 +27,21 @@ Phases, each fatal on failure:
    heads, 2048 tokens, head dim 128, bf16, causal), a ragged causal 1000,
    the shapes of tests/test_kernels.py in float32 and bf16, a q_offset
    window and every head dim the source instantiates (2e-4 in float32,
-   2e-2 in bf16); kernel, plain and scaled_dot_product_attention times at
-   the full-width shape beside the bound;
+   2e-2 in bf16).  The bf16 wgmma instance is held at head dims 64, 96 and
+   128 and groups 1, 3 and 8 at phase 5's served prompt lengths, Sq < 128,
+   Sq = 1, Sq < Sk with q_offset and bidirectional, against the plain
+   version at 2e-2 and against the plain version that rounds P to bf16 as
+   the instance does, at one bf16 ulp of the output.  Kernel, plain and
+   scaled_dot_product_attention times at the full-width shape beside the
+   bound;
 5. serve: qwen2.5-3b at full width (36 layers, bf16, random weights from
    --seed made on the card) behind ServeEngine(max_batch=4, cache_len=2048)
    answers 8 requests of ragged prompt lengths, 16 greedy tokens each; the
-   kernel must have been launched once per layer per prefill, the first
-   token's logits through the kernel must agree with attn_impl="naive", and
-   the batched tokens are compared with sequential prefill + decode;
+   kernel must have been launched once per layer per prefill, every launch
+   on the wgmma instance, the first token's logits through the kernel must
+   agree with attn_impl="naive", and the batched tokens are compared with
+   sequential prefill + decode; the kernel's and scaled_dot_product_attention's
+   times at every served length;
 6. ssm: the SSD-scan kernel against its plain PyTorch version at the shapes
    of tests/test_kernels.py and the reduced configs' in float32 and bf16,
    its chunk-independence case, and in bf16 the zamba2-7b and mamba2-370m
@@ -82,6 +89,10 @@ F32_PEAK = 67e12  # float32 operations/s outside the tensor cores
 BF16_PEAK = 989e12  # bf16 dense operations/s on the tensor cores
 ATTN_TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4),  # tests/test_kernels.py:21-22
             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# the wgmma instance against the plain version that rounds P to bf16 as it
+# does: one bf16 ulp of the output (2^-7 relative at the bottom of a binade).
+# The rest of the gap to the default plain version is the rounding of P.
+ROUND_P_TOL = dict(atol=2e-3, rtol=8e-3)
 ATTN_FULL = (2, 8, 2048, 128)  # qwen2.5-3b prefill: KV heads, groups, tokens, head dim
 ATTN_CASES = [  # (KV heads x batch, groups, Sq, Sk, d, causal, q_offset)
     (2, 8, 1000, 1000, 128, True, 0),  # ragged causal
@@ -119,9 +130,11 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CKPT_EVERY, FAIL_AT = 8, 2048, 6, 3, 4
 # the limit lies between, about 4x from each.
 SCORE_TOL = 3e-4
 # first-token logits through the kernel against attn_impl="naive", both bf16:
-# the naive path rounds scores, softmax weights and P.V to bf16 where the
-# kernel keeps float32, in each of the 36 layers.  8 bf16 ulps at the largest
-# logits (magnitude 4 to 8); an H100 run measured 2 (0.0625).
+# the naive path rounds scores, softmax weights and P.V to bf16, where the
+# kernel's wgmma instance keeps the scores, m and l in float32 and rounds only
+# P to bf16 before P.V, in each of the 36 layers.  8 bf16 ulps at the largest
+# logits (magnitude 4 to 8); an H100 run measured 2 (0.0625), as it did for the
+# earlier float32 kernel that kept P unrounded.
 LOGITS_TOL = 0.25
 
 TIERED_CODEC_CONFIG = {
@@ -136,6 +149,22 @@ TIERED_CODEC_CONFIG = {
     "default": {"type": "codec", "nbits": 24,
                 "inner": {"backend": "posix", "schema": "nwp-posix"}},
 }
+
+
+def served_lengths(rng: np.random.Generator) -> list[int]:
+    """Phase 5's prompt lengths, the first draws of default_rng(seed): 100 to
+    1500 tokens, none a multiple of 128 (each is ragged against 128-row blocks)."""
+    return [int(n) + (int(n) % 128 == 0) for n in rng.integers(100, 1501, SERVE_REQUESTS)]
+
+
+def wgmma_cases(seed: int) -> list[tuple]:
+    """(KV heads x batch, groups, Sq, Sk, d, causal, q_offset) for the bf16
+    wgmma instance: every head dim it takes, groups 1, 3 and 8, Sq = Sk at
+    each served length, Sq < 128, Sq = 1, Sq < Sk with q_offset, bidirectional."""
+    shapes = [*((n, n, True, 0) for n in served_lengths(np.random.default_rng(seed))),
+              (77, 77, True, 0), (1, 300, True, 299), (200, 645, True, 445), (333, 333, False, 0)]
+    return [(2, g, sq, sk, d, causal, off) for d in (64, 96, 128) for g in (1, 3, 8)
+            for sq, sk, causal, off in shapes]
 
 
 def say(msg: str) -> None:
@@ -306,7 +335,8 @@ def attention_bound(bh: int, bk: int, sq: int, sk: int, d: int, itemsize: int,
 
 
 def attention_phase(dev, seed: int) -> dict:
-    """The flash-attention kernel against its plain version, and its times."""
+    """The flash-attention kernel's instances against their plain version, and
+    its times."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -320,20 +350,34 @@ def attention_phase(dev, seed: int) -> dict:
 
     kh, g, s, d = ATTN_FULL
     full = (kh, g, s, s, d, True, 0)
-    worst = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        for bk, groups, sq, sk, hd, causal, off in [full, *ATTN_CASES]:
-            if dtype == torch.float32 and (bk, groups, sq) == (kh, g, s):
-                continue  # the full-width shape is a bf16 shape
-            q, k, v = make(bk, groups, sq, sk, hd, dtype)
-            out = fk.flash_attention_call(q, k, v, groups=groups, causal=causal, q_offset=off)
-            ref = flash_attention_ref(q, k, v, groups=groups, causal=causal, q_offset=off)
-            torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
-            worst = max(worst, err)
-            torch.testing.assert_close(out.float(), ref.float(), **ATTN_TOL[dtype])
-            say(f"[attention] {str(dtype)[6:]} q ({bk * groups}, {sq}, {hd}) k ({bk}, {sk}, {hd}) "
-                f"causal={causal} q_offset={off}: max |kernel - plain| {err:.3g}")
+    worst = {name: 0.0 for name in fk.INSTANCES}
+    worst_round_p = 0.0
+    cases = [(dtype, case) for dtype in (torch.bfloat16, torch.float32) for case in [full, *ATTN_CASES]
+             if not (dtype == torch.float32 and case == full)]  # the full-width shape is a bf16 shape
+    cases += [(torch.bfloat16, case) for case in wgmma_cases(seed)]
+    for dtype, (bk, groups, sq, sk, hd, causal, off) in cases:
+        q, k, v = make(bk, groups, sq, sk, hd, dtype)
+        out = fk.flash_attention_call(q, k, v, groups=groups, causal=causal, q_offset=off)
+        ref = flash_attention_ref(q, k, v, groups=groups, causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        instance = fk.instance_for(dtype, hd)
+        err = float((out.float() - ref.float()).abs().max())
+        worst[instance] = max(worst[instance], err)
+        torch.testing.assert_close(out.float(), ref.float(), **ATTN_TOL[dtype])
+        line = (f"[attention] {instance} {str(dtype)[6:]} q ({bk * groups}, {sq}, {hd}) k ({bk}, {sk}, "
+                f"{hd}) causal={causal} q_offset={off}: max |kernel - plain| {err:.3g}")
+        if instance == "wgmma":
+            rounded = flash_attention_ref(q, k, v, groups=groups, causal=causal, q_offset=off,
+                                          round_p=True)
+            err_p = float((out.float() - rounded.float()).abs().max())
+            worst_round_p = max(worst_round_p, err_p)
+            torch.testing.assert_close(out.float(), rounded.float(), **ROUND_P_TOL)
+            line += f", against plain with P in bf16 {err_p:.3g}"
+        say(line)
+    say(f"[attention] {len(cases)} cases; max |kernel - plain| by instance "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (tolerance 2e-4 float32, 2e-2 bf16); wgmma against plain with P in bf16 "
+        f"{worst_round_p:.3g} (tolerance {ROUND_P_TOL})")
 
     q, k, v = make(kh, g, s, s, d, torch.bfloat16)
     call = lambda: fk.flash_attention_call(q, k, v, groups=g, causal=True)  # noqa: E731
@@ -346,12 +390,15 @@ def attention_phase(dev, seed: int) -> dict:
               "plain_ms": device_ms(plain, launches=5), "library_ms": device_ms(library)}
     bound, by = attention_bound(kh * g, kh, s, s, d, 2, True)
     flops = 4 * d * attention_pairs(s, s, True, 0) * kh * g
-    say(f"[attention] full width q ({kh * g}, {s}, {d}) bf16 causal: kernel {timing['ms']:.4f} ms "
-        f"({flops / timing['ms'] / 1e9:.1f} TFLOP/s; one call from idle {timing['call_ms']:.4f} ms), "
+    tflops = flops / timing["ms"] / 1e9
+    say(f"[attention] full width q ({kh * g}, {s}, {d}) bf16 causal, instance "
+        f"{fk.instance_for(torch.bfloat16, d)}: kernel {timing['ms']:.4f} ms ({tflops:.1f} TFLOP/s, "
+        f"{100 * bound / timing['ms']:.1f} % of the bound; one call from idle {timing['call_ms']:.4f} ms), "
         f"plain {timing['plain_ms']:.4f} ms, scaled_dot_product_attention "
         f"{timing['library_ms']:.4f} ms (max |sdpa - kernel| {lib_err:.3g}); bound {bound:.4f} ms "
         f"by {by} ({flops / 1e9:.2f} GFLOP at {BF16_PEAK / 1e12:.0f} TFLOP/s bf16)")
-    return {**timing, "max_abs_err": worst, "bound_ms": bound, "bound_by": by}
+    return {**timing, "max_abs_err": max(worst.values()), "bound_ms": bound, "bound_by": by,
+            "instance": fk.instance_for(torch.bfloat16, d), "tflops": tflops}
 
 
 def profile_call(fn) -> tuple[float, float, list]:
@@ -402,7 +449,7 @@ def serve_phase(dev, seed: int) -> dict:
     assert cfg.n_layers == 36 and cfg.d_model == 2048 and weight_bytes > 6.5e9
 
     rng = np.random.default_rng(seed)
-    lengths = [int(n) + (int(n) % 128 == 0) for n in rng.integers(100, 1501, SERVE_REQUESTS)]
+    lengths = served_lengths(rng)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lengths]
 
     with torch.inference_mode():  # warm-up: cuBLAS handles, allocator, the kernel's library
@@ -422,6 +469,7 @@ def serve_phase(dev, seed: int) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fops.KERNEL_LAUNCHES["flash_attention"]
+    by_instance = dict(fops.INSTANCE_LAUNCHES)
 
     st = engine.stats
     assert len(done) == SERVE_REQUESTS and all(r.done for r in reqs)
@@ -430,9 +478,11 @@ def serve_phase(dev, seed: int) -> dict:
         assert all(0 <= t < cfg.vocab for t in r.generated), r.rid
     assert st["prefills"] == SERVE_REQUESTS
     assert launches == cfg.n_layers * st["prefills"], (launches, st["prefills"])
+    assert by_instance == {"wgmma": launches, "cuda_cores": 0}, by_instance
     say(f"[serve] {SERVE_REQUESTS} requests, prompt lengths {lengths}, {SERVE_TOKENS} tokens each, "
         f"max_batch {SERVE_BATCH}, cache_len {SERVE_CACHE}: wall {wall:.3f} s; "
-        f"flash_attention launches {launches} = {cfg.n_layers} layers x {st['prefills']} prefills")
+        f"flash_attention launches {launches} = {cfg.n_layers} layers x {st['prefills']} prefills, "
+        f"by instance {by_instance}")
     prefill_tps = st["prefill_tokens"] / st["prefill_s"]
     decode_tps = st["decode_tokens"] / st["decode_s"]
     say(f"[serve] prefill {st['prefill_tokens']} tokens in {st['prefill_s']:.3f} s = "
@@ -440,18 +490,30 @@ def serve_phase(dev, seed: int) -> dict:
         f"steps, {st['decode_s']:.3f} s = {decode_tps:.1f} tok/s "
         f"({st['decode_s'] / st['decode_steps'] * 1e3:.2f} ms per step)")
 
-    # the kernel's share: its time at each served prompt's shape, per layer
+    # the kernel's share: its time at each served prompt's shape, per layer,
+    # beside scaled_dot_product_attention's on the same inputs
+    import torch.nn.functional as F
+
     kh, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(dev).manual_seed(seed)
-    kernel_s = 0.0
+    kernel_s = library_s = 0.0
+    per_length = []
     for n in lengths:
         q = torch.randn((kh * g, n, hd), generator=gen, device=dev).bfloat16()
         k = torch.randn((kh, n, hd), generator=gen, device=dev).bfloat16()
-        kernel_s += cfg.n_layers * device_ms(
-            lambda: fk.flash_attention_call(q, k, k, groups=g, causal=True)) / 1e3
-    say(f"[serve] kernel time at the served shapes (CUDA events, {cfg.n_layers} launches per "
-        f"prefill): {kernel_s * 1e3:.3f} ms = {100 * kernel_s / wall:.3f} % of the wall time, "
-        f"{100 * kernel_s / st['prefill_s']:.3f} % of the prefill time")
+        qs, ks = q[None], k[None]
+        k_ms = device_ms(lambda: fk.flash_attention_call(q, k, k, groups=g, causal=True))
+        l_ms = device_ms(lambda: F.scaled_dot_product_attention(qs, ks, ks, is_causal=True,
+                                                                enable_gqa=True))
+        kernel_s += cfg.n_layers * k_ms / 1e3
+        library_s += cfg.n_layers * l_ms / 1e3
+        per_length.append(f"{n}: {k_ms:.4f} / {l_ms:.4f}")
+    say(f"[serve] kernel / scaled_dot_product_attention ms at each served length (CUDA events "
+        f"around back-to-back calls): " + "; ".join(per_length))
+    say(f"[serve] kernel time at the served shapes ({cfg.n_layers} launches per prefill): "
+        f"{kernel_s * 1e3:.3f} ms = {100 * kernel_s / wall:.3f} % of the wall time, "
+        f"{100 * kernel_s / st['prefill_s']:.3f} % of the prefill time; "
+        f"scaled_dot_product_attention at the same shapes {library_s * 1e3:.3f} ms")
 
     with torch.inference_mode():
         # first-token logits through the kernel and through naive attention
@@ -495,7 +557,7 @@ def serve_phase(dev, seed: int) -> dict:
                 f"({100 * busy_ms / wall_ms:.1f} %, idle {100 - 100 * busy_ms / wall_ms:.1f} %); "
                 "top kernels: " + "; ".join(f"{n[:60]} {t:.3f} ms x{c}" for n, t, c in top))
     return {"launches": launches, "wall_s": wall, "prefill_tps": prefill_tps,
-            "decode_tps": decode_tps, "kernel_s": kernel_s}
+            "decode_tps": decode_tps, "kernel_s": kernel_s, "library_s": library_s}
 
 
 def ssd_inputs(gen, b, s, h, p, n, dtype, dev):
@@ -937,7 +999,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
         "launches": serve["launches"],
         **{k: attn[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")},
+                                "library_ms", "instance", "tflops")},
     })
     kernels.append({
         "name": "ssd_scan",

@@ -4,9 +4,12 @@ Each kernel package describes its source once as a :class:`CudaLibrary`.
 The source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, at the first launch of one of its kernels, and loaded
 with ``ctypes``.  The library lands in ``src/repro_torch/build/`` under a
-name keyed by a hash of the source and the flags
-(``lib<name>_<hash>.so``), so an edit rebuilds.  :func:`build_all` starts one
-``nvcc`` per source at once and waits for all of them.  Nothing happens at
+name keyed by a hash of the source, every header it includes from this
+package (``#include "..."``, followed through the headers they include in
+turn) and the flags, the library's own extra ones too
+(``lib<name>_<hash>.so``), so an edit to any of them rebuilds.
+:func:`build_all` starts one ``nvcc`` per source at once and waits for all
+of them.  Nothing happens at
 import time: the CPU tests import every kernel module on machines that have
 no ``nvcc`` and no card.
 """
@@ -16,19 +19,39 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 from typing import Callable, Sequence
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "CudaLibrary", "build_all"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "CudaLibrary", "build_all", "local_headers"]
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source: Path) -> list[Path]:
+    """The headers ``source`` includes with quotes, and those they include in
+    turn, in the order first met; a quoted name that is not a file beside
+    its includer (a toolkit header) is left out."""
+    found: list[Path] = []
+    todo = [source]
+    while todo:
+        path = todo.pop(0)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            header = (path.parent / name.decode()).resolve()
+            if header.is_file() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
 
 
 def _nvcc() -> str:
@@ -45,12 +68,15 @@ class CudaLibrary:
     ``bind`` declares ``argtypes``/``restype`` of every entry point on the
     freshly loaded library.  The source must export
     ``const char* <error_fn>(int)``, which names a CUDA error code.
+    ``extra_flags`` go to nvcc after :data:`NVCC_FLAGS` (an include path,
+    say) and into the library's hash.
     """
 
     def __init__(self, name: str, source: Path, bind: Callable[[ctypes.CDLL], None],
-                 *, error_fn: str):
+                 *, error_fn: str, extra_flags: Sequence[str] = ()):
         self.name = name
         self.source = source
+        self.extra_flags = tuple(extra_flags)
         self.build_dir = BUILD_DIR
         self._bind = bind
         self._error_fn = error_fn
@@ -58,9 +84,12 @@ class CudaLibrary:
         self._mu = threading.Lock()
 
     def path(self) -> Path:
-        """Where the library built from the current source and flags lives."""
-        digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return self.build_dir / f"lib{self.name}_{digest[:16]}.so"
+        """Where the library built from the current source, headers and flags lives."""
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in local_headers(self.source):
+            h.update(header.name.encode() + b"\0" + header.read_bytes())
+        h.update(" ".join((*NVCC_FLAGS, *self.extra_flags)).encode())
+        return self.build_dir / f"lib{self.name}_{h.hexdigest()[:16]}.so"
 
     def _start(self) -> tuple[Path, Path, subprocess.Popen] | None:
         """Start nvcc unless the library exists; (out, tmp, process) or None."""
@@ -69,7 +98,7 @@ class CudaLibrary:
             return None
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *self.extra_flags, "-o", str(tmp), str(self.source)]
         try:
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         except FileNotFoundError:

@@ -1,4 +1,5 @@
 from . import ops, ref
-from .ops import KERNEL_LAUNCHES, flash_attention, reset_kernel_launches
+from .ops import INSTANCE_LAUNCHES, KERNEL_LAUNCHES, flash_attention, reset_kernel_launches
 
-__all__ = ["ops", "ref", "KERNEL_LAUNCHES", "flash_attention", "reset_kernel_launches"]
+__all__ = ["ops", "ref", "INSTANCE_LAUNCHES", "KERNEL_LAUNCHES", "flash_attention",
+           "reset_kernel_launches"]

@@ -1,35 +1,73 @@
-// Forward flash attention for Hopper (sm_90a), float32 or bfloat16 in and out.
-//
-// Replaces the Pallas TPU kernel `flash_attention_kernel` of
+// Forward flash attention for Hopper (sm_90a), in two instances.  Both
+// replace the Pallas TPU kernel `flash_attention_kernel` of
 // src/repro/kernels/flash_attention/kernel.py: online-softmax attention over
 // key blocks with m, l and the output accumulator in float32, causal or
 // bidirectional with a query offset, grouped-query attention through the
 // index map bh // groups (no KV replication), blocks above the causal
 // diagonal skipped, keys at or past seq_k masked with the finite -1e30, and
-// the denominator max(l, 1e-37).  P.V is taken in float32 from an unrounded
-// P, as in the Pallas body.
+// the denominator max(l, 1e-37).
 //
 // Layout: q (BH, Sq, D), k and v (BH / groups, Sk, D), o (BH, Sq, D), all
-// contiguous.  One block of 128 threads computes a tile of 64 query rows of
-// one (batch, head) and walks the key blocks of 64 rows in order, which takes
-// the place of the TPU's sequential "arbitrary" grid axis.  The tiles are
-// staged in shared memory as float32: Q transposed (once), then K transposed
-// and V in one buffer in turn, and P transposed.  Each thread owns 4 query
-// rows and 8 key columns of the score tile, and the same 4 rows and D/8
-// columns of the output; a row's 8 threads are neighbouring lanes of a warp,
-// so the row max and sum are three shuffles.
+// contiguous.  The wrapper picks the instance from (dtype, D) alone.
 //
-// What bounds it: at the prefill shapes the work is 4*D multiply-adds per
-// (query, key) pair against 2*D elements moved per row, so the card's
-// arithmetic, not its memory, is the limit.  This first version does all of
-// it in float32 on the CUDA cores (67 TFLOP/s peak), not on the tensor cores
-// (989 TFLOP/s bf16), and stages through shared memory without cp.async or
-// TMA; wgmma, TMA and a producer/consumer pipeline are for a later version.
-// The causal q-blocks are launched heaviest first, so the blocks with the
-// most key blocks do not form the tail of the grid.
+// 1. flash_attention_wgmma: bf16 at D in {64, 96, 128}, the head dims of the
+//    repo's models.  What bounds it: at the prefill shapes the work is 4*D
+//    operations per (query, key) pair against 2*D elements moved per row,
+//    so the tensor cores' bf16 rate (989 TFLOP/s), not the memory, is the
+//    limit; the softmax's exponentials on the CUDA cores take about half as
+//    long as the products, so they must run beside them.  The design:
+//    - one block of three warpgroups per (bh, 128-query tile), the heaviest
+//      causal tiles of every head launched first.  Warpgroup 0 is the
+//      producer: it gives its registers up (setmaxnreg) and one thread
+//      issues TMA loads.  Warpgroups 1 and 2 each own 64 query rows;
+//    - TMA through 3-D tensor maps over (D, S, heads) with the 128-byte
+//      swizzle: Q once, then K and V through a ring of three 128-key
+//      stages, each with a full barrier for K, one for V and an empty
+//      barrier.  A row past seq_k (or a column past D = 96) is out of the
+//      map's bounds and lands as zeros, so a padded key adds 0 * V and
+//      never a NaN;
+//    - S = Q.K^T on wgmma m64n128k16 from shared memory (K is (keys, D),
+//      K-major), online softmax in registers on the accumulator's layout
+//      (a row's max and sum take two shuffles within a quad; masks only on
+//      the diagonal and tail blocks; exp2 with log2(e)/sqrt(D) folded into
+//      one multiply-add), l summing the float32 P;
+//    - O += P.V on wgmma with P from registers, rounded to bf16 (the one
+//      change of arithmetic against the Pallas body, which keeps P in
+//      float32; a TPU at JAX's default precision multiplies float32 in bf16
+//      passes too), and V from shared memory with the transpose bit set
+//      (V is (keys, D), MN-major).  D = 96 runs as 128 with zero columns;
+//    - overlap: a warpgroup issues Q.K^T of block kb + 1 together with P.V
+//      of block kb and waits only for Q.K^T before its softmax, so P.V runs
+//      under the exponentials; and the two consumer warpgroups take turns
+//      to issue (named barriers), so one's products run during the other's
+//      softmax;
+//    - the output, divided by max(l, 1e-37) and rounded to bf16, goes
+//      through the warpgroup's own rows of the Q tile to 16-byte stores.
+//    At D = 96 and 128 it holds 224 KB of shared memory: Q 32 KB +
+//    3 x (K 32 KB + V 32 KB).
+//
+// 2. flash_attention_fwd: float32 at every head dim, and bf16 at D in
+//    {16, 32, 112}.  The tensor cores would take float32 only as TF32, which
+//    misses float32's 2e-4 tolerance, so this instance computes in float32
+//    on the CUDA cores (67 TFLOP/s peak), and P.V from an unrounded P as the
+//    Pallas body does.  One block of 128 threads computes a tile of 64 query
+//    rows of one (batch, head) and walks the key blocks of 64 rows in order,
+//    which takes the place of the TPU's sequential "arbitrary" grid axis.
+//    The tiles are staged in shared memory as float32: Q transposed (once),
+//    then K transposed and V in one buffer in turn, and P transposed.  Each
+//    thread owns 4 query rows and 8 key columns of the score tile, and the
+//    same 4 rows and D/8 columns of the output; a row's 8 threads are
+//    neighbouring lanes of a warp, so the row max and sum are three
+//    shuffles.  It stages through shared memory without TMA, and its causal
+//    q-blocks are launched heaviest first.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <stdio.h>
+
+#include "../../csrc/hopper.cuh"
+
+// ------------------------------------------------------------------------
+// 2. the CUDA-core instance
+// ------------------------------------------------------------------------
 
 namespace {
 
@@ -241,10 +279,348 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, void* o
 
 }  // namespace
 
+// ------------------------------------------------------------------------
+// 1. the bf16 wgmma instance
+// ------------------------------------------------------------------------
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int BQ = 128;                     // query rows per block
+constexpr int BKV = 128;                    // keys per stage
+constexpr int STAGES = 3;                   // K/V ring depth
+constexpr int THREADS = 384;                // producer + two consumer warpgroups
+constexpr int ROW_BYTES = 128;              // one 64-column block row, bf16
+constexpr int BLOCK_BYTES = 128 * ROW_BYTES;  // one 64-column block of a 128-row tile
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// DP: the head dim as the shared-memory tiles hold it (96 is held as 128)
+template <int D> struct Dims {
+    static constexpr int DP = D <= 64 ? 64 : 128;
+    static constexpr int NB = DP / 64;                  // 64-column blocks per tile
+    static constexpr int TILE_BYTES = NB * BLOCK_BYTES;  // one 128-row tile
+    static constexpr int KSTEPS = D / 16;                // k-steps of S = Q.K^T
+};
+
+struct Barriers {
+    uint64_t q_full;
+    uint64_t k_full[STAGES];
+    uint64_t v_full[STAGES];
+    uint64_t empty[STAGES];
+};
+
+template <int D>
+constexpr size_t smem_bytes() {
+    // Q + STAGES x (K + V), the barriers, and room to align the tiles to 1024 bytes
+    return (size_t)(1 + 2 * STAGES) * Dims<D>::TILE_BYTES + sizeof(Barriers) + 1024;
+}
+
+// Byte offset of bf16 element (row, col) in a tile laid out as hopper.cuh says.
+__device__ __forceinline__ uint32_t swizzled(int row, int col) {
+    return (col >> 6) * BLOCK_BYTES + row * ROW_BYTES +
+           ((((col & 63) >> 3) ^ (row & 7)) << 4) + ((col & 7) << 1);
+}
+
+// 2^x with subnormal results flushed to 0 (one MUFU.EX2)
+__device__ __forceinline__ float exp2_approx(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                      int sq, int sk, int groups, int causal, int q_offset, float scale_log2) {
+    using Dm = Dims<D>;
+    constexpr int DP = Dm::DP, NB = Dm::NB, TILE = Dm::TILE_BYTES;
+    extern __shared__ uint8_t smem_raw[];
+    // tiles on a 1024-byte boundary, as the 128-byte swizzle's atoms need
+    const uint32_t pad = (1024 - (smem_addr(smem_raw) & 1023)) & 1023;
+    uint8_t* sm = smem_raw + pad;
+    uint8_t* sq_tile = sm;                               // Q, then this block's output
+    uint8_t* sk_tile = sm + TILE;                        // K stages
+    uint8_t* sv_tile = sm + (1 + STAGES) * TILE;         // V stages
+    Barriers& bar = *reinterpret_cast<Barriers*>(sm + (1 + 2 * STAGES) * TILE);
+
+    const int bh = blockIdx.x;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
+    int nk = (sk + BKV - 1) / BKV;
+    if (causal) {  // key blocks wholly above the diagonal are never visited
+        nk = min(nk, (min(q0 + BQ, sq) - 1 + q_offset) / BKV + 1);
+    }
+
+    if (threadIdx.x == 0) {
+        mbar_init(&bar.q_full, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&bar.k_full[s], 1);
+            mbar_init(&bar.v_full[s], 1);
+            mbar_init(&bar.empty[s], 2 * 128);  // every consumer thread arrives
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int wgi = threadIdx.x / 128;
+    if (wgi == 0) {
+        // ------------------------------------------------------- producer
+        setmaxnreg_dec<40>();
+        if (threadIdx.x == 0) {
+            tma_prefetch(&tm_q);
+            tma_prefetch(&tm_k);
+            tma_prefetch(&tm_v);
+            const int kvh = bh / groups;
+            mbar_arrive_expect_tx(&bar.q_full, TILE);
+            for (int b = 0; b < NB; ++b) {
+                tma_load_3d(sq_tile + b * BLOCK_BYTES, &tm_q, &bar.q_full, 64 * b, q0, bh);
+            }
+            for (int kb = 0; kb < nk; ++kb) {
+                const int s = kb % STAGES;
+                mbar_wait(&bar.empty[s], ((kb / STAGES) & 1) ^ 1);  // the first round passes
+                mbar_arrive_expect_tx(&bar.k_full[s], TILE);
+                for (int b = 0; b < NB; ++b) {
+                    tma_load_3d(sk_tile + s * TILE + b * BLOCK_BYTES, &tm_k, &bar.k_full[s],
+                                64 * b, kb * BKV, kvh);
+                }
+                mbar_arrive_expect_tx(&bar.v_full[s], TILE);
+                for (int b = 0; b < NB; ++b) {
+                    tma_load_3d(sv_tile + s * TILE + b * BLOCK_BYTES, &tm_v, &bar.v_full[s],
+                                64 * b, kb * BKV, kvh);
+                }
+            }
+        }
+    } else {
+        // ------------------------------------------------------- consumers
+        setmaxnreg_inc<232>();
+        const int c = wgi - 1;            // this warpgroup's 64 rows: [64c, 64c + 64)
+        const int t = threadIdx.x % 128;
+        const int warp = t / 32, lane = t % 32;
+        const int row0 = 64 * c + 16 * warp + lane / 4;  // and row0 + 8
+        const int qpos0 = q0 + row0 + q_offset;
+        const int col0 = 2 * (lane % 4);  // accumulator columns col0 + 8j + {0, 1}
+        const int first_qpos = q0 + 64 * c + q_offset;
+
+        float acc_s[64];        // S: 128 keys
+        float acc_o[DP / 2];    // O: DP columns
+        uint32_t p_regs[8][4];  // P as bf16, the A operand of each k-step of P.V
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc_s[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) acc_o[i] = 0.f;
+        float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows row0, row0 + 8
+
+        const uint32_t q_base = smem_addr(sq_tile) + 64 * c * ROW_BYTES;
+
+        // S = Q . K^T for key block kb, issued and committed, not waited for
+        auto issue_qk = [&](int kb) {
+            const int s = kb % STAGES;
+            mbar_wait(&bar.k_full[s], (kb / STAGES) & 1);
+            const uint32_t k_base = smem_addr(sk_tile + s * TILE);
+            fence_regs(acc_s);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < Dm::KSTEPS; ++kk) {
+                const uint32_t off = (kk / 4) * BLOCK_BYTES + (kk % 4) * 32;
+                wgmma_ss_m64n128k16(acc_s, make_desc_sw128(q_base + off, 0, 1024),
+                                    make_desc_sw128(k_base + off, 0, 1024), kk > 0);
+            }
+            wgmma_commit();
+        };
+        // O += P . V for key block kb, from p_regs, issued and committed
+        auto issue_pv = [&](int kb) {
+            const int s = kb % STAGES;
+            mbar_wait(&bar.v_full[s], (kb / STAGES) & 1);
+            const uint32_t v_base = smem_addr(sv_tile + s * TILE);
+            fence_regs(acc_o);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) {
+                wgmma_rs(acc_o, p_regs[kk],
+                         make_desc_sw128(v_base + kk * 16 * ROW_BYTES, BLOCK_BYTES, 1024), 1);
+            }
+            wgmma_commit();
+        };
+        // after P.V of key block kb has completed: its stage goes back to the producer
+        auto pv_done = [&](int kb) {
+            fence_regs(acc_o);
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+                for (int w = 0; w < 4; ++w) asm volatile("" : "+r"(p_regs[kk][w])::"memory");
+            }
+            mbar_arrive(&bar.empty[kb % STAGES]);
+        };
+        // online softmax of key block kb on the accumulator's layout: acc_s[4j + e]
+        // is row row0 + 8 * (e >= 2), key k0 + 8j + col0 + (e & 1).  Leaves P (float32)
+        // in acc_s, and the rows' rescaling factors in alpha0, alpha1.
+        float alpha0, alpha1;
+        auto softmax = [&](int kb) {
+            const int k0 = kb * BKV;
+            const bool masked = k0 + BKV > sk || (causal && k0 + BKV - 1 > first_qpos);
+            float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float x = acc_s[4 * j + e];
+                    if (masked) {
+                        const int kpos = k0 + 8 * j + col0 + (e & 1);
+                        const int qpos = qpos0 + ((e & 2) ? 8 : 0);
+                        if (kpos >= sk || (causal && kpos > qpos)) x = NEG_INF;
+                        acc_s[4 * j + e] = x;
+                    }
+                    if (e & 2) {
+                        mx1 = fmaxf(mx1, x);
+                    } else {
+                        mx0 = fmaxf(mx0, x);
+                    }
+                }
+            }
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+            // the scale is positive, so the scaled row max is the max of the scaled scores
+            const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+            alpha0 = exp2_approx(m0 - mn0);
+            alpha1 = exp2_approx(m1 - mn1);
+            m0 = mn0;
+            m1 = mn1;
+            float rs0 = 0.f, rs1 = 0.f;  // this thread's share of the row sums
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float p =
+                        exp2_approx(fmaf(acc_s[4 * j + e], scale_log2, (e & 2) ? -mn1 : -mn0));
+                    acc_s[4 * j + e] = p;
+                    if (e & 2) {
+                        rs1 += p;
+                    } else {
+                        rs0 += p;
+                    }
+                }
+            }
+            l0 = l0 * alpha0 + rs0;  // summed over the quad at the end
+            l1 = l1 * alpha1 + rs1;
+        };
+        // rescale O to the new row maxima, and round P to bf16: the accumulator
+        // of keys [16kk, 16kk + 16) is the A operand of k-step kk of P.V
+        auto rescale_and_pack = [&]() {
+#pragma unroll
+            for (int i = 0; i < DP / 2; ++i) acc_o[i] *= (i & 2) ? alpha1 : alpha0;
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+                for (int w = 0; w < 4; ++w) {
+                    p_regs[kk][w] = pack_bf16(acc_s[8 * kk + 2 * w], acc_s[8 * kk + 2 * w + 1]);
+                }
+            }
+        };
+
+        // Block kb's P.V runs on the tensor cores while block kb + 1's softmax
+        // runs on the CUDA cores: Q.K^T of kb + 1 and P.V of kb are issued
+        // together, and only Q.K^T is waited for before the softmax.  The two
+        // consumer warpgroups take turns to issue (barriers 3 and 4), so one's
+        // products run while the other computes its softmax.
+        auto my_turn = [&]() { named_barrier(3 + c, 256); };
+        auto your_turn = [&]() { named_barrier_arrive(3 + (c ^ 1), 256); };
+        if (c == 1) your_turn();  // warpgroup 1 (c = 0) goes first
+        mbar_wait(&bar.q_full, 0);
+        my_turn();
+        issue_qk(0);
+        your_turn();
+        wgmma_wait<0>();
+        fence_regs(acc_s);
+        softmax(0);
+        rescale_and_pack();
+        for (int kb = 1; kb < nk; ++kb) {
+            my_turn();
+            issue_qk(kb);
+            issue_pv(kb - 1);
+            your_turn();
+            wgmma_wait<1>();  // Q.K^T of kb is done, P.V of kb - 1 may still run
+            fence_regs(acc_s);
+            softmax(kb);
+            wgmma_wait<0>();
+            pv_done(kb - 1);
+            rescale_and_pack();
+        }
+        my_turn();
+        issue_pv(nk - 1);
+        your_turn();
+        wgmma_wait<0>();
+        pv_done(nk - 1);
+        if (c == 0) my_turn();  // take the turn warpgroup 2 handed over last
+
+        // epilogue: O / max(l, 1e-37) in bf16, through this warpgroup's rows of the Q tile
+        l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+        l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+        const float d0 = fmaxf(l0, 1e-37f), d1 = fmaxf(l1, 1e-37f);
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+            const int col = 8 * j + col0;
+            *reinterpret_cast<uint32_t*>(sq_tile + swizzled(row0, col)) =
+                pack_bf16(acc_o[4 * j] / d0, acc_o[4 * j + 1] / d0);
+            *reinterpret_cast<uint32_t*>(sq_tile + swizzled(row0 + 8, col)) =
+                pack_bf16(acc_o[4 * j + 2] / d1, acc_o[4 * j + 3] / d1);
+        }
+        named_barrier(1 + c, 128);
+        constexpr int CHUNKS = DP / 8;  // 16-byte chunks per row
+        __nv_bfloat16* op = o + (size_t)bh * sq * D;
+#pragma unroll 4
+        for (int idx = t; idx < 64 * CHUNKS; idx += 128) {
+            const int r = 64 * c + idx / CHUNKS, g = idx % CHUNKS;
+            if (q0 + r < sq && 8 * g < D) {
+                *reinterpret_cast<uint4*>(op + (size_t)(q0 + r) * D + 8 * g) =
+                    *reinterpret_cast<const uint4*>(sq_tile + swizzled(r, 8 * g));
+            }
+        }
+    }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk,
+                   int groups, int causal, int q_offset, float sm_scale, cudaStream_t stream,
+                   int* encode_err) {
+    CUtensorMap tm_q, tm_k, tm_v;
+    const int bk = bh / groups;
+    int err = encode_bf16_3d(&tm_q, q, D, sq, bh, BQ);
+    if (err == 0) err = encode_bf16_3d(&tm_k, k, D, sk, bk, BKV);
+    if (err == 0) err = encode_bf16_3d(&tm_v, v, D, sk, bk, BKV);
+    if (err != 0) {
+        *encode_err = err;
+        return cudaErrorInvalidValue;
+    }
+    constexpr size_t smem = smem_bytes<D>();
+    auto kernel = flash_attention_wgmma<D>;
+    cudaError_t cerr =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (cerr != cudaSuccess) return cerr;
+    const dim3 grid(bh, (sq + BQ - 1) / BQ);
+    kernel<<<grid, THREADS, smem, stream>>>(tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), sq,
+                                            sk, groups, causal, q_offset, sm_scale * LOG2E);
+    return cudaGetLastError();
+}
+
+}  // namespace wg
+
 extern "C" {
 
-// dtype 0 = float32, 1 = bfloat16.  Returns a cudaError_t: 0 on success,
-// cudaErrorInvalidValue for a head dim or dtype that has no instance.
+// The CUDA-core instance.  dtype 0 = float32, 1 = bfloat16.  Returns a
+// cudaError_t: 0 on success, cudaErrorInvalidValue for a head dim or dtype
+// that has no instance.
 int flash_attention_fwd_launch(int dtype, int d, const void* q, const void* k, const void* v,
                                void* o, int bh, int sq, int sk, int groups, int causal,
                                int q_offset, float sm_scale, void* stream) {
@@ -259,7 +635,41 @@ int flash_attention_fwd_launch(int dtype, int d, const void* q, const void* k, c
     return cudaErrorInvalidValue;
 }
 
+// The bf16 wgmma instance, D in {64, 96, 128}; q, k and v 16-byte aligned.
+// Returns 0, a cudaError_t, or hopper::ENCODE_ERROR_BASE + the CUresult of a
+// tensor-map encode that failed.
+int flash_attention_wgmma_launch(int d, const void* q, const void* k, const void* v, void* o,
+                                 int bh, int sq, int sk, int groups, int causal, int q_offset,
+                                 float sm_scale, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    int encode_err = 0;
+    cudaError_t err;
+    switch (d) {
+        case 64:
+            err = wg::launch<64>(q, k, v, o, bh, sq, sk, groups, causal, q_offset, sm_scale, s,
+                                 &encode_err);
+            break;
+        case 96:
+            err = wg::launch<96>(q, k, v, o, bh, sq, sk, groups, causal, q_offset, sm_scale, s,
+                                 &encode_err);
+            break;
+        case 128:
+            err = wg::launch<128>(q, k, v, o, bh, sq, sk, groups, causal, q_offset, sm_scale, s,
+                                  &encode_err);
+            break;
+        default:
+            return cudaErrorInvalidValue;
+    }
+    return encode_err != 0 ? encode_err : (int)err;
+}
+
 const char* flash_attention_error_string(int err) {
+    if (err >= hopper::ENCODE_ERROR_BASE) {
+        static thread_local char msg[96];
+        snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
+                 err - hopper::ENCODE_ERROR_BASE);
+        return msg;
+    }
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -1,10 +1,14 @@
 """Build and bind the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
 
 The CUDA source replaces the Pallas TPU kernel ``flash_attention_kernel`` of
-``repro.kernels.flash_attention.kernel``; its header says what bounds it on
-the card and what the design does about it.  The source is built and loaded
-by :mod:`repro_torch.kernels._build` at the first launch; nothing happens at
-import time.
+``repro.kernels.flash_attention.kernel`` with two instances, picked from the
+dtype and head dim alone (:func:`instance_for`): ``"wgmma"``, bf16 on the
+tensor cores fed by TMA, at the head dims of the repo's models, and
+``"cuda_cores"``, float32 arithmetic on the CUDA cores, for everything else.
+The source's header says what bounds each on the card and what its design
+does about it.  The source and ``kernels/csrc/hopper.cuh`` are built and
+loaded by :mod:`repro_torch.kernels._build` at the first launch; nothing
+happens at import time.
 """
 
 from __future__ import annotations
@@ -17,11 +21,20 @@ import torch
 
 from .._build import CudaLibrary
 
-__all__ = ["HEAD_DIMS", "LIBRARY", "flash_attention_call"]
+__all__ = ["HEAD_DIMS", "INSTANCES", "LIBRARY", "WGMMA_HEAD_DIMS", "flash_attention_call",
+           "instance_for"]
 
 #: head dims the source instantiates
 HEAD_DIMS = (16, 32, 64, 96, 112, 128)
+#: head dims of the bf16 wgmma instance
+WGMMA_HEAD_DIMS = (64, 96, 128)
+INSTANCES = ("wgmma", "cuda_cores")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def instance_for(dtype: torch.dtype, d: int) -> str:
+    """The kernel instance that computes attention of this dtype and head dim."""
+    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS else "cuda_cores"
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -31,6 +44,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_float, ptr,
     ]
     lib.flash_attention_fwd_launch.restype = c_int
+    lib.flash_attention_wgmma_launch.argtypes = [
+        c_int, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int, c_int, ctypes.c_float, ptr,
+    ]
+    lib.flash_attention_wgmma_launch.restype = c_int
 
 
 LIBRARY = CudaLibrary(
@@ -48,7 +65,8 @@ def flash_attention_call(
     causal: bool,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors -> (BH, Sq, d) in the q dtype."""
+    """Launch the kernel's instance for (q.dtype, d) on CUDA tensors -> (BH, Sq, d)
+    in the q dtype."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention takes CUDA tensors, got one on {q.device}")
     if q.dtype not in _DTYPES:
@@ -78,11 +96,19 @@ def flash_attention_call(
         raise ValueError("flash_attention takes contiguous q, k and v")
     out = torch.empty_like(q)
     lib = LIBRARY.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):  # the C side launches on the current device
-        err = lib.flash_attention_fwd_launch(
-            _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            bh, sq, sk, groups, int(causal), q_offset, 1.0 / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if instance_for(q.dtype, d) == "wgmma":
+            # TMA reads from 16-byte aligned addresses; a view may start elsewhere
+            q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+            err = lib.flash_attention_wgmma_launch(
+                d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                bh, sq, sk, groups, int(causal), q_offset, 1.0 / math.sqrt(d), stream,
+            )
+        else:
+            err = lib.flash_attention_fwd_launch(
+                _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                bh, sq, sk, groups, int(causal), q_offset, 1.0 / math.sqrt(d), stream,
+            )
     LIBRARY.check(err, "flash_attention")
     return out

@@ -6,7 +6,8 @@ flattened to the kernel's (B*K*G, Sq, d) and (B*K, Sk, d), and the result
 comes back as (B, Sq, K, G, d).  A CPU tensor goes to the plain version in
 :mod:`.ref`, a CUDA tensor to the hand-written kernel in :mod:`.kernel` (or
 the launch raises).  Neither has a backward: the reference kernel has no
-VJP.  :data:`KERNEL_LAUNCHES` counts launches of the CUDA kernel only.
+VJP.  :data:`KERNEL_LAUNCHES` counts launches of the CUDA kernel only, and
+:data:`INSTANCE_LAUNCHES` the same launches by the instance that ran them.
 """
 
 from __future__ import annotations
@@ -16,19 +17,23 @@ import threading
 import torch
 
 from .._autograd import forward_only
-from .kernel import flash_attention_call
+from .kernel import INSTANCES, flash_attention_call, instance_for
 from .ref import flash_attention_ref
 
-__all__ = ["KERNEL_LAUNCHES", "flash_attention", "reset_kernel_launches"]
+__all__ = ["INSTANCE_LAUNCHES", "KERNEL_LAUNCHES", "flash_attention", "reset_kernel_launches"]
 
 #: launches of the CUDA kernel (the plain CPU version is not counted)
 KERNEL_LAUNCHES = {"flash_attention": 0}
+#: the same launches, by the kernel instance that ran them
+INSTANCE_LAUNCHES = dict.fromkeys(INSTANCES, 0)
 _launch_mu = threading.Lock()
 
 
 def reset_kernel_launches() -> None:
     with _launch_mu:
         KERNEL_LAUNCHES["flash_attention"] = 0
+        for name in INSTANCE_LAUNCHES:
+            INSTANCE_LAUNCHES[name] = 0
 
 
 def _attend(qf, kf, vf, groups: int, causal: bool, q_offset: int) -> torch.Tensor:
@@ -38,6 +43,7 @@ def _attend(qf, kf, vf, groups: int, causal: bool, q_offset: int) -> torch.Tenso
                                groups=groups, causal=causal, q_offset=q_offset)
     with _launch_mu:
         KERNEL_LAUNCHES["flash_attention"] += 1
+        INSTANCE_LAUNCHES[instance_for(qf.dtype, qf.shape[-1])] += 1
     return out
 
 

@@ -29,6 +29,7 @@ def flash_attention_ref(
     groups: int,
     causal: bool,
     q_offset: int = 0,
+    round_p: bool = False,
 ) -> torch.Tensor:
     bh, sq, d = q.shape
     bk, sk, _ = k.shape
@@ -43,5 +44,6 @@ def flash_attention_ref(
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p, vf) / torch.clamp(l, min=1e-37)
+    pv = p.to(torch.bfloat16).float() if round_p else p
+    out = torch.matmul(pv, vf) / torch.clamp(l, min=1e-37)
     return out.reshape(bh, sq, d).to(q.dtype)

@@ -143,6 +143,41 @@ def test_flash_kernel_equals_plain_version(cuda, dtype, d, causal, sq, sk, off):
     torch.testing.assert_close(out.float(), ref.float(), **attn_tol(dtype))
 
 
+# the bf16 wgmma instance: chip_smoke.py's served prompt lengths at seed 0
+# (all ragged against 128), Sq < 128, Sq = 1, Sq < Sk with q_offset, and
+# bidirectional; against the plain version at 2e-2, and against the plain
+# version that rounds P to bf16 as the instance does at one bf16 ulp
+SERVED_LENGTHS = (1291, 992, 816, 477, 531, 157, 205, 123)
+WGMMA_SHAPES = [*((n, n, True, 0) for n in SERVED_LENGTHS),
+                (77, 77, True, 0), (1, 300, True, 299), (200, 645, True, 445), (333, 333, False, 0)]
+
+
+@pytest.mark.parametrize("d", fk.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("groups", [1, 3, 8])
+@pytest.mark.parametrize("sq,sk,causal,off", WGMMA_SHAPES)
+def test_wgmma_instance_equals_plain_version(cuda, d, groups, sq, sk, causal, off):
+    assert fk.instance_for(torch.bfloat16, d) == "wgmma"
+    q, k, v = attn_inputs(cuda, d + groups + sq, 2, groups, sq, sk, d, torch.bfloat16)
+    out = fk.flash_attention_call(q, k, v, groups=groups, causal=causal, q_offset=off)
+    ref = flash_attention_ref(q, k, v, groups=groups, causal=causal, q_offset=off)
+    rounded = flash_attention_ref(q, k, v, groups=groups, causal=causal, q_offset=off, round_p=True)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), rounded.float(), atol=2e-3, rtol=8e-3)
+
+
+def test_wgmma_instance_reads_unaligned_views(cuda):
+    # TMA needs 16-byte aligned addresses: a view 1 element into its storage is copied
+    q, k, v = attn_inputs(cuda, 5, 1, 2, 64, 64, 64, torch.bfloat16)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    qv = buf[1:].view(q.shape)
+    qv.copy_(q)
+    assert qv.data_ptr() % 16 != 0
+    out = fk.flash_attention_call(qv, k, v, groups=2, causal=True)
+    torch.testing.assert_close(out, fk.flash_attention_call(q, k, v, groups=2, causal=True))
+
+
 def test_flash_wrapper_counts_each_launch(cuda):
     rng = np.random.default_rng(0)
     q = torch.from_numpy(rng.standard_normal((1, 40, 2, 4, 64), dtype=np.float32)).to(cuda)
@@ -150,9 +185,15 @@ def test_flash_wrapper_counts_each_launch(cuda):
     fa.reset_kernel_launches()
     out = fa.flash_attention(q, k, k, causal=True)
     assert fa.KERNEL_LAUNCHES == {"flash_attention": 1}
+    assert fa.INSTANCE_LAUNCHES == {"wgmma": 0, "cuda_cores": 1}
     cpu = fa.flash_attention(q.cpu(), k.cpu(), k.cpu(), causal=True)
     assert fa.KERNEL_LAUNCHES == {"flash_attention": 1}
     torch.testing.assert_close(out.cpu(), cpu, atol=2e-4, rtol=2e-4)
+    fa.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16(), causal=True)
+    assert fa.KERNEL_LAUNCHES == {"flash_attention": 2}
+    assert fa.INSTANCE_LAUNCHES == {"wgmma": 1, "cuda_cores": 1}
+    fa.reset_kernel_launches()
+    assert fa.INSTANCE_LAUNCHES == {"wgmma": 0, "cuda_cores": 0}
 
 
 def test_flash_kernel_refuses_bad_inputs(cuda):
@@ -188,6 +229,7 @@ def test_serving_on_the_card_launches_the_kernel_per_layer_and_matches_the_cpu(c
         gens[dev] = [r.generated for r in sorted(eng.run(), key=lambda r: r.rid)]
         launches = fa.KERNEL_LAUNCHES["flash_attention"]
         assert launches == (cfg.n_layers * len(prompts) if dev == "cuda" else 0)
+        assert fa.INSTANCE_LAUNCHES == {"wgmma": 0, "cuda_cores": launches}  # float32
     assert gens["cuda"] == gens["cpu"]
 
 

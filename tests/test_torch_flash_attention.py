@@ -19,7 +19,9 @@ from repro.kernels.flash_attention.ops import flash_attention as jflash  # noqa:
 from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.device import default_device, set_default_device  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_attention import KERNEL_LAUNCHES, flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    INSTANCE_LAUNCHES, KERNEL_LAUNCHES, flash_attention,
+)
 from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 
@@ -127,11 +129,57 @@ def test_plain_takes_the_pallas_body_arithmetic():
     assert torch.isfinite(hi).all()
 
 
+def flat(q, k, v):
+    """The kernel's layout: (B*K*G, Sq, d) and (B*K, Sk, d), as ops.flash_attention flattens."""
+    b, sq, kh, g, d = q.shape
+    sk = k.shape[1]
+    return (q.permute(0, 2, 3, 1, 4).reshape(b * kh * g, sq, d),
+            k.permute(0, 2, 1, 3).reshape(b * kh, sk, d), v.permute(0, 2, 1, 3).reshape(b * kh, sk, d))
+
+
+@pytest.mark.parametrize("b,sq,sk,kh,g,d", SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_round_p_plain_matches_pallas_kernel_interpreted(b, sq, sk, kh, g, d, causal):
+    """The plain version with P rounded to bf16, as the wgmma instance rounds
+    it, against the interpreted Pallas kernel in bf16.  Every length is under
+    128 or a multiple of it (the NaN of a ragged key tail, pinned below)."""
+    (jq, jk, jv), (q, k, v) = inputs(8, b, sq, sk, kh, g, d, "bfloat16")
+    ref = jflash(jq, jk, jv, causal=causal, interpret=True)
+    out = flash_attention_ref(*flat(q, k, v), groups=g, causal=causal, round_p=True)
+    out = out.reshape(b, kh, g, sq, d).permute(0, 3, 1, 2, 4)
+    np.testing.assert_allclose(f32(out), f32(ref), **tol("bfloat16"))
+
+
+def test_round_p_rounds_only_p_before_p_v():
+    """round_p=False is the Pallas body as before; round_p=True takes P.V from
+    P rounded to bf16, while l still sums the float32 P."""
+    _, (q, k, v) = inputs(9, 1, 40, 40, 1, 2, 32, "bfloat16")
+    qf, kf, vf = flat(q, k, v)
+    s = torch.matmul(qf.float().reshape(1, 2, 40, 32), kf.float()[:, None].transpose(-1, -2))
+    s = torch.where(torch.ones(40, 40, dtype=torch.bool).tril(), s / 32 ** 0.5, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    for round_p, pv in ((False, p), (True, p.bfloat16().float())):
+        want = (torch.matmul(pv, vf.float()[:, None]) / l).reshape(2, 40, 32).bfloat16()
+        got = flash_attention_ref(qf, kf, vf, groups=2, causal=True, round_p=round_p)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert not torch.equal(flash_attention_ref(qf, kf, vf, groups=2, causal=True),
+                           flash_attention_ref(qf, kf, vf, groups=2, causal=True, round_p=True))
+
+
+def test_instance_is_chosen_from_dtype_and_head_dim_alone():
+    for d in fk.HEAD_DIMS:
+        assert fk.instance_for(torch.float32, d) == "cuda_cores"
+        assert fk.instance_for(torch.bfloat16, d) == ("wgmma" if d in (64, 96, 128) else "cuda_cores")
+    assert fk.WGMMA_HEAD_DIMS == (64, 96, 128) and set(fk.INSTANCES) == set(INSTANCE_LAUNCHES)
+
+
 def test_cpu_tensors_take_the_plain_version_uncounted():
     KERNEL_LAUNCHES["flash_attention"] = 0
     _, (q, k, v) = inputs(5, 1, 16, 16, 1, 2, 16)
     flash_attention(q, k, v)
     assert KERNEL_LAUNCHES == {"flash_attention": 0}
+    assert INSTANCE_LAUNCHES == {"wgmma": 0, "cuda_cores": 0}
 
 
 def test_negative_q_offset_is_refused():
@@ -150,10 +198,42 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 def test_library_is_keyed_by_the_source(monkeypatch, tmp_path):
     a = fk.LIBRARY.path()
     assert a.name.startswith("libflash_attention_") and a.parent == _build.BUILD_DIR
+    source = fk.LIBRARY.source.read_bytes()
+    headers = _build.local_headers(fk.LIBRARY.source)
+    assert [h.name for h in headers] == ["hopper.cuh"]
     src = tmp_path / "flash_attention.cu"
-    src.write_bytes(fk.LIBRARY.source.read_bytes() + b"\n// edited\n")
+    src.write_bytes(source + b"\n// edited\n")
     monkeypatch.setattr(fk.LIBRARY, "source", src)
     assert fk.LIBRARY.path() != a
+    # and by the headers it includes: copies of the source and of
+    # kernels/csrc/hopper.cuh, laid out as in the package, key as the
+    # originals do until the header changes
+    copy = tmp_path / "flash_attention" / "csrc" / "flash_attention.cu"
+    copy.parent.mkdir(parents=True)
+    copy.write_bytes(source)
+    header = tmp_path / "csrc" / "hopper.cuh"
+    header.parent.mkdir()
+    header.write_bytes(headers[0].read_bytes())
+    monkeypatch.setattr(fk.LIBRARY, "source", copy)
+    assert fk.LIBRARY.path() == a
+    header.write_bytes(headers[0].read_bytes() + b"\n// edited\n")
+    assert fk.LIBRARY.path() != a
+
+
+def test_library_is_keyed_by_its_extra_flags():
+    lib = _build.CudaLibrary("flash_attention", fk.LIBRARY.source, lambda lib: None, error_fn="e")
+    with_flags = _build.CudaLibrary("flash_attention", fk.LIBRARY.source, lambda lib: None,
+                                    error_fn="e", extra_flags=("-I/usr/local/cutlass/include",))
+    assert lib.path() == fk.LIBRARY.path() and with_flags.path() != lib.path()
+
+
+def test_local_headers_follow_nested_includes_and_skip_toolkit_ones(tmp_path):
+    (tmp_path / "inc").mkdir()
+    (tmp_path / "k.cu").write_text('#include <cuda.h>\n#include "inc/a.cuh"\n#include "missing.h"\n')
+    (tmp_path / "inc" / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "inc" / "b.cuh").write_text('#include "a.cuh"\n')
+    assert _build.local_headers(tmp_path / "k.cu") == [(tmp_path / "inc" / "a.cuh").resolve(),
+                                                       (tmp_path / "inc" / "b.cuh").resolve()]
 
 
 def _fake_nvcc(tmp_path, body):
