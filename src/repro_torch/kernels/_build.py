@@ -6,12 +6,10 @@ a plain C interface, at the first launch of one of its kernels, and loaded
 with ``ctypes``.  The library lands in ``src/repro_torch/build/`` under a
 name keyed by a hash of the source, every header it includes from this
 package (``#include "..."``, followed through the headers they include in
-turn) and the flags, the library's own extra ones too
-(``lib<name>_<hash>.so``), so an edit to any of them rebuilds.
-:func:`build_all` starts one ``nvcc`` per source at once and waits for all
-of them.  Nothing happens at
-import time: the CPU tests import every kernel module on machines that have
-no ``nvcc`` and no card.
+turn) and the flags (``lib<name>_<hash>.so``), so an edit to any of them
+rebuilds.  :func:`build_all` starts one ``nvcc`` per source at once and waits
+for all of them.  Nothing happens at import time: the CPU tests import every
+kernel module on machines that have no ``nvcc`` and no card.
 """
 
 from __future__ import annotations
@@ -68,15 +66,12 @@ class CudaLibrary:
     ``bind`` declares ``argtypes``/``restype`` of every entry point on the
     freshly loaded library.  The source must export
     ``const char* <error_fn>(int)``, which names a CUDA error code.
-    ``extra_flags`` go to nvcc after :data:`NVCC_FLAGS` (an include path,
-    say) and into the library's hash.
     """
 
     def __init__(self, name: str, source: Path, bind: Callable[[ctypes.CDLL], None],
-                 *, error_fn: str, extra_flags: Sequence[str] = ()):
+                 *, error_fn: str):
         self.name = name
         self.source = source
-        self.extra_flags = tuple(extra_flags)
         self.build_dir = BUILD_DIR
         self._bind = bind
         self._error_fn = error_fn
@@ -88,7 +83,7 @@ class CudaLibrary:
         h = hashlib.sha256(self.source.read_bytes())
         for header in local_headers(self.source):
             h.update(header.name.encode() + b"\0" + header.read_bytes())
-        h.update(" ".join((*NVCC_FLAGS, *self.extra_flags)).encode())
+        h.update(" ".join(NVCC_FLAGS).encode())
         return self.build_dir / f"lib{self.name}_{h.hexdigest()[:16]}.so"
 
     def _start(self) -> tuple[Path, Path, subprocess.Popen] | None:
@@ -98,7 +93,7 @@ class CudaLibrary:
             return None
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, *self.extra_flags, "-o", str(tmp), str(self.source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
         try:
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         except FileNotFoundError:

@@ -63,7 +63,31 @@
 
 #include <stdio.h>
 
+#include <atomic>
+
 #include "../../csrc/hopper.cuh"
+
+namespace {
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory, which above 48 KB
+// must be asked for on each device.  `devices` (one per kernel) remembers the
+// devices where it was, so a launch pays for the call only once per device.
+// It must have internal linkage (every launcher lives in an anonymous
+// namespace): the loader would otherwise make a function-local static of an
+// external template one object across every library that defines it.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, std::atomic<unsigned long long>& devices) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+    if (devices.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) devices.fetch_or(bit, std::memory_order_relaxed);
+    return err;
+}
+
+}  // namespace
 
 // ------------------------------------------------------------------------
 // 2. the CUDA-core instance
@@ -245,9 +269,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
                    int groups, int causal, int q_offset, float sm_scale, cudaStream_t stream) {
     constexpr size_t smem = smem_bytes<D>();
     auto kernel = flash_attention_fwd<T, D>;
-    // above 48 KB a block's shared memory must be asked for, on the current device
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static std::atomic<unsigned long long> smem_devices{0};
+    cudaError_t err = allow_smem(kernel, smem, smem_devices);
     if (err != cudaSuccess) return err;
     const dim3 grid((sq + BQ - 1) / BQ, bh);
     kernel<<<grid, THREADS, smem, stream>>>(
@@ -256,26 +279,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
     return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int d, const void* q, const void* k, const void* v, void* o, int bh, int sq,
-                     int sk, int groups, int causal, int q_offset, float sm_scale,
-                     cudaStream_t stream) {
-#define FA_CASE(DIM)                                                                        \
+#define FA_CASE(T, DIM)                                                                     \
     case DIM:                                                                               \
         return launch<T, DIM>(q, k, v, o, bh, sq, sk, groups, causal, q_offset, sm_scale, \
                               stream);
+
+cudaError_t dispatch_f32(int d, const void* q, const void* k, const void* v, void* o, int bh,
+                         int sq, int sk, int groups, int causal, int q_offset, float sm_scale,
+                         cudaStream_t stream) {
     switch (d) {
-        FA_CASE(16)
-        FA_CASE(32)
-        FA_CASE(64)
-        FA_CASE(96)
-        FA_CASE(112)
-        FA_CASE(128)
+        FA_CASE(float, 16)
+        FA_CASE(float, 32)
+        FA_CASE(float, 64)
+        FA_CASE(float, 96)
+        FA_CASE(float, 112)
+        FA_CASE(float, 128)
         default:
             return cudaErrorInvalidValue;
     }
-#undef FA_CASE
 }
+
+// bf16 at the head dims the wgmma instance does not take
+cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v, void* o, int bh,
+                          int sq, int sk, int groups, int causal, int q_offset, float sm_scale,
+                          cudaStream_t stream) {
+    switch (d) {
+        FA_CASE(__nv_bfloat16, 16)
+        FA_CASE(__nv_bfloat16, 32)
+        FA_CASE(__nv_bfloat16, 112)
+        default:
+            return cudaErrorInvalidValue;
+    }
+}
+#undef FA_CASE
 
 }  // namespace
 
@@ -283,6 +319,7 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, void* o
 // 1. the bf16 wgmma instance
 // ------------------------------------------------------------------------
 
+namespace {
 namespace wg {
 
 using namespace hopper;
@@ -605,8 +642,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
     }
     constexpr size_t smem = smem_bytes<D>();
     auto kernel = flash_attention_wgmma<D>;
-    cudaError_t cerr =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static std::atomic<unsigned long long> smem_devices{0};
+    cudaError_t cerr = allow_smem(kernel, smem, smem_devices);
     if (cerr != cudaSuccess) return cerr;
     const dim3 grid(bh, (sq + BQ - 1) / BQ);
     kernel<<<grid, THREADS, smem, stream>>>(tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), sq,
@@ -615,22 +652,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
 }
 
 }  // namespace wg
+}  // namespace
 
 extern "C" {
 
 // The CUDA-core instance.  dtype 0 = float32, 1 = bfloat16.  Returns a
-// cudaError_t: 0 on success, cudaErrorInvalidValue for a head dim or dtype
-// that has no instance.
+// cudaError_t: 0 on success, cudaErrorInvalidValue for a (dtype, head dim)
+// that this instance does not take (bf16 at 64, 96 and 128 is the wgmma
+// instance's).
 int flash_attention_fwd_launch(int dtype, int d, const void* q, const void* k, const void* v,
                                void* o, int bh, int sq, int sk, int groups, int causal,
                                int q_offset, float sm_scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0) {
-        return dispatch<float>(d, q, k, v, o, bh, sq, sk, groups, causal, q_offset, sm_scale, s);
+        return dispatch_f32(d, q, k, v, o, bh, sq, sk, groups, causal, q_offset, sm_scale, s);
     }
     if (dtype == 1) {
-        return dispatch<__nv_bfloat16>(d, q, k, v, o, bh, sq, sk, groups, causal, q_offset,
-                                       sm_scale, s);
+        return dispatch_bf16(d, q, k, v, o, bh, sq, sk, groups, causal, q_offset, sm_scale, s);
     }
     return cudaErrorInvalidValue;
 }

@@ -7,6 +7,9 @@ on a machine with a card and no JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -17,6 +20,7 @@ import dataclasses  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import codec  # noqa: E402
 from repro_torch.device import default_device, set_default_device  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grib_pack as gp  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
@@ -143,11 +147,16 @@ def test_flash_kernel_equals_plain_version(cuda, dtype, d, causal, sq, sk, off):
     torch.testing.assert_close(out.float(), ref.float(), **attn_tol(dtype))
 
 
-# the bf16 wgmma instance: chip_smoke.py's served prompt lengths at seed 0
-# (all ragged against 128), Sq < 128, Sq = 1, Sq < Sk with q_offset, and
-# bidirectional; against the plain version at 2e-2, and against the plain
-# version that rounds P to bf16 as the instance does at one bf16 ulp
-SERVED_LENGTHS = (1291, 992, 816, 477, 531, 157, 205, 123)
+# the bf16 wgmma instance: chip_smoke.py's served prompt lengths at seed 0,
+# drawn as its phase 5 draws them (all ragged against 128), Sq < 128, Sq = 1,
+# Sq < Sk with q_offset, and bidirectional; against the plain version at
+# 2e-2, and against the plain version that rounds P to bf16 as the instance
+# does at one bf16 ulp
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+SERVED_LENGTHS = chip_smoke.served_lengths(np.random.default_rng(0))
 WGMMA_SHAPES = [*((n, n, True, 0) for n in SERVED_LENGTHS),
                 (77, 77, True, 0), (1, 300, True, 299), (200, 645, True, 445), (333, 333, False, 0)]
 
@@ -194,6 +203,46 @@ def test_flash_wrapper_counts_each_launch(cuda):
     assert fa.INSTANCE_LAUNCHES == {"wgmma": 1, "cuda_cores": 1}
     fa.reset_kernel_launches()
     assert fa.INSTANCE_LAUNCHES == {"wgmma": 0, "cuda_cores": 0}
+
+
+@pytest.mark.parametrize("d", fk.WGMMA_HEAD_DIMS)
+def test_cuda_core_instance_refuses_the_wgmma_head_dims_in_bf16(cuda, d):
+    # bf16 at these head dims has one route, the wgmma instance: the CUDA-core
+    # entry point is not built for them and answers cudaErrorInvalidValue (1)
+    q = torch.zeros((2, 64, d), device=cuda, dtype=torch.bfloat16)
+    out = torch.empty_like(q)
+    lib = fk.LIBRARY.load()
+    err = lib.flash_attention_fwd_launch(1, d, q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                                         out.data_ptr(), 2, 64, 64, 1, 1, 0, 1.0, None)
+    assert err == 1
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        fk.LIBRARY.check(err, "flash_attention")
+    qf, of = q.float(), out.float()  # float32 at the same head dim is this instance's
+    assert lib.flash_attention_fwd_launch(0, d, qf.data_ptr(), qf.data_ptr(), qf.data_ptr(),
+                                          of.data_ptr(), 2, 64, 64, 1, 1, 0, 1.0, None) == 0
+    torch.cuda.synchronize()
+
+
+def test_a_second_build_of_the_source_launches_beside_the_first(cuda, tmp_path):
+    # each loaded library asks for its own kernels' shared memory above 48 KB:
+    # a second build of the source, loaded after the package's, launches too
+    header = (fk.LIBRARY.source.parent / "../../csrc/hopper.cuh").resolve()
+    src = fk.LIBRARY.source.read_text().replace('#include "../../csrc/hopper.cuh"',
+                                                f'#include "{header}"')
+    path = tmp_path / "flash_attention_copy.cu"
+    path.write_text(src + "\n// a second build\n")
+    copy = _build.CudaLibrary("flash_attention_copy", path, fk._bind,
+                              error_fn="flash_attention_error_string")
+    copy.build_dir = tmp_path
+    q, k, v = attn_inputs(cuda, 11, 2, 8, 300, 300, 128, torch.bfloat16)
+    want = fk.flash_attention_call(q, k, v, groups=8, causal=True)
+    out = torch.empty_like(q)
+    err = copy.load().flash_attention_wgmma_launch(
+        128, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 16, 300, 300, 8, 1, 0,
+        128 ** -0.5, torch.cuda.current_stream().cuda_stream)
+    copy.check(err, "flash_attention")
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def test_flash_kernel_refuses_bad_inputs(cuda):

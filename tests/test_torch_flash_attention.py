@@ -8,6 +8,9 @@ as there).  The wrapper's dispatch, launch counter and build helper are
 checked here too; the kernel itself runs in ``tests/test_torch_cuda.py``.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -220,11 +223,37 @@ def test_library_is_keyed_by_the_source(monkeypatch, tmp_path):
     assert fk.LIBRARY.path() != a
 
 
-def test_library_is_keyed_by_its_extra_flags():
-    lib = _build.CudaLibrary("flash_attention", fk.LIBRARY.source, lambda lib: None, error_fn="e")
-    with_flags = _build.CudaLibrary("flash_attention", fk.LIBRARY.source, lambda lib: None,
-                                    error_fn="e", extra_flags=("-I/usr/local/cutlass/include",))
-    assert lib.path() == fk.LIBRARY.path() and with_flags.path() != lib.path()
+def test_on_card_cases_cover_every_served_length():
+    # tests/test_torch_cuda.py and chip_smoke.py phase 4 hold the wgmma
+    # instance at phase 5's prompt lengths, drawn by chip_smoke.served_lengths
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    lengths = smoke.served_lengths(np.random.default_rng(0))
+    assert len(lengths) == smoke.SERVE_REQUESTS and all(n % 128 for n in lengths)
+    cases = smoke.wgmma_cases(0)
+    assert {(sq, sk, causal, off) for _, _, sq, sk, _, causal, off in cases} >= {
+        (n, n, True, 0) for n in lengths}
+    assert {c[4] for c in cases} == set(fk.WGMMA_HEAD_DIMS) and {c[1] for c in cases} == {1, 3, 8}
+    assert all(fk.instance_for(torch.bfloat16, c[4]) == "wgmma" for c in cases)
+    assert any(c[2] == 1 for c in cases) and any(1 < c[2] < 128 for c in cases)
+    assert any(c[2] < c[3] and c[6] > 0 for c in cases) and any(not c[5] for c in cases)
+
+
+def test_ablation_tool_edits_match_the_source_once():
+    # tools/flash_attention_ablation.py takes parts of the wgmma instance out
+    # by textual edits; each must still find its one place in the source
+    spec = importlib.util.spec_from_file_location(
+        "flash_attention_ablation",
+        Path(__file__).resolve().parents[1] / "tools" / "flash_attention_ablation.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    source = fk.LIBRARY.source.read_text()
+    assert tool.ABLATIONS["as shipped"] == [] and len(tool.ABLATIONS) > 1
+    for name, edits in tool.ABLATIONS.items():
+        for old, new in edits:
+            assert source.count(old) == 1 and old != new, name
 
 
 def test_local_headers_follow_nested_includes_and_skip_toolkit_ones(tmp_path):
