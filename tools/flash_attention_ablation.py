@@ -57,6 +57,9 @@ ABLATIONS = {
     "no masks on the diagonal and tail blocks": [
         ("const bool masked = k0 + BKV > sk || (causal && k0 + BKV - 1 > first_qpos);",
          "const bool masked = false;")],
+    "mask condition from the tile's first query": [
+        ("const bool masked = k0 + BKV > sk || (causal && k0 + BKV - 1 > first_qpos);",
+         "const bool masked = k0 + BKV > sk || (causal && k0 + BKV - 1 > q0 + q_offset);")],
     "no softmax (P = raw scores, no rescaling)": [
         ("softmax(0);", "alpha0 = alpha1 = 1.f;"), ("softmax(kb);", "alpha0 = alpha1 = 1.f;")],
     "no turn-taking between the consumer warpgroups": [
