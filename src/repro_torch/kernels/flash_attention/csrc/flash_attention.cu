@@ -28,9 +28,11 @@
 //      never a NaN;
 //    - S = Q.K^T on wgmma m64n128k16 from shared memory (K is (keys, D),
 //      K-major), online softmax in registers on the accumulator's layout
-//      (a row's max and sum take two shuffles within a quad; masks only on
-//      the diagonal and tail blocks; exp2 with log2(e)/sqrt(D) folded into
-//      one multiply-add), l summing the float32 P;
+//      (a row's max and sum take two shuffles within a quad; exp2 with
+//      log2(e)/sqrt(D) folded into one multiply-add), l summing the float32
+//      P.  Masks apply only on the diagonal and tail blocks, which run after
+//      the others in a loop of their own: a runtime mask branch in the
+//      softmax of every block cost a quarter of the kernel's time;
 //    - O += P.V on wgmma with P from registers, rounded to bf16 (the one
 //      change of arithmetic against the Pallas body, which keeps P in
 //      float32; a TPU at JAX's default precision multiplies float32 in bf16
@@ -64,6 +66,7 @@
 #include <stdio.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "../../csrc/hopper.cuh"
 
@@ -444,7 +447,6 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         const int row0 = 64 * c + 16 * warp + lane / 4;  // and row0 + 8
         const int qpos0 = q0 + row0 + q_offset;
         const int col0 = 2 * (lane % 4);  // accumulator columns col0 + 8j + {0, 1}
-        const int first_qpos = q0 + 64 * c + q_offset;
 
         float acc_s[64];        // S: 128 keys
         float acc_o[DP / 2];    // O: DP columns
@@ -498,18 +500,20 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         };
         // online softmax of key block kb on the accumulator's layout: acc_s[4j + e]
         // is row row0 + 8 * (e >= 2), key k0 + 8j + col0 + (e & 1).  Leaves P (float32)
-        // in acc_s, and the rows' rescaling factors in alpha0, alpha1.
+        // in acc_s, and the rows' rescaling factors in alpha0, alpha1.  `mask`
+        // (std::true_type or std::false_type) says whether the block holds keys
+        // at or past seq_k or above the diagonal: a mask branch left in the
+        // code of the other blocks costs a quarter of the kernel's time.
         float alpha0, alpha1;
-        auto softmax = [&](int kb) {
+        auto softmax = [&](int kb, auto mask) {
             const int k0 = kb * BKV;
-            const bool masked = k0 + BKV > sk || (causal && k0 + BKV - 1 > first_qpos);
             float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
             for (int j = 0; j < 16; ++j) {
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                     float x = acc_s[4 * j + e];
-                    if (masked) {
+                    if constexpr (decltype(mask)::value) {
                         const int kpos = k0 + 8 * j + col0 + (e & 1);
                         const int qpos = qpos0 + ((e & 2) ? 8 : 0);
                         if (kpos >= sk || (causal && kpos > qpos)) x = NEG_INF;
@@ -571,6 +575,23 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         // products run while the other computes its softmax.
         auto my_turn = [&]() { named_barrier(3 + c, 256); };
         auto your_turn = [&]() { named_barrier_arrive(3 + (c ^ 1), 256); };
+        auto step = [&](int kb, auto mask) {
+            my_turn();
+            issue_qk(kb);
+            issue_pv(kb - 1);
+            your_turn();
+            wgmma_wait<1>();  // Q.K^T of kb is done, P.V of kb - 1 may still run
+            fence_regs(acc_s);
+            softmax(kb, mask);
+            wgmma_wait<0>();
+            pv_done(kb - 1);
+            rescale_and_pack();
+        };
+        // blocks [0, unmasked) need no mask: every key is before seq_k and at
+        // or below the diagonal of the tile's first query row.  The bound is
+        // the tile's, not the warpgroup's, so it is the same in every thread.
+        int unmasked = sk / BKV;
+        if (causal) unmasked = min(unmasked, (q0 + q_offset + 1) / BKV);
         if (c == 1) your_turn();  // warpgroup 1 (c = 0) goes first
         mbar_wait(&bar.q_full, 0);
         my_turn();
@@ -578,20 +599,15 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         your_turn();
         wgmma_wait<0>();
         fence_regs(acc_s);
-        softmax(0);
-        rescale_and_pack();
-        for (int kb = 1; kb < nk; ++kb) {
-            my_turn();
-            issue_qk(kb);
-            issue_pv(kb - 1);
-            your_turn();
-            wgmma_wait<1>();  // Q.K^T of kb is done, P.V of kb - 1 may still run
-            fence_regs(acc_s);
-            softmax(kb);
-            wgmma_wait<0>();
-            pv_done(kb - 1);
-            rescale_and_pack();
+        if (unmasked > 0) {
+            softmax(0, std::false_type{});
+        } else {
+            softmax(0, std::true_type{});
         }
+        rescale_and_pack();
+        int kb = 1;
+        for (; kb < unmasked; ++kb) step(kb, std::false_type{});
+        for (; kb < nk; ++kb) step(kb, std::true_type{});
         my_turn();
         issue_pv(nk - 1);
         your_turn();

@@ -1,13 +1,15 @@
 """Where the time of the bf16 wgmma flash-attention kernel goes, by ablation.
 
-    python3 tools/flash_attention_ablation.py [--reps 3]
+    python3 tools/flash_attention_ablation.py [--reps 3] [--baseline OLD/flash_attention.cu]
 
 Needs one CUDA card and nvcc.  Builds copies of
 ``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu``, each with
 one part of the wgmma instance taken out by a textual edit (the edits are
 listed in ``ABLATIONS``; each must match the source exactly once), into
 ``src/repro_torch/build/ablation/``, one nvcc per copy, all started together.
-At the full-width qwen2.5-3b prefill shape (q 16 x 2048 x 128, k/v
+Each ``--baseline`` source (another version of the kernel's file, with the
+same C entry points) is built and timed beside them as it is.  At the
+full-width qwen2.5-3b prefill shape (q 16 x 2048 x 128, k/v
 2 x 2048 x 128, bf16, causal) it times every copy, the kernel as it ships
 bidirectional over half the keys (the same number of attended pairs, with no
 diagonal block), and ``F.scaled_dot_product_attention`` on the same inputs,
@@ -15,11 +17,13 @@ with CUDA events around 20 back-to-back launches; the copies are timed in
 turn, ``--reps`` rounds, and the median of each is printed.  An ablated copy
 computes a wrong answer on purpose: only its time is read.
 
-It also times, on the host, one ``cuTensorMapEncodeTiled`` of a K map and one
-``cudaFuncSetAttribute`` of the wgmma kernel (each launch encodes three maps;
-the attribute is set once per device), and one wrapper call from an idle
-stream at the shortest served prompt with the attribute set on every launch
-and once per device.
+For every copy it prints what ``nvcc -Xptxas -v`` says of its D = 128
+kernel: registers, spilled bytes, and performance warnings such as C7511
+(``wgmma`` serialised for lack of registers).  It also times, on the host,
+one ``cuTensorMapEncodeTiled`` of a K map and one ``cudaFuncSetAttribute``
+of the wgmma kernel (each launch encodes three maps; the attribute is set
+once per device), and one wrapper call from an idle stream at the shortest
+served prompt with the attribute set on every launch and once per device.
 
 Prints one line per measurement and, last, a JSON object of them all.
 """
@@ -30,6 +34,7 @@ import argparse
 import ctypes
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -52,16 +57,23 @@ SHORT = 123  # the shortest of chip_smoke.py's served prompt lengths at seed 0
 # name -> [(text of the source, its replacement)]
 ABLATIONS = {
     "as shipped": [],
+    "a runtime mask branch in every block's softmax": [
+        ("if constexpr (decltype(mask)::value) {",
+         "if (k0 + BKV > sk || (causal && k0 + BKV - 1 > q0 + 64 * c + q_offset)) {")],
+    "no masks on the diagonal and tail blocks": [
+        ("softmax(0, std::true_type{});", "softmax(0, std::false_type{});"),
+        ("for (; kb < nk; ++kb) step(kb, std::true_type{});",
+         "for (; kb < nk; ++kb) step(kb, std::false_type{});")],
+    "half the exponentials (an odd column reuses its even neighbour's)": [
+        ("exp2_approx(fmaf(acc_s[4 * j + e], scale_log2, (e & 2) ? -mn1 : -mn0));",
+         "(e & 1) ? acc_s[4 * j + e - 1]"
+         " : exp2_approx(fmaf(acc_s[4 * j + e], scale_log2, (e & 2) ? -mn1 : -mn0));")],
     "exp2 replaced by a multiply": [
         ('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));', "y = x * 0.5f;")],
-    "no masks on the diagonal and tail blocks": [
-        ("const bool masked = k0 + BKV > sk || (causal && k0 + BKV - 1 > first_qpos);",
-         "const bool masked = false;")],
-    "mask condition from the tile's first query": [
-        ("const bool masked = k0 + BKV > sk || (causal && k0 + BKV - 1 > first_qpos);",
-         "const bool masked = k0 + BKV > sk || (causal && k0 + BKV - 1 > q0 + q_offset);")],
     "no softmax (P = raw scores, no rescaling)": [
-        ("softmax(0);", "alpha0 = alpha1 = 1.f;"), ("softmax(kb);", "alpha0 = alpha1 = 1.f;")],
+        ("softmax(0, std::false_type{});", "alpha0 = alpha1 = 1.f;"),
+        ("softmax(0, std::true_type{});", "alpha0 = alpha1 = 1.f;"),
+        ("softmax(kb, mask);", "alpha0 = alpha1 = 1.f;")],
     "no turn-taking between the consumer warpgroups": [
         ("auto my_turn = [&]() { named_barrier(3 + c, 256); };", "auto my_turn = [&]() {};"),
         ("auto your_turn = [&]() { named_barrier_arrive(3 + (c ^ 1), 256); };",
@@ -99,9 +111,10 @@ extern "C" double flash_attention_probe_host_us(int what, const void* base, int 
 """ % {"D": D}
 
 
-def ablated_library(index: int, name: str, edits) -> _build.CudaLibrary:
-    """A copy of the kernel's source with ``edits`` made, as a library."""
-    src = fk.LIBRARY.source.read_text()
+def ablated_library(index: int, name: str, edits, source: Path = fk.LIBRARY.source
+                    ) -> _build.CudaLibrary:
+    """A copy of ``source`` (the kernel's, by default) with ``edits`` made, as a library."""
+    src = source.read_text()
     header = fk.LIBRARY.source.parent / "../../csrc/hopper.cuh"
     edits = [('#include "../../csrc/hopper.cuh"', f'#include "{header.resolve()}"'), *edits]
     for old, new in edits:
@@ -120,6 +133,34 @@ def ablated_library(index: int, name: str, edits) -> _build.CudaLibrary:
 
     return _build.CudaLibrary(f"flash_attention_ablation{index}", path, bind,
                               error_fn="flash_attention_error_string")
+
+
+def ptxas_report(libraries: dict[str, _build.CudaLibrary]) -> dict[str, dict]:
+    """For each copy, what ptxas says of its D = 128 wgmma kernel: registers,
+    spilled bytes, and its performance warnings (C7511: wgmma serialised).
+    One nvcc per copy with ``-Xptxas -v``, all started together."""
+    procs = {}
+    for name, lib in libraries.items():
+        out = lib.source.with_suffix(".ptxas.so")
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(lib.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    report = {}
+    for name, proc in procs.items():
+        lines = proc.communicate()[0].splitlines()
+        if proc.returncode != 0:
+            raise SystemExit(f"{name}: nvcc -Xptxas -v failed:\n" + "\n".join(lines))
+        start = next(i for i, line in enumerate(lines)
+                     if "Compiling entry function" in line and "flash_attention_wgmmaILi128E" in line)
+        props = " ".join(lines[start + 1:start + 4])
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", props)
+        report[name] = {
+            "registers": int(re.search(r"Used (\d+) registers", props).group(1)),
+            "spill_bytes": int(spills.group(1)) + int(spills.group(2)),
+            "warnings": sorted({m.group(0) for line in lines if "flash_attention_wgmmaILi128E" in line
+                                for m in [re.search(r"\(C\d+\)", line)] if m}),
+        }
+    return report
 
 
 def launcher(library: _build.CudaLibrary, q, k, v, *, causal: bool):
@@ -143,6 +184,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--baseline", type=Path, action="append", default=[],
+                    help="another flash_attention.cu (an earlier commit's, say) whose wgmma "
+                         "instance is timed beside the shipped one; may be repeated")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -152,9 +196,16 @@ def main() -> int:
     print(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     libraries = {name: ablated_library(i, name, edits) for i, (name, edits) in enumerate(ABLATIONS.items())}
+    for path in args.baseline:
+        libraries[f"baseline {path}"] = ablated_library(len(libraries), str(path), [], path.resolve())
     t0 = time.perf_counter()
     _build.build_all(list(libraries.values()))
     print(f"[build] {len(libraries)} copies in {time.perf_counter() - t0:.2f} s", flush=True)
+    ptxas = ptxas_report(libraries)
+    for name, r in ptxas.items():
+        print(f"[ptxas] {name}: wgmma kernel at D = {D}: {r['registers']} registers, "
+              f"{r['spill_bytes']} bytes spilled, warnings {', '.join(r['warnings']) or 'none'}",
+              flush=True)
 
     gen = torch.Generator("cuda").manual_seed(args.seed)
 
@@ -203,7 +254,8 @@ def main() -> int:
         host[f"call_ms, {name}"] = call_ms(call, reps=200)
     for key, val in host.items():
         print(f"[host] {key}: {val:.4f}", flush=True)
-    print(json.dumps({"card": smi, "ms": ms, "rounds": times, "bound_ms": bound, "host": host}))
+    print(json.dumps({"card": smi, "ms": ms, "rounds": times, "bound_ms": bound, "host": host,
+                      "ptxas": ptxas}))
     return 0
 
 
