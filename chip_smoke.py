@@ -46,8 +46,12 @@ Phases, each fatal on failure:
    of tests/test_kernels.py and the reduced configs' in float32 and bf16,
    its chunk-independence case, and in bf16 the zamba2-7b and mamba2-370m
    head and state sizes and the full-width scoring shape (2e-4 in float32,
-   5e-2 in bf16); kernel,
-   plain and ssd_chunked times at the full-width shape beside the bound.
+   5e-2 in bf16).  The split instance (bf16, head dim 64, state 64 or 128)
+   is also held against the plain version that rounds its float32 operands
+   to the bf16 terms it feeds them as (one bf16 ulp of the output), and each
+   of its three launches against its own plain function.  Kernel, plain and
+   ssd_chunked times at the full-width shape beside the bound, and the time
+   of each of the split instance's three launches.
    Then mamba2-370m at full width (48 layers, bf16, random weights from
    --seed made on the card) trains through Trainer with async checkpoints
    to the emulated DAOS FDB: 6 steps of 8 x 2048 tokens, a checkpoint every
@@ -55,8 +59,9 @@ Phases, each fatal on failure:
    restored state must equal the saved one leaf by leaf.  The trained
    weights then score a held-out batch through the kernel (one launch per
    layer) and through ssd_chunked, and the two losses must agree; the same
-   pass with a faulty scan in the kernel's place must disagree, and each
-   layer's launch must agree with the plain version on that layer's inputs.
+   pass with a faulty scan in the kernel's place must disagree, each
+   layer's launch must agree with the plain version on that layer's inputs,
+   and every launch must have run the split instance.
 
 The line before the last is one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -108,6 +113,15 @@ SERVE_BATCH, SERVE_CACHE = 4, 2048
 SSD_TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4),  # tests/test_kernels.py:96
            torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
 SSD_CARRY_TOL = dict(atol=1e-4, rtol=1e-4)  # tests/test_kernels.py:112
+# the split instance against the plain version that rounds the scores, w*x
+# and h to the bf16 terms it feeds them as: one bf16 ulp of the output (2^-7
+# relative at the bottom of a binade), plus float32 sums in another order
+# near zero
+SPLIT_TOL = dict(atol=2e-3, rtol=8e-3)
+# the split instance's float32 scratch (cumsum, chunk states, states entering
+# each chunk) against the plain functions of its launches: float32 sums of up
+# to a chunk of products in another order
+SCRATCH_TOL = dict(atol=1e-4, rtol=1e-5)
 SSD_CASES = [  # (batch, seq, heads, head dim, state, chunk), float32 and bf16
     (1, 64, 1, 8, 4, 16), (2, 128, 3, 16, 8, 32),  # tests/test_kernels.py:76-83
     (1, 256, 2, 64, 16, 64), (2, 96, 2, 16, 8, 32),
@@ -602,26 +616,67 @@ def ssd_bound(bh: int, s: int, p: int, n: int, q: int, bg: int, itemsize: int) -
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def split_launch_errors(scan, flat, heads: int, chunk: int) -> dict[str, float]:
+    """Each launch of the split instance ``scan`` (a kernel.SplitScan that has
+    run) against its plain function on the same inputs; the largest
+    differences by launch."""
+    from repro_torch.kernels.ssd_scan import ref as sr
+
+    x, dt, A, B, C, D = flat
+    cum, states = sr.ssd_chunk_state_ref(x, dt, A, B, heads=heads, chunk=chunk, split_bf16=True)
+    h = sr.ssd_state_pass_ref(scan.states, scan.cum, chunk=chunk)
+    out = sr.ssd_chunk_scan_ref(x, dt, scan.cum, scan.h, C, B, D, heads=heads, chunk=chunk,
+                                split_bf16=True)
+    errs = {}
+    for name, got, want, tol in (("ssd_chunk_state cum", scan.cum, cum, SCRATCH_TOL),
+                                 ("ssd_chunk_state states", scan.states, states, SCRATCH_TOL),
+                                 ("ssd_state_pass", scan.h, h, SCRATCH_TOL),
+                                 ("ssd_chunk_scan", scan.out, out, SPLIT_TOL)):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        errs[name] = float((got.float() - want.float()).abs().max()) if want.numel() else 0.0
+    return errs
+
+
 def ssd_phase(dev, seed: int) -> dict:
-    """The SSD-scan kernel against its plain version, and its times."""
+    """The SSD-scan kernel's instances against their plain versions, and their times."""
     from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.models.ssm import ssd_chunked
 
     gen = torch.Generator(dev).manual_seed(seed)
-    worst = 0.0
+    worst = {name: 0.0 for name in sk.INSTANCES}
+    worst_split = 0.0
+    worst_launch: dict[str, float] = {}
     for dtype in (torch.float32, torch.bfloat16):
         for b, s, h, p, n, chunk in [*SSD_CASES, *(SSD_BF16_CASES if dtype == torch.bfloat16 else [])]:
             flat = ssd_flat(*ssd_inputs(gen, b, s, h, p, n, dtype, dev))
             out = sk.ssd_scan_call(*flat, heads=h, chunk=chunk)
             ref = ssd_scan_ref(*flat, heads=h, chunk=chunk)
             torch.cuda.synchronize()
+            instance = sk.instance_for(dtype, p, n)
             err = float((out.float() - ref.float()).abs().max())
-            worst = max(worst, err)
+            worst[instance] = max(worst[instance], err)
             torch.testing.assert_close(out.float(), ref.float(), **SSD_TOL[dtype])
-            say(f"[ssm] ssd_scan {str(dtype)[6:]} x ({b * h}, {s}, {p}) B ({b}, {s}, {n}) "
-                f"chunk {chunk}: max |kernel - plain| {err:.3g} (max |plain| "
-                f"{float(ref.float().abs().max()):.3g})")
+            line = (f"[ssm] ssd_scan {instance} {str(dtype)[6:]} x ({b * h}, {s}, {p}) B ({b}, {s}, "
+                    f"{n}) chunk {chunk}: max |kernel - plain| {err:.3g} (max |plain| "
+                    f"{float(ref.float().abs().max()):.3g})")
+            if instance == "split":
+                rounded = ssd_scan_ref(*flat, heads=h, chunk=chunk, split_bf16=True)
+                err_s = float((out.float() - rounded.float()).abs().max())
+                worst_split = max(worst_split, err_s)
+                torch.testing.assert_close(out.float(), rounded.float(), **SPLIT_TOL)
+                scan = sk.SplitScan(*flat, heads=h, chunk=chunk)
+                scan.run()
+                assert torch.equal(scan.out, out), "two runs of the split instance differ"
+                for k, v in split_launch_errors(scan, flat, h, chunk).items():
+                    worst_launch[k] = max(worst_launch.get(k, 0.0), v)
+                line += f", against plain with split operands {err_s:.3g}"
+            say(line)
+    say("[ssm] max |kernel - plain| by instance " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (tolerance 2e-4 float32, 5e-2 bf16); split against plain with split operands "
+        f"{worst_split:.3g} (tolerance {SPLIT_TOL}); each split launch against its plain function: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst_launch.items())
+        + f" (scratch tolerance {SCRATCH_TOL}, outputs {SPLIT_TOL})")
     # tests/test_kernels.py:100-112: one long chunk against many small ones
     flat = ssd_flat(*ssd_inputs(gen, 1, 128, 2, 8, 4, torch.float32, dev))
     flat = (*flat[:5], torch.zeros_like(flat[5]))
@@ -634,23 +689,45 @@ def ssd_phase(dev, seed: int) -> dict:
     b, s, h, p, n, chunk = SSD_FULL
     x, dt, A, B, C, D = ssd_inputs(gen, b, s, h, p, n, torch.bfloat16, dev)
     flat = ssd_flat(x, dt, A, B, C, D)
+    instance = sk.instance_for(torch.bfloat16, p, n)
+    assert instance == "split", instance
     call = lambda: sk.ssd_scan_call(*flat, heads=h, chunk=chunk)  # noqa: E731
     plain = lambda: ssd_scan_ref(*flat, heads=h, chunk=chunk)  # noqa: E731
     chunked = lambda: ssd_chunked(x, dt, A, B, C, D, chunk=chunk)  # noqa: E731
-    timing = {"ms": device_ms(call), "call_ms": call_ms(call),
-              "plain_ms": device_ms(plain, launches=5), "chunked_ms": device_ms(chunked, launches=5)}
+    scan = sk.SplitScan(*flat, heads=h, chunk=chunk)
+    scan.run()
+    launch_ms = {"ssd_chunk_state": device_ms(scan.chunk_state),
+                 "ssd_state_pass": device_ms(scan.state_pass),
+                 "ssd_chunk_scan": device_ms(scan.chunk_scan)}
+    # the kernel, then the yardstick, then the kernel again: a single pair
+    # could straddle a change of clocks
+    t_kernel = [device_ms(call)]
+    t_chunked = device_ms(chunked, launches=5)
+    t_kernel.append(device_ms(call))
+    timing = {"ms": statistics.mean(t_kernel), "call_ms": call_ms(call),
+              "plain_ms": device_ms(plain, launches=5), "chunked_ms": t_chunked}
     bound, by = ssd_bound(b * h, s, p, n, chunk, b, 2)
     flops, nbytes = ssd_ops(b * h, s, p, n, chunk, b), ssd_bytes(b * h, s, p, n, b, 2)
-    say(f"[ssm] ssd_scan full width x ({b * h}, {s}, {p}) B ({b}, {s}, {n}) bf16 chunk {chunk}: "
-        f"kernel {timing['ms']:.4f} ms ({flops / timing['ms'] / 1e9:.1f} TFLOP/s of the work the "
-        f"scan needs; one call from idle {timing['call_ms']:.4f} ms), plain "
-        f"{timing['plain_ms']:.4f} ms; bound {bound:.4f} ms by {by}: {nbytes / 1e6:.1f} MB take "
-        f"{nbytes / HBM_RATE * 1e3:.4f} ms at {HBM_RATE / 1e12:.2f} TB/s, {flops / 1e9:.2f} GFLOP "
-        f"take {flops / BF16_PEAK * 1e3:.4f} ms at {BF16_PEAK / 1e12:.0f} TFLOP/s bf16")
+    scratch = sum(t.numel() * t.element_size() for t in (scan.cum, scan.states, scan.h))
+    say(f"[ssm] ssd_scan full width x ({b * h}, {s}, {p}) B ({b}, {s}, {n}) bf16 chunk {chunk}, "
+        f"instance {instance}: kernel {timing['ms']:.4f} ms ({t_kernel[0]:.4f} and {t_kernel[1]:.4f} "
+        f"around ssd_chunked; {100 * bound / timing['ms']:.2f} % of the bound; "
+        f"{flops / timing['ms'] / 1e9:.1f} TFLOP/s of the work the scan needs; one call from idle "
+        f"{timing['call_ms']:.4f} ms), plain {timing['plain_ms']:.4f} ms; bound {bound:.4f} ms by "
+        f"{by}: {nbytes / 1e6:.1f} MB take {nbytes / HBM_RATE * 1e3:.4f} ms at "
+        f"{HBM_RATE / 1e12:.2f} TB/s, {flops / 1e9:.2f} GFLOP take "
+        f"{flops / BF16_PEAK * 1e3:.4f} ms at {BF16_PEAK / 1e12:.0f} TFLOP/s bf16")
+    say(f"[ssm] split instance's launches at full width (CUDA events around back-to-back "
+        f"launches of each): " + ", ".join(f"{k} {v:.4f} ms" for k, v in launch_ms.items())
+        + f" (sum {sum(launch_ms.values()):.4f}); its float32 scratch {scratch / 1e6:.1f} MB "
+        f"written and read again: with the inputs and output {(nbytes + 2 * scratch) / 1e6:.1f} "
+        f"MB, {(nbytes + 2 * scratch) / HBM_RATE * 1e3:.4f} ms at {HBM_RATE / 1e12:.2f} TB/s")
     say(f"[ssm] yardstick, not a library call: ssd_chunked (plain PyTorch, the training path) "
-        f"at the same shape {timing['chunked_ms']:.4f} ms; library_ms of ssd_scan: none, no "
-        "single PyTorch call computes the SSD scan")
-    return {**timing, "max_abs_err": worst, "bound_ms": bound, "bound_by": by, "library_ms": None}
+        f"at the same shape {timing['chunked_ms']:.4f} ms, {timing['chunked_ms'] / timing['ms']:.2f}x "
+        f"the kernel's time; library_ms of ssd_scan: none, no single PyTorch call computes the SSD scan")
+    assert timing["ms"] < timing["chunked_ms"], (timing, "the split instance is slower than ssd_chunked")
+    return {**timing, "max_abs_err": max(worst.values()), "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "instance": instance, "launch_ms": launch_ms}
 
 
 def checksums(state) -> dict[str, float]:
@@ -785,6 +862,7 @@ def train_phase(dev, seed: int) -> dict:
         lk = float(lk)
         kernel_s = time.perf_counter() - t0
         launches = sops.KERNEL_LAUNCHES["ssd_scan"]
+        by_instance = dict(sops.INSTANCE_LAUNCHES)
         train_loss(params, cfg, batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -802,7 +880,7 @@ def train_phase(dev, seed: int) -> dict:
     say(f"[score] held-out batch {TRAIN_BATCH} x {TRAIN_SEQ}, trained weights: loss through the "
         f"kernel {lk:.6f} ({kernel_s:.3f} s), through ssd_chunked {ln:.6f} ({naive_s:.3f} s); "
         f"|diff| {abs(lk - ln):.3g} (tolerance {SCORE_TOL}); ssd_scan launches {launches} = "
-        f"{cfg.n_layers} layers x 1 pass")
+        f"{cfg.n_layers} layers x 1 pass, by instance {by_instance}")
     say("[score] faulty scans in the kernel's place, |loss - ssd_chunked's| (each must exceed "
         f"{SCORE_TOL}): " + "; ".join(f"{k} {v:.6f}, {abs(v - ln):.3g}" for k, v in faults.items()))
     say(f"[score] each of the {len(layer_err)} layers' launches against the plain version on its "
@@ -810,6 +888,7 @@ def train_phase(dev, seed: int) -> dict:
         f"{SSD_TOL[torch.bfloat16]})")
     assert math.isfinite(lk) and math.isfinite(ln), (lk, ln)
     assert launches == cfg.n_layers, launches
+    assert by_instance == {"split": launches, "fwd": 0}, by_instance
     assert len(layer_err) == cfg.n_layers, len(layer_err)
     assert abs(lk - ln) <= SCORE_TOL, (lk, ln)
     assert all(abs(v - ln) > SCORE_TOL for v in faults.values()), faults
@@ -851,8 +930,12 @@ def main() -> int:
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}"
         f" devices {torch.cuda.device_count()} memory rate used for bounds {HBM_RATE / 1e12:.2f} TB/s")
     t0 = time.perf_counter()
-    libs = _build.build_all([gk.LIBRARY, fk.LIBRARY, sk.LIBRARY])  # one nvcc per source, all at once
+    libraries = [gk.LIBRARY, fk.LIBRARY, sk.LIBRARY]
+    libs = _build.build_all(libraries)  # one nvcc per source, all at once
     say(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
+    for lib in libraries:  # ptxas's spill and local-memory warnings, among the rest
+        if lib.build_log:
+            say(f"[build] {lib.name}: nvcc said\n{lib.build_log}")
 
     # ------------------------------------------------------------- 2. kernels
     t0 = time.perf_counter()
@@ -1008,7 +1091,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:30",
         "launches": train["launches"],
         "max_abs_err": max(ssd["max_abs_err"], train["layer_err"]),
-        **{k: ssd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: ssd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "instance",
+                               "launch_ms", "chunked_ms")},
     })
     say(json.dumps({"kernels": kernels}))
     say(smi)

@@ -8,8 +8,10 @@ name keyed by a hash of the source, every header it includes from this
 package (``#include "..."``, followed through the headers they include in
 turn) and the flags (``lib<name>_<hash>.so``), so an edit to any of them
 rebuilds.  :func:`build_all` starts one ``nvcc`` per source at once and waits
-for all of them.  Nothing happens at import time: the CPU tests import every
-kernel module on machines that have no ``nvcc`` and no card.
+for all of them.  ptxas warns of register spills and local memory, and what
+nvcc prints on a build that succeeds is kept as :attr:`CudaLibrary.build_log`.
+Nothing happens at import time: the CPU tests import every kernel module on
+machines that have no ``nvcc`` and no card.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-warn-spills,-warn-lmem-usage",
 )
 
 
@@ -66,6 +69,9 @@ class CudaLibrary:
     ``bind`` declares ``argtypes``/``restype`` of every entry point on the
     freshly loaded library.  The source must export
     ``const char* <error_fn>(int)``, which names a CUDA error code.
+    :attr:`build_log` holds what nvcc printed when this process built the
+    library (ptxas's warnings among it), and stays empty when it was built
+    before.
     """
 
     def __init__(self, name: str, source: Path, bind: Callable[[ctypes.CDLL], None],
@@ -75,6 +81,7 @@ class CudaLibrary:
         self.build_dir = BUILD_DIR
         self._bind = bind
         self._error_fn = error_fn
+        self.build_log = ""
         self._lib: ctypes.CDLL | None = None
         self._mu = threading.Lock()
 
@@ -105,13 +112,14 @@ class CudaLibrary:
 
     def _finish(self, started: tuple[Path, Path, subprocess.Popen]) -> Path:
         out, tmp, proc = started
-        _, err = proc.communicate()
+        printed, err = proc.communicate()
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(
                 f"nvcc failed to build {self.source.name} (exit {proc.returncode}):\n{err}"
             )
         os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
+        self.build_log = (printed + err).strip()
         return out
 
     def build(self) -> Path:

@@ -72,23 +72,7 @@
 
 namespace {
 
-// Lets `kernel` take `smem` bytes of dynamic shared memory, which above 48 KB
-// must be asked for on each device.  `devices` (one per kernel) remembers the
-// devices where it was, so a launch pays for the call only once per device.
-// It must have internal linkage (every launcher lives in an anonymous
-// namespace): the loader would otherwise make a function-local static of an
-// external template one object across every library that defines it.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem, std::atomic<unsigned long long>& devices) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-    if (devices.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess) devices.fetch_or(bit, std::memory_order_relaxed);
-    return err;
-}
+using hopper::allow_smem;
 
 }  // namespace
 

@@ -6,8 +6,9 @@ kernel's (B*H, S, P) and (B*H, S), A and D are broadcast to (B*H, 1), and B
 and C stay (B, S, N), shared by the heads of a batch entry.  A CPU tensor
 goes to the plain version in :mod:`.ref`, a CUDA tensor to the hand-written
 kernel in :mod:`.kernel` (or the launch raises).  Neither has a backward:
-the reference kernel has no VJP.  :data:`KERNEL_LAUNCHES` counts launches of
-the CUDA kernel only.
+the reference kernel has no VJP.  :data:`KERNEL_LAUNCHES` counts calls of
+the CUDA kernel only (the split instance's call is three launches), and
+:data:`INSTANCE_LAUNCHES` the same calls by the instance that ran them.
 """
 
 from __future__ import annotations
@@ -17,19 +18,23 @@ import threading
 import torch
 
 from .._autograd import forward_only
-from .kernel import ssd_scan_call
+from .kernel import INSTANCES, instance_for, ssd_scan_call
 from .ref import ssd_scan_ref
 
-__all__ = ["KERNEL_LAUNCHES", "flatten", "ssd_scan", "reset_kernel_launches"]
+__all__ = ["INSTANCE_LAUNCHES", "KERNEL_LAUNCHES", "flatten", "ssd_scan", "reset_kernel_launches"]
 
-#: launches of the CUDA kernel (the plain CPU version is not counted)
+#: calls of the CUDA kernel (the plain CPU version is not counted)
 KERNEL_LAUNCHES = {"ssd_scan": 0}
+#: the same calls, by the kernel instance that ran them
+INSTANCE_LAUNCHES = dict.fromkeys(INSTANCES, 0)
 _launch_mu = threading.Lock()
 
 
 def reset_kernel_launches() -> None:
     with _launch_mu:
         KERNEL_LAUNCHES["ssd_scan"] = 0
+        for name in INSTANCE_LAUNCHES:
+            INSTANCE_LAUNCHES[name] = 0
 
 
 def _scan(x, dt, A, B_, C_, D_, heads: int, chunk: int) -> torch.Tensor:
@@ -40,6 +45,7 @@ def _scan(x, dt, A, B_, C_, D_, heads: int, chunk: int) -> torch.Tensor:
                         heads=heads, chunk=chunk)
     with _launch_mu:
         KERNEL_LAUNCHES["ssd_scan"] += 1
+        INSTANCE_LAUNCHES[instance_for(x.dtype, x.shape[-1], B_.shape[-1])] += 1
     return out
 
 

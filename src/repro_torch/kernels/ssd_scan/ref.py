@@ -20,13 +20,45 @@ kernel) moved outputs by more than the kernel's 2e-4 tolerance at N = 64,
 chunk 256 (3.6e-4 on an H100 in chip_smoke.py).  On the CPU, where the
 tests hold this version against the Pallas kernel, torch's float32 cumsum
 already accumulates in float64, so there the change moves no output.
+
+``split_bf16=True`` rounds each operand that the split instance derives in
+float32 and feeds to the tensor cores as :data:`SPLIT_TERMS` bf16 values
+(t0 = bf16(v), t1 = bf16(v - t0), ...) to their sum: the scores, ``w * x``
+and the state entering each chunk.  It is the counterpart of the attention
+kernel's ``round_p``.  Three terms keep about 2^-26 of each operand, below
+float32's own rounding; two (hi + lo, 2^-18) moved the held-out loss of
+trained mamba2-370m in ``chip_smoke.py`` by 1.7e-3, past its 3e-4 gate.
+
+The split instance computes the same scan in three launches, and each has a
+plain version here with its operation order: :func:`ssd_chunk_state_ref`
+(the cumsum and every chunk's own state contribution, all chunks at once),
+:func:`ssd_state_pass_ref` (the only serial part: the state entering each
+chunk) and :func:`ssd_chunk_scan_ref` (every chunk's outputs, all chunks at
+once).  Their layouts are the kernels': chunk states are (BH, chunks, N, P),
+the transpose of the carried (P, N) state above.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ssd_sequential_ref", "ssd_scan_ref"]
+__all__ = ["SPLIT_TERMS", "split_bf16_round", "ssd_chunk_scan_ref", "ssd_chunk_state_ref", "ssd_scan_ref",
+           "ssd_sequential_ref", "ssd_state_pass_ref"]
+
+
+#: bf16 terms the split instance feeds each float32 operand it derives as
+SPLIT_TERMS = 3
+
+
+def split_bf16_round(v: torch.Tensor, terms: int = SPLIT_TERMS) -> torch.Tensor:
+    """float32 ``v`` as the tensor cores see it fed as ``terms`` bf16 values,
+    t0 = bf16(v), t1 = bf16(v - t0), ... (each difference exact): their sum,
+    within about 2^-(9 terms - 1) of ``v`` relative."""
+    out, rest = torch.zeros_like(v), v
+    for _ in range(terms):
+        t = rest.bfloat16().float()
+        out, rest = out + t, rest - t
+    return out
 
 
 def ssd_sequential_ref(
@@ -61,7 +93,9 @@ def ssd_scan_ref(
     *,
     heads: int,
     chunk: int,
+    split_bf16: bool = False,
 ) -> torch.Tensor:
+    rnd = split_bf16_round if split_bf16 else (lambda v: v)
     bh, s, p = x.shape
     n = B_.shape[-1]
     q = min(chunk, s)
@@ -85,10 +119,93 @@ def ssd_scan_ref(
         expnt = torch.where(causal, cum[..., :, None] - cum[..., None, :], float("-inf"))
         cb = torch.matmul(cc, bb.transpose(-1, -2))  # (BG,1,Q,Q)
         scores = cb * torch.exp(expnt) * dtc[..., None, :]
-        y = torch.matmul(scores, xc)  # (BG,H,Q,P)
-        y = y + torch.exp(cum)[..., None] * torch.matmul(cc, state.transpose(-1, -2))
+        y = torch.matmul(rnd(scores), xc)  # (BG,H,Q,P)
+        y = y + torch.exp(cum)[..., None] * torch.matmul(cc, rnd(state).transpose(-1, -2))
         w = torch.exp(total - cum) * dtc  # (BG,H,Q)
         state = torch.exp(total)[..., None] * state + torch.matmul(
-            (xc * w[..., None]).transpose(-1, -2), bb)
+            rnd(xc * w[..., None]).transpose(-1, -2), bb)
         out.append((y + dsk * xc).to(x.dtype))
     return torch.cat(out, dim=2).reshape(bh, s, p)
+
+
+def ssd_chunk_state_ref(
+    x: torch.Tensor,   # (BH, S, P)
+    dt: torch.Tensor,  # (BH, S)
+    A: torch.Tensor,   # (BH, 1)
+    B_: torch.Tensor,  # (BG, S, N)
+    *,
+    heads: int,
+    chunk: int,
+    split_bf16: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first launch: cum (BH, S) float32, each chunk's inclusive cumsum of
+    ``dt*a`` (float64 sums, each prefix rounded once), and the state that each
+    chunk but the last adds on its own, ``B^T (w * x)`` with ``w = exp(total -
+    cum) dt``, as (BH, chunks - 1, N, P) float32."""
+    bh, s, p = x.shape
+    n = B_.shape[-1]
+    q = min(chunk, s)
+    nc = s // q
+    bg = bh // heads
+    dtc = dt.float().reshape(bh, nc, q)
+    cum = torch.cumsum((dtc * A.float().reshape(bh, 1, 1)).double(), dim=-1).float()
+    w = torch.exp(cum[..., -1:] - cum) * dtc  # (BH, nc, Q)
+    wx = (split_bf16_round if split_bf16 else (lambda v: v))(
+        x.float().reshape(bh, nc, q, p) * w[..., None])
+    bb = B_.float().reshape(bg, 1, nc, q, n)
+    states = torch.matmul(bb.transpose(-1, -2), wx.reshape(bg, heads, nc, q, p))  # (BG,H,nc,N,P)
+    return cum.reshape(bh, s), states.reshape(bh, nc, n, p)[:, :-1]
+
+
+def ssd_state_pass_ref(states: torch.Tensor, cum: torch.Tensor, *, chunk: int) -> torch.Tensor:
+    """The second launch: from the chunk states (BH, chunks - 1, N, P) and the
+    cumsum (BH, S), the state entering each chunk, (BH, chunks, N, P) float32:
+    h_0 = 0, h_{c+1} = exp(total_c) h_c + states_c, in order."""
+    bh, s = cum.shape
+    q = min(chunk, s)
+    nc = s // q
+    decay = torch.exp(cum[:, q - 1::q])  # (BH, nc): exp of each chunk's total
+    h = torch.zeros((bh, *states.shape[2:]), dtype=torch.float32, device=states.device)
+    out = [h]
+    for c in range(nc - 1):
+        h = decay[:, c, None, None] * h + states[:, c]
+        out.append(h)
+    return torch.stack(out, dim=1)
+
+
+def ssd_chunk_scan_ref(
+    x: torch.Tensor,    # (BH, S, P)
+    dt: torch.Tensor,   # (BH, S)
+    cum: torch.Tensor,  # (BH, S) float32, from ssd_chunk_state_ref
+    h: torch.Tensor,    # (BH, chunks, N, P) float32, from ssd_state_pass_ref
+    C_: torch.Tensor,   # (BG, S, N)
+    B_: torch.Tensor,   # (BG, S, N)
+    D_: torch.Tensor,   # (BH, 1)
+    *,
+    heads: int,
+    chunk: int,
+    split_bf16: bool = False,
+) -> torch.Tensor:
+    """The third launch: every chunk's outputs, (BH, S, P) in x's dtype:
+    ``(scores x + exp(cum) (C h^T)) + D x`` with ``scores = (C B^T)
+    exp(cum_i - cum_j) dt_j`` on and below the diagonal, 0 above it (the
+    exponent there is never taken)."""
+    rnd = split_bf16_round if split_bf16 else (lambda v: v)
+    bh, s, p = x.shape
+    n = B_.shape[-1]
+    q = min(chunk, s)
+    nc = s // q
+    bg = bh // heads
+    xf = x.float().reshape(bg, heads, nc, q, p)
+    cumc = cum.reshape(bg, heads, nc, q)
+    dtc = dt.float().reshape(bg, heads, nc, q)
+    cc = C_.float().reshape(bg, 1, nc, q, n)
+    bb = B_.float().reshape(bg, 1, nc, q, n)
+    causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    expnt = torch.where(causal, cumc[..., :, None] - cumc[..., None, :], float("-inf"))
+    scores = torch.matmul(cc, bb.transpose(-1, -2)) * torch.exp(expnt) * dtc[..., None, :]
+    y = torch.matmul(rnd(scores), xf)  # (BG,H,nc,Q,P)
+    inter = torch.matmul(cc, rnd(h.reshape(bg, heads, nc, n, p)))
+    y = y + torch.exp(cumc)[..., None] * inter
+    y = y + D_.float().reshape(bg, heads, 1, 1, 1) * xf
+    return y.to(x.dtype).reshape(bh, s, p)

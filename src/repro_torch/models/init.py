@@ -28,7 +28,7 @@ from ..device import resolve_device
 
 __all__ = ["ParamDict", "ModelParams", "init_params", "params_from_numpy", "torch_dtype"]
 
-_ROADMAP_ITEM = {"moe": 6, "ssm": 5, "hybrid": 5, "audio": 6, "vlm": 6}
+_ROADMAP_ITEM = {"ssm": 4, "hybrid": 5, "moe": 6, "vlm": 6, "audio": 7}
 #: leaves kept in float32 whatever the model dtype (``repro/models/init.py:201-206``)
 FLOAT32_LEAVES = ("A_log", "D_skip")
 

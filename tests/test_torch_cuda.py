@@ -29,6 +29,7 @@ from repro_torch.kernels.grib_pack import kernel as gk  # noqa: E402
 from repro_torch.kernels.grib_pack.ref import field_stats, pack_ref, unpack_ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as sr  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import init_params, train_loss  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
@@ -323,9 +324,96 @@ def test_ssd_wrapper_counts_each_launch(cuda):
     ss.reset_kernel_launches()
     out = ss.ssd_scan(x4, dt4, a[:3, 0], bb, cc, d[:3, 0], chunk=32)
     assert ss.KERNEL_LAUNCHES == {"ssd_scan": 1}
+    assert ss.INSTANCE_LAUNCHES == {"split": 0, "fwd": 1}
     cpu = ss.ssd_scan(*(t.cpu() for t in (x4, dt4, a[:3, 0], bb, cc, d[:3, 0])), chunk=32)
     assert ss.KERNEL_LAUNCHES == {"ssd_scan": 1}
     torch.testing.assert_close(out.cpu(), cpu, atol=2e-4, rtol=2e-4)
+    # bf16 at head dim 64, state 128: the split instance, one call of three launches
+    x, dt, a, bb, cc, d = ssd_inputs(cuda, 0, 2, 64, 3, 64, 128, torch.bfloat16)
+    x4 = x.reshape(2, 3, 64, 64).permute(0, 2, 1, 3)
+    ss.ssd_scan(x4, dt4, a[:3, 0], bb, cc, d[:3, 0], chunk=32)
+    ss.ssd_scan(x4.float(), dt4, a[:3, 0], bb.float(), cc.float(), d[:3, 0], chunk=32)
+    assert ss.KERNEL_LAUNCHES == {"ssd_scan": 3}
+    assert ss.INSTANCE_LAUNCHES == {"split": 1, "fwd": 2}
+    ss.reset_kernel_launches()
+    assert ss.INSTANCE_LAUNCHES == {"split": 0, "fwd": 0} and ss.KERNEL_LAUNCHES == {"ssd_scan": 0}
+
+
+# The split instance (bf16, head dim 64, state 64 or 128): every chunk length
+# the wrapper takes, ragged ones (20, 96) included: a 64-row tile that runs
+# past the end of a chunk is masked.  Its float32 scratch is held against the
+# plain functions of its launches at float32 sums of a chunk of products in
+# another order; its output, where it rounds to bf16, at one bf16 ulp.
+SPLIT_TOL = dict(atol=2e-3, rtol=8e-3)
+SCRATCH_TOL = dict(atol=1e-4, rtol=1e-5)
+SPLIT_SHAPES = [(128, 64), (96, 96), (64, 16), (192, 96), (100, 20), (512, 256)]
+
+
+@pytest.mark.parametrize("n", sk.SPLIT_STATE_DIMS)
+@pytest.mark.parametrize("s,chunk", SPLIT_SHAPES)
+def test_split_launches_equal_their_plain_versions(cuda, n, s, chunk):
+    x, dt, a, bb, cc, d = ssd_inputs(cuda, n + s + chunk, 2, s, 3, 64, n, torch.bfloat16)
+    scan = sk.SplitScan(x, dt, a, bb, cc, d, heads=3, chunk=chunk)
+    scan.chunk_state()
+    cum, states = sr.ssd_chunk_state_ref(x, dt, a, bb, heads=3, chunk=chunk, split_bf16=True)
+    scan.state_pass()
+    scan.chunk_scan()
+    torch.cuda.synchronize()
+    assert states.shape == scan.states.shape and scan.h.shape == (6, s // chunk, n, 64)
+    torch.testing.assert_close(scan.cum, cum, **SCRATCH_TOL)
+    torch.testing.assert_close(scan.states, states, **SCRATCH_TOL)
+    torch.testing.assert_close(scan.h, sr.ssd_state_pass_ref(scan.states, scan.cum, chunk=chunk),
+                               **SCRATCH_TOL)
+    want = sr.ssd_chunk_scan_ref(x, dt, scan.cum, scan.h, cc, bb, d, heads=3, chunk=chunk,
+                                 split_bf16=True)
+    torch.testing.assert_close(scan.out.float(), want.float(), **SPLIT_TOL)
+
+
+@pytest.mark.parametrize("n", sk.SPLIT_STATE_DIMS)
+@pytest.mark.parametrize("s,chunk", SPLIT_SHAPES)
+def test_split_instance_equals_plain_version(cuda, n, s, chunk):
+    args = ssd_inputs(cuda, n + s + chunk + 1, 2, s, 3, 64, n, torch.bfloat16)
+    assert sk.instance_for(torch.bfloat16, 64, n) == "split"
+    out = sk.ssd_scan_call(*args, heads=3, chunk=chunk)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == args[0].shape
+    rounded = ssd_scan_ref(*args, heads=3, chunk=chunk, split_bf16=True)
+    torch.testing.assert_close(out.float(), rounded.float(), **SPLIT_TOL)
+    torch.testing.assert_close(out.float(), ssd_scan_ref(*args, heads=3, chunk=chunk).float(),
+                               **ssd_tol(torch.bfloat16))
+
+
+def test_split_instance_reads_unaligned_views(cuda):
+    # cp.async reads 16-byte pieces: a view 1 element into its storage is copied
+    x, dt, a, bb, cc, d = ssd_inputs(cuda, 4, 1, 128, 2, 64, 64, torch.bfloat16)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xv = buf[1:].view(x.shape)
+    xv.copy_(x)
+    assert xv.data_ptr() % 16 != 0
+    out = sk.ssd_scan_call(xv, dt, a, bb, cc, d, heads=2, chunk=64)
+    assert torch.equal(out, sk.ssd_scan_call(x, dt, a, bb, cc, d, heads=2, chunk=64))
+
+
+@pytest.mark.parametrize("n", sk.SPLIT_STATE_DIMS)
+def test_fwd_instance_refuses_the_split_shapes_in_bf16(cuda, n):
+    # bf16 at head dim 64 and these state sizes has one route, the split
+    # instance: the CUDA-core entry point answers cudaErrorInvalidValue (1)
+    x, dt, a, bb, cc, d = ssd_inputs(cuda, 5, 1, 64, 2, 64, n, torch.bfloat16)
+    out = torch.empty_like(x)
+    lib = sk.LIBRARY.load()
+
+    def fwd(dtype, x, bb, cc, out):
+        return lib.ssd_scan_fwd_launch(dtype, 64, x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                                       bb.data_ptr(), cc.data_ptr(), d.data_ptr(), out.data_ptr(),
+                                       2, 64, n, 32, 2, None)
+    err = fwd(1, x, bb, cc, out)
+    assert err == 1
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        sk.LIBRARY.check(err, "ssd_scan")
+    assert fwd(0, x.float(), bb.float(), cc.float(), out.float()) == 0  # float32 is this instance's
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="split instance takes bf16"):
+        sk.SplitScan(x.float(), dt, a, bb.float(), cc.float(), d, heads=2, chunk=32)
 
 
 def test_ssd_kernel_refuses_bad_inputs(cuda):

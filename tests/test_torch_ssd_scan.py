@@ -3,12 +3,15 @@
 The plain version of the hand-written kernel (``ssd_scan_ref``, on the
 kernel's flattened shapes) is held against the reference's Pallas kernel in
 interpret mode, its O(S) recurrence and its ``ssd_chunked``, at the shapes
-and tolerances of ``tests/test_kernels.py:74-112``; the port's own
-``ssd_chunked`` and ``causal_conv1d`` against the reference's at 1e-5 in
-float32, and ``mamba_mixer`` at 1e-4.  Inputs come from a numpy seed.
+and tolerances of ``tests/test_kernels.py:74-112``; so are the plain versions
+of the split instance's three launches, composed.  The port's own
+``ssd_chunked`` and ``causal_conv1d`` are held against the reference's at
+1e-5 in float32, and ``mamba_mixer`` at 1e-4.  Inputs come from a numpy seed.
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,7 +32,10 @@ from repro_torch.device import default_device, set_default_device  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref, ssd_sequential_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_chunk_scan_ref, ssd_chunk_state_ref, ssd_scan_ref, ssd_sequential_ref, ssd_state_pass_ref,
+)
 from repro_torch.models import params_from_numpy  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 
@@ -225,6 +231,136 @@ def test_kernel_call_takes_cuda_tensors_only():
     inputs = flat(*to_torch("float32", *ssd_inputs(12, 1, 32, 2, 8, 4)))
     with pytest.raises(ValueError, match="CUDA tensors"):
         sk.ssd_scan_call(*inputs, heads=2, chunk=16)
+
+
+# ---------------------------------------------------------------------------
+# the split instance's three launches, plainly
+# ---------------------------------------------------------------------------
+
+# the full-size heads at chunk 256, and chunks that end inside a 64-row tile
+SPLIT_SHAPES = SHAPES + [(1, 512, 2, 64, 64, 256), (1, 512, 2, 64, 128, 256),
+                         (2, 192, 2, 64, 64, 96), (1, 100, 2, 64, 128, 20)]
+
+
+def three_launches(x, dt, A, B, C, D, *, heads, chunk, split_bf16=False):
+    """ssd_chunk_state_ref, ssd_state_pass_ref and ssd_chunk_scan_ref in turn."""
+    cum, states = ssd_chunk_state_ref(x, dt, A, B, heads=heads, chunk=chunk, split_bf16=split_bf16)
+    h = ssd_state_pass_ref(states, cum, chunk=chunk)
+    return ssd_chunk_scan_ref(x, dt, cum, h, C, B, D, heads=heads, chunk=chunk,
+                              split_bf16=split_bf16)
+
+
+@pytest.mark.parametrize("split_bf16", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SPLIT_SHAPES)
+def test_three_launches_compose_to_the_plain_version(b, s, h, p, n, chunk, split_bf16):
+    """Only the state recurrence is serial: the chunk states, the pass over
+    them and the chunk outputs give what the one-pass plain version gives."""
+    args = flat(*to_torch("float32", *ssd_inputs(p + n + s + 2, b, s, h, p, n)))
+    got = three_launches(*args, heads=h, chunk=chunk, split_bf16=split_bf16)
+    want = ssd_scan_ref(*args, heads=h, chunk=chunk, split_bf16=split_bf16)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [64, 128])
+def test_three_launches_match_interpreted_pallas_kernel_at_full_chunk(n, dtype):
+    b, s, h, p = 1, 512, 2, 64
+    inputs = ssd_inputs(p + n + s, b, s, h, p, n)
+    want = jssd_scan(*to_jax(dtype, *inputs), chunk=256, interpret=True)
+    got = unflat(three_launches(*flat(*to_torch(dtype, *inputs)), heads=h, chunk=256), b, h)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(as_np(got), as_np(want), **FULL_CHUNK_TOL[dtype])
+
+
+@pytest.mark.parametrize("terms", [2, 3])
+@pytest.mark.parametrize("n", [64, 128])
+def test_split_bf16_operands_keep_float32_precision(monkeypatch, n, terms):
+    """Feeding the scores, w*x and h as bf16 terms moves the float32 scan by
+    about 2^-(9 terms - 1) of its largest output.  The split instance's three
+    terms (split_bf16=True) moved it by nothing measurable (0 at both state
+    sizes): the sum of the terms is the float32 value.  Two terms (hi + lo)
+    moved it by 4.7e-4 and 6.8e-4 on outputs up to 142 and 158, about 2^-18 of
+    them, and that was too much for chip_smoke.py's loss gate.  Asserted: three
+    terms below 2^-22 of the largest output, two above zero and below 2^-16."""
+    b, s, h, p = 1, 512, 2, 64
+    args = flat(*to_torch("float32", *ssd_inputs(p + n + s, b, s, h, p, n)))
+    exact = ssd_scan_ref(*args, heads=h, chunk=256)
+    rounding = ref.split_bf16_round
+    monkeypatch.setattr(ref, "split_bf16_round", lambda v: rounding(v, terms))
+    split = ssd_scan_ref(*args, heads=h, chunk=256, split_bf16=True)
+    gap, top = float((split - exact).abs().max()), float(exact.abs().max())
+    if terms == ref.SPLIT_TERMS:
+        assert gap <= 2**-22 * top
+    else:
+        assert 0 < gap <= 2**-16 * top
+
+
+def test_state_pass_starts_from_zero_and_decays_by_the_chunk_total():
+    states = torch.from_numpy(np.random.default_rng(17).standard_normal((2, 2, 3, 4), dtype=np.float32))
+    cum = torch.tensor([[-1.0, -2.0, -0.5, -1.5, 0.0, -3.0], [0.0] * 6])
+    h = ssd_state_pass_ref(states, cum, chunk=2)
+    assert h.shape == (2, 3, 3, 4) and not h[:, 0].any()
+    torch.testing.assert_close(h[:, 1], states[:, 0])
+    decay = torch.exp(torch.tensor([-1.5, 0.0]))[:, None, None]
+    torch.testing.assert_close(h[:, 2], decay * states[:, 0] + states[:, 1])
+
+
+@pytest.mark.parametrize("dtype,p,n,instance", [
+    (torch.bfloat16, 64, 64, "split"), (torch.bfloat16, 64, 128, "split"),
+    (torch.bfloat16, 64, 16, "fwd"), (torch.bfloat16, 16, 128, "fwd"), (torch.bfloat16, 8, 4, "fwd"),
+    (torch.float32, 64, 128, "fwd"), (torch.float32, 64, 64, "fwd"),
+])
+def test_instance_is_chosen_from_dtype_head_dim_and_state_size(dtype, p, n, instance):
+    assert sk.instance_for(dtype, p, n) == instance
+    assert instance in sk.INSTANCES and ss.INSTANCE_LAUNCHES.keys() == set(sk.INSTANCES)
+
+
+def test_split_scan_takes_cuda_tensors_only():
+    args = flat(*to_torch("bfloat16", *ssd_inputs(18, 1, 64, 2, 64, 64)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sk.SplitScan(*args, heads=2, chunk=32)
+
+
+def test_build_keeps_what_ptxas_warns(monkeypatch, tmp_path):
+    """A stand-in nvcc under a temporary CUDA_HOME warns on a build that
+    succeeds; the warning stays on the library, and ptxas is asked for it."""
+    bin_dir = tmp_path / "cuda" / "bin"
+    bin_dir.mkdir(parents=True)
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "echo \"ptxas warning : Registers are spilled to local memory in function 'k', "
+        "8 bytes spill stores, 8 bytes spill loads\" >&2\n"
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done\n'
+        'echo built > "$out"\n'
+    )
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))  # no nvcc on the PATH
+    assert _build._nvcc() == str(nvcc)
+    lib = _build.CudaLibrary("warned", sk.LIBRARY.source, lambda lib: None, error_fn="e")
+    lib.build_dir = tmp_path / "build"
+    assert lib.build_log == ""
+    path = lib.build()
+    assert path.read_text() == "built\n"
+    assert "spilled to local memory" in lib.build_log
+    flags = _build.NVCC_FLAGS
+    assert flags[flags.index("-Xptxas") + 1] == "-warn-spills,-warn-lmem-usage"
+
+
+def test_precision_tool_edits_match_the_source_once():
+    # tools/ssd_scan_precision.py builds variants of the split instance by
+    # textual edits; each must still find its one place in the source
+    spec = importlib.util.spec_from_file_location(
+        "ssd_scan_precision", Path(__file__).resolve().parents[1] / "tools" / "ssd_scan_precision.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    source = sk.LIBRARY.source.read_text()
+    assert tool.VARIANTS["as shipped (three bf16 terms)"] == [] and len(tool.VARIANTS) > 1
+    assert f"constexpr int TERMS = {ref.SPLIT_TERMS};" in source  # the plain version's count
+    for name, edits in tool.VARIANTS.items():
+        for old, new in edits:
+            assert source.count(old) == 1 and old != new, name
 
 
 def test_library_is_built_from_the_source_in_the_repo():

@@ -81,7 +81,9 @@ ABLATIONS = {
     "two K/V stages in place of three": [
         ("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
     "shared-memory attribute set on every launch": [
-        ("    if (devices.load(std::memory_order_relaxed) & bit) return cudaSuccess;\n", "")],
+        ("cudaError_t cerr = allow_smem(kernel, smem, smem_devices);",
+         "cudaError_t cerr =\n"
+         "        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);")],
 }
 
 HOST_PROBE = """
