@@ -61,7 +61,21 @@ Phases, each fatal on failure:
    layer) and through ssd_chunked, and the two losses must agree; the same
    pass with a faulty scan in the kernel's place must disagree, each
    layer's launch must agree with the plain version on that layer's inputs,
-   and every launch must have run the split instance.
+   and every launch must have run the split instance;
+7. hammer: the paper's fdb-hammer benchmark (benchmarks/fdb_hammer_torch.py)
+   at its field size of 1 MiB.  (a) run_config drives the tiered codec
+   deployment with 4 writer/reader threads, 5 output steps of 10 params x 10
+   levels each (2000 fields a mode), through the io modes sync, batched and
+   async, packing every step batch on the card; every retrieved field must
+   be within its tier's quantum of the field the hammer generated, the
+   kernels must have been launched exactly as often as the codec says (at
+   least once per thread and step), every payload must have its tier's
+   header and wire size, and the effective bytes written must be those of
+   the 2000 fields; a second, traced run of each mode gives the kernels'
+   share of the codec spans.  (b) remote_sweep serves each backend behind
+   the asyncio FDB server and hammers it with 1, 2 and 4 spawned client
+   processes (raw 1 MiB payloads, 2 steps x 10 x 10).  (c) The workflow
+   example examples/nwp_workflow_torch.py runs on the card.
 
 The line before the last is one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -73,6 +87,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -84,14 +99,20 @@ from unittest import mock
 import numpy as np
 import torch
 
+ROOT = Path(__file__).resolve().parent
+sys.path[:0] = [str(ROOT / "src"), str(ROOT / "benchmarks")]
+
+from fdb_hammer_torch import TIERED_CODEC_CONFIG  # noqa: E402
+from repro_torch.roofline import HW  # noqa: E402
+
 F, H, W = 32, 1801, 3600  # one step of the 0.1-degree HRES grid
 MEMBERS, PER_MEMBER = 2, 16
 NBITS = (8, 16, 24)
 TIER_NBITS = {"0": 16, "1": 24}  # number=0 -> hot DAOS tier, else cold POSIX
 # peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
-HBM_RATE = 3.35e12  # bytes/s
-F32_PEAK = 67e12  # float32 operations/s outside the tensor cores
-BF16_PEAK = 989e12  # bf16 dense operations/s on the tensor cores
+HBM_RATE = HW["hbm_bw"]  # bytes/s
+F32_PEAK = HW["f32_flops"]  # float32 operations/s outside the tensor cores
+BF16_PEAK = HW["peak_flops"]  # bf16 dense operations/s on the tensor cores
 ATTN_TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4),  # tests/test_kernels.py:21-22
             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 # the wgmma instance against the plain version that rounds P to bf16 as it
@@ -150,19 +171,12 @@ SCORE_TOL = 3e-4
 # logits (magnitude 4 to 8); an H100 run measured 2 (0.0625), as it did for the
 # earlier float32 kernel that kept P unrounded.
 LOGITS_TOL = 0.25
-
-TIERED_CODEC_CONFIG = {
-    "type": "select",
-    "rules": [
-        {
-            "match": "number=0",
-            "fdb": {"type": "codec", "nbits": 16,
-                    "inner": {"backend": "daos", "schema": "nwp-daos"}},
-        },
-    ],
-    "default": {"type": "codec", "nbits": 24,
-                "inner": {"backend": "posix", "schema": "nwp-posix"}},
-}
+# phase 7: the paper's fdb-hammer at the field size its cost model replays
+# (simulation.Workload.field_size, 1 MiB); 4 x 5 x 10 x 10 = 2000 fields a mode
+HAMMER_SPEC = dict(n_procs=4, n_steps=5, n_params=10, n_levels=10, field_size=1 << 20,
+                   codec_nbits=16)
+REMOTE_SPEC = dict(n_steps=2, n_params=10, n_levels=10, field_size=1 << 20)
+REMOTE_PROCS = (1, 2, 4)
 
 
 def served_lengths(rng: np.random.Generator) -> list[int]:
@@ -896,6 +910,150 @@ def train_phase(dev, seed: int) -> dict:
             "layer_err": max(layer_err)}
 
 
+def verify_hammer(fh, fdb, spec, dev) -> dict:
+    """Read back every field the hammer archived: each decoded field must lie
+    within its tier's quantum*1.01 + 2 ulp of the field _step_fields makes
+    again, and each payload must carry its tier's header and wire size.
+    Returns the worst error as a fraction of its bound and the wire bytes,
+    per tier width."""
+    from repro_torch.core.codec import parse_header, wire_size
+
+    worst, wire, fields = {16: 0.0, 24: 0.0}, {16: 0, 24: 0}, {16: 0, 24: 0}
+    for member in range(spec.n_procs):
+        nbits = 16 if member == 0 else 24  # number=0 -> the 16-bit DAOS tier, else 24-bit POSIX
+        for step in range(spec.n_steps):
+            keys = fh._step_keys(spec, member, step)
+            got = fdb.retrieve_fields(fh._step_request(spec, member, step))
+            index = {k: i for i, k in enumerate(keys)}
+            order = [index[k] for k in got.keys]
+            assert sorted(order) == list(range(len(keys))), (member, step)
+            x = torch.from_numpy(fh._step_fields(spec, member, step)).to(dev)
+            ok, frac = within_quantum(x[order], torch.from_numpy(got.arrays()).to(dev), nbits)
+            assert ok, f"member {member} step {step} outside its {nbits}-bit quantum ({frac:.3f})"
+            worst[nbits] = max(worst[nbits], frac)
+            for k, payload in zip(keys, fdb.read_batch(keys)):
+                hdr = parse_header(payload, context=str(k))
+                assert (hdr.nbits, hdr.height, hdr.width) == (nbits, *spec.field_shape), hdr
+                assert len(payload) == wire_size(spec.field_shape, nbits), len(payload)
+                wire[nbits] += len(payload)
+            fields[nbits] += len(keys)
+    assert fields == {16: spec.fields_per_proc, 24: (spec.n_procs - 1) * spec.fields_per_proc}, fields
+    return {"worst": worst, "wire": wire}
+
+
+def hammer_phase(dev) -> dict:
+    """Phase 7: the tiered codec hammer through every io mode, the measured
+    remote sweep and the workflow example, with every check of the phase."""
+    import fdb_hammer_torch as fh
+    from repro_torch.core.codec import kernel_launches, reset_kernel_launches
+    from repro_torch.kernels.grib_pack import ops as gops
+
+    gib = 1024 ** 3
+    spec = fh.HammerSpec(**HAMMER_SPEC)
+    say(f"[hammer] tiered codec deployment: {spec.n_procs} procs x {spec.n_steps} steps x "
+        f"{spec.n_params * spec.n_levels} fields of {spec.field_size} B (float32 "
+        f"{spec.field_shape[0]} x {spec.field_shape[1]}), {spec.total_bytes / gib:.4f} GiB effective "
+        f"a mode; member 0 to the 16-bit DAOS tier, members 1-{spec.n_procs - 1} to the 24-bit POSIX tier")
+    modes = {}
+    for io in fh.IO_MODES:
+        seen: dict = {}
+        run_hammer = fh.run_hammer
+
+        def measured(fdb, cell, mode, seen=seen, run_hammer=run_hammer):
+            out = run_hammer(fdb, cell, mode)
+            seen[mode] = out
+            if mode == "retrieve":  # the counts of the hammer's own run, then the check
+                torch.cuda.synchronize()
+                seen["launches"] = dict(gops.KERNEL_LAUNCHES)
+                seen["codec"] = kernel_launches()
+                seen["verify"] = verify_hammer(fh, fdb, cell, dev)
+            return out
+
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        gops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(fh, "run_hammer", measured):
+            row = fh.run_config(TIERED_CODEC_CONFIG, spec, io_modes=(io,))[0]
+        wall = time.perf_counter() - t0
+        launches, codec = seen["launches"], seen["codec"]
+        assert launches == {"grib_pack": codec["pack"], "grib_unpack": codec["unpack"]}, (launches, codec)
+        steps = spec.n_procs * spec.n_steps
+        assert codec["pack"] >= steps and codec["unpack"] >= steps, codec
+        wire = seen["verify"]["wire"]
+        assert row["effective_bytes_written"] == spec.total_bytes, row
+        assert row["effective_bytes_read"] == 2 * spec.total_bytes, row  # the hammer's and the check's
+        assert row["listed_step0"] == spec.n_procs * spec.n_params * spec.n_levels, row
+        assert row["n_parts"] == 2 and all(b >= w for b, w in zip(row["part_bytes_written"],
+                                                                 (wire[16], wire[24]))), row
+
+        sink: list = []  # the same mode again, traced, for the span breakdown
+        fh.run_config(TIERED_CODEC_CONFIG, spec, io_modes=(io,), trace_sink=sink)
+        spans: dict[str, float] = {}
+        for sp in sink:
+            spans[sp["name"]] = spans.get(sp["name"], 0.0) + sp["t1"] - sp["t0"]
+        share = {side: spans[f"codec.{side}.kernel"] / spans[f"codec.{side}"]
+                 for side in ("pack", "unpack")}
+        w, r = seen["archive"], seen["retrieve"]
+        total_wire = wire[16] + wire[24]
+        modes[io] = {
+            "archive_GiBps": row["write_GiBps"], "retrieve_GiBps": row["read_GiBps"],
+            "wire_archive_GiBps": total_wire / w["global_span_s"] / gib,
+            "wire_retrieve_GiBps": total_wire / r["global_span_s"] / gib,
+            "launches": launches, "share": share, "wall_s": wall,
+            "worst": seen["verify"]["worst"],
+        }
+        m = modes[io]
+        say(f"[hammer] io={io}: archive {m['archive_GiBps']:.4f} GiB/s effective "
+            f"({m['wire_archive_GiBps']:.4f} wire, span {w['global_span_s']:.3f} s), retrieve "
+            f"{m['retrieve_GiBps']:.4f} GiB/s effective ({m['wire_retrieve_GiBps']:.4f} wire, span "
+            f"{r['global_span_s']:.3f} s); effective/wire {spec.total_bytes / total_wire:.4f} "
+            f"({spec.total_bytes} / {total_wire} B; 16-bit tier {wire[16]} B, 24-bit tier {wire[24]} B)")
+        say(f"[hammer] io={io}: kernel launches {launches}, codec counts {codec}; worst error "
+            + ", ".join(f"{k}-bit tier {v:.3f}" for k, v in m["worst"].items())
+            + " of quantum*1.01 + 2 ulp; traced run: grib_pack "
+            f"{100 * share['pack']:.2f} % of codec.pack ({spans['codec.pack']:.3f} s), grib_unpack "
+            f"{100 * share['unpack']:.2f} % of codec.unpack ({spans['codec.unpack']:.3f} s); "
+            f"mode wall {wall:.2f} s with the check")
+        say(f"[hammer] io={io}: traced span seconds, summed over the {spec.n_procs} threads (nested "
+            "spans overlap): " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(spans.items(), key=lambda kv: -kv[1])))
+
+    rspec = fh.HammerSpec(**REMOTE_SPEC)
+    say(f"[remote] remote_sweep: each backend behind FDBServer, {REMOTE_PROCS} spawned client "
+        f"processes x {rspec.fields_per_proc} raw fields of {rspec.field_size} B")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_remote_") as td:
+        res = fh.remote_sweep(rspec, backends=("posix", "daos"), procs_list=REMOTE_PROCS,
+                              out=str(Path(td) / "remote.json"))
+    remote = {}
+    for backend in ("posix", "daos"):
+        cell = res["backends"][f"{backend}+remote"]
+        assert [row["n_procs"] for row in cell["sweep"]] == list(REMOTE_PROCS), cell
+        for row in cell["sweep"]:
+            n, wire = row["n_procs"], row["wire"]
+            payload = n * rspec.fields_per_proc * rspec.field_size
+            assert row["measured"] and wire["connections"] >= n, row
+            assert wire["bytes_read"] >= payload and wire["bytes_written"] >= payload, wire
+            wr, rd = row["write"], row["read"]
+            remote[f"{backend}x{n}"] = {"archive_GiBps": wr["agg_GiBps"], "retrieve_GiBps": rd["agg_GiBps"]}
+            say(f"[remote] {backend} x{n}: archive {wr['agg_GiBps']:.4f} GiB/s "
+                f"({wr['per_proc_GiBps_mean']:.4f} a process), retrieve {rd['agg_GiBps']:.4f} GiB/s "
+                f"({rd['per_proc_GiBps_mean']:.4f} a process); server took {wire['bytes_read']} B, "
+                f"sent {wire['bytes_written']} B over {wire['connections']} connections")
+        say(f"[remote] {backend}: knee at n_procs={cell['knee_n_procs']}")
+    say(f"[remote] sweep wall {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    example = subprocess.run([sys.executable, str(ROOT / "examples" / "nwp_workflow_torch.py")],
+                             env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                             capture_output=True, text=True, timeout=600)
+    assert example.returncode == 0, example.stderr[-4000:]
+    assert "GRIB-packed on cuda" in example.stdout, example.stdout
+    say(f"[workflow] examples/nwp_workflow_torch.py exit 0 in {time.perf_counter() - t0:.2f} s:\n"
+        + example.stdout.rstrip())
+    return {"modes": modes, "remote": remote}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -904,7 +1062,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import Key
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -1052,6 +1209,12 @@ def main() -> int:
     ssd = ssd_phase(dev, args.seed)
     torch.cuda.empty_cache()
     train = train_phase(dev, args.seed)
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- 7. hammer
+    t0 = time.perf_counter()
+    hammer = hammer_phase(dev)
+    say(f"[hammer] phase 7 in {time.perf_counter() - t0:.2f} s")
 
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -1060,6 +1223,9 @@ def main() -> int:
     kernels = []
     for kname, line in (("grib_pack", 31), ("grib_unpack", 39)):
         t = timing[16][kname]
+        by_path = {"path": launches[kname],
+                   **{f"hammer_{io}": m["launches"][kname] for io, m in hammer["modes"].items()}}
+        assert all(by_path.values()), by_path
         nbytes = 8 * ns + 8 * PER_MEMBER
         ops = (5 if kname == "grib_pack" else 3) * ns
         kernels.append({
@@ -1067,7 +1233,8 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/grib_pack/csrc/grib_pack.cu",
             "replaces": f"src/repro/kernels/grib_pack/kernel.py:{line}",
-            "launches": launches[kname],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max_err[kname],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

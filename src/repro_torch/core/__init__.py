@@ -55,6 +55,13 @@ from .request import (
     as_request,
     as_span,
 )
+from .remote import (
+    FDBServer,
+    RemoteError,
+    RemoteFDB,
+    RemoteTimeout,
+    serve_fdb,
+)
 from .router import FDBRouter, make_router
 from .select import SelectFDB
 from .schema import (
@@ -99,6 +106,11 @@ __all__ = [
     "AsyncFDB",
     "FDBRouter",
     "make_router",
+    "RemoteFDB",
+    "FDBServer",
+    "RemoteError",
+    "RemoteTimeout",
+    "serve_fdb",
     "FDBConfig",
     "ConfigError",
     "build_fdb",

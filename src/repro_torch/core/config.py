@@ -462,7 +462,19 @@ def validate_config(config: Mapping) -> None:
             raise ConfigError(f"lifecycle batch_size must be a positive int, got {bs!r}")
         validate_config(config["inner"])
     elif t == "remote":
-        raise ConfigError("remote config is not yet ported to repro_torch")
+        addr, inner = config.get("addr"), config.get("inner")
+        if (addr is None) == (inner is None):
+            raise ConfigError(
+                "remote config requires exactly one of 'addr' (connect to a "
+                "running server) or 'inner' (serve the inner tree in-process)"
+            )
+        if inner is not None:
+            validate_config(inner)
+        for knob, kind in (("pool_size", int), ("retries", int),
+                           ("timeout", (int, float)), ("backoff", (int, float))):
+            v = config.get(knob)
+            if v is not None and (not isinstance(v, kind) or isinstance(v, bool)):
+                raise ConfigError(f"remote {knob!r} must be a number, got {v!r}")
 
 
 def _jsonable(obj, path: str = "$"):

@@ -1,6 +1,7 @@
 """Every module the port carries over from the reference unchanged must stay
-equal to it as text.  Allowed differences: absolute ``repro.`` imports
-rebased to ``repro_torch.``, and the short named allow-list below.  The
+equal to it as text, apart from absolute ``repro.`` imports rebased to
+``repro_torch.``.  The benchmark twins under ``benchmarks/`` are held to
+their references the same way, with a short named allow-list.  The
 reference is read as text and never imported."""
 
 import re
@@ -46,6 +47,10 @@ CARRIED = (
     "core/schema.py",
     "core/select.py",
     "core/store.py",
+    "core/remote/__init__.py",
+    "core/remote/client.py",
+    "core/remote/protocol.py",
+    "core/remote/server.py",
     "core/daos/__init__.py",
     "core/daos/engine.py",
     "core/daos/objects.py",
@@ -72,6 +77,8 @@ CARRIED = (
     "obs/__init__.py",
     "obs/export.py",
     "obs/tracer.py",
+    "simulation/__init__.py",
+    "simulation/cluster.py",
 )
 
 #: modules the port rewrote for torch (same path as a reference module)
@@ -99,6 +106,9 @@ PORTED = (
     "models/model.py",
     "models/ops.py",
     "models/ssm.py",
+    "roofline/__init__.py",
+    "roofline/analysis.py",
+    "roofline/codec.py",
     "serving/__init__.py",
     "serving/engine.py",
     "training/__init__.py",
@@ -108,52 +118,70 @@ PORTED = (
 
 _REBASE = re.compile(r"^(\s*)(from|import) repro(?=[.\s])", re.M)
 
+BENCH = SRC.parent / "benchmarks"
 
-def _guard(node: str):
-    """config.py: the ``elif t == "<node>":`` branch of validate_config
-    becomes one ConfigError, because the node's package is not ported yet."""
+#: benchmark twins: copies of a reference benchmark that drive the port
+#: (twin -> reference, both under benchmarks/)
+TWINS = {
+    "ckpt_overlap_torch.py": "ckpt_overlap.py",
+    "fdb_hammer_torch.py": "fdb_hammer.py",
+    "figures_torch.py": "figures.py",
+}
 
+
+def _replace(old: str, new: str):
     def apply(text: str) -> str:
-        head = f'    elif t == "{node}":\n'
-        start = text.index(head) + len(head)
-        lines = text[start:].splitlines(keepends=True)
-        n = 0
-        while n < len(lines) and (lines[n].startswith(" " * 8) or not lines[n].strip()):
-            n += 1
-        while n and not lines[n - 1].strip():
-            n -= 1  # trailing blank lines belong to what follows
-        end = start + sum(len(line) for line in lines[:n])
-        guard = f'        raise ConfigError("{node} config is not yet ported to repro_torch")\n'
-        return text[:start] + guard + text[end:]
+        return text.replace(old, new)
 
     return apply
 
 
-def _drop_remote_exports(text: str) -> str:
-    """core/__init__.py: ``core/remote`` comes in a later slice, so its names
-    are not imported or exported."""
-    text = re.sub(r"from \.remote import \([^)]*\)\n", "", text)
-    for name in ("RemoteFDB", "FDBServer", "RemoteError", "RemoteTimeout", "serve_fdb"):
-        text = text.replace(f'    "{name}",\n', "")
-    return text
-
-
+#: the named differences a twin may have beyond the rebased imports
 ALLOWED = {
-    "core/config.py": [("remote node not yet ported", _guard("remote"))],
-    "core/__init__.py": [("remote exports dropped", _drop_remote_exports)],
+    "fdb_hammer_torch.py": [
+        ("usage lines run the twin",
+         _replace("benchmarks/fdb_hammer.py", "benchmarks/fdb_hammer_torch.py")),
+        ("the twin writes its own output file, not the reference's",
+         _replace("BENCH_contention.json", "BENCH_contention_torch.json")),
+        ("the codec packs in a CUDA kernel on the card",
+         _replace("``grib_pack`` Pallas launch", "``grib_pack`` CUDA launch")),
+        ("the parent holds a CUDA context",
+         _replace("the parent holds JAX thread pools and an\n    asyncio loop",
+                  "the parent holds a CUDA context and an\n    asyncio loop")),
+    ],
+    "figures_torch.py": [
+        ("imports the hammer twin", _replace("from .fdb_hammer import", "from .fdb_hammer_torch import")),
+        ("writes its CSVs beside the reference's, not over them",
+         _replace('"artifacts", "bench")', '"artifacts", "bench_torch")')),
+    ],
 }
+
+
+def twin_text(twin: str) -> str:
+    """What ``benchmarks/<twin>`` must hold: its reference with the imports
+    rebased and every allowed difference applied."""
+    expected = _REBASE.sub(r"\1\2 repro_torch", (BENCH / TWINS[twin]).read_text())
+    for name, apply in ALLOWED.get(twin, ()):
+        changed = apply(expected)
+        assert changed != expected, f"allow-list entry {name!r} no longer applies to {twin}"
+        expected = changed
+    return expected
 
 
 @pytest.mark.parametrize("rel", CARRIED)
 def test_carried_module_equals_reference(rel):
     expected = _REBASE.sub(r"\1\2 repro_torch", (REF / rel).read_text())
-    for name, apply in ALLOWED.get(rel, ()):
-        changed = apply(expected)
-        assert changed != expected, f"allow-list entry {name!r} no longer applies to {rel}"
-        expected = changed
     assert (PORT / rel).read_text() == expected, (
         f"src/repro_torch/{rel} drifted from src/repro/{rel}: copy the reference "
         "again, or move the module to PORTED if it is now a real port"
+    )
+
+
+@pytest.mark.parametrize("twin", sorted(TWINS))
+def test_benchmark_twin_equals_reference(twin):
+    assert (BENCH / twin).read_text() == twin_text(twin), (
+        f"benchmarks/{twin} drifted from benchmarks/{TWINS[twin]}: copy the "
+        "reference again, or name the difference in ALLOWED"
     )
 
 
@@ -165,4 +193,4 @@ def test_every_counterpart_is_carried_or_ported():
 
 def test_only_the_contention_import_is_rebased():
     rebased = [rel for rel in CARRIED if _REBASE.search((REF / rel).read_text())]
-    assert rebased == ["metrics/contention.py"]
+    assert rebased == ["metrics/contention.py", "simulation/cluster.py"]

@@ -23,23 +23,8 @@ from repro_torch.device import default_device, set_default_device  # noqa: E402
 NBITS_SWEEP = (8, 16, 24)
 SRC = Path(__file__).resolve().parents[1] / "src"
 
-#: the tiered codec deployment of benchmarks/fdb_hammer.py (TIERED_CODEC_CONFIG)
-TIERED_CODEC_CONFIG = {
-    "type": "select",
-    "rules": [
-        {
-            "match": "number=0",
-            "fdb": {
-                "type": "codec", "nbits": 16,
-                "inner": {"backend": "daos", "schema": "nwp-daos"},
-            },
-        },
-    ],
-    "default": {
-        "type": "codec", "nbits": 24,
-        "inner": {"backend": "posix", "schema": "nwp-posix"},
-    },
-}
+sys.path.insert(0, str(SRC.parent / "benchmarks"))
+from fdb_hammer_torch import TIERED_CODEC_CONFIG  # noqa: E402  the tiered codec deployment
 
 
 @pytest.fixture(autouse=True)
@@ -213,15 +198,6 @@ class TestTieredCodec:
             afdb.archive_fields([k], temperature_fields(np.random.default_rng(2), 1, 8, 128))
             afdb.flush()
             assert parse_header(afdb.read(k)).nbits == 8
-
-    @pytest.mark.parametrize("node", [
-        {"type": "remote", "addr": "127.0.0.1:1"},
-    ])
-    def test_unported_nodes_raise_config_error(self, node):
-        with pytest.raises(tcore.ConfigError, match="not yet ported to repro_torch"):
-            tcore.build_fdb(node)
-        with pytest.raises(tcore.ConfigError, match="not yet ported to repro_torch"):
-            tcore.build_fdb({"type": "select", "default": node})
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """The reference's own test suites, run against the port.
 
 Each suite below is copied into a temporary directory with its absolute
-``repro`` imports rebased to ``repro_torch``, and all of them run in one
-fresh pytest process, where ``jax`` and ``repro`` are blocked in
-``sys.modules`` and the port is asked to run on the CPU.  The few cases
-listed in ``DESELECT`` drive packages this slice has not ported yet; every
+``repro`` imports rebased to ``repro_torch`` and its imports of the
+reference's hammer pointed at ``benchmarks/fdb_hammer_torch.py``, and all of
+them run in one fresh pytest process, where ``jax`` and ``repro`` are
+blocked in ``sys.modules`` and the port is asked to run on the CPU.  Cases
+listed in ``DESELECT`` would drive packages the port does not have; every
 other case must pass, and each suite counts as one test here."""
 
 import os
@@ -20,31 +21,34 @@ import pytest
 pytest.importorskip("torch")
 
 TESTS = Path(__file__).resolve().parent
-SRC = TESTS.parent / "src"
+ROOT = TESTS.parent
+SRC = ROOT / "src"
 
 SUITES = (
     "test_async_fdb.py",
     "test_batch_equivalence.py",
+    "test_cache.py",
     "test_config.py",
+    "test_contention.py",
     "test_core_fdb.py",
     "test_fields.py",
     "test_lifecycle.py",
     "test_metrics.py",
+    "test_obs.py",
+    "test_paper_claims.py",
+    "test_remote.py",
     "test_request.py",
     "test_select.py",
     "test_stress_router.py",
     "test_workflow.py",
 )
 
-#: cases that need a package of a later slice
-DESELECT = {
-    "test_config.py": (
-        # benchmarks/fdb_hammer.py drives the reference package
-        "TestConfigWiring::test_hammer_config_mode_tiered",
-        "TestConfigWiring::test_hammer_fills_dist_template_roots_per_lane",
-    ),
-    "test_request.py": ("test_fdb_hammer_request_mode_end_to_end",),
-}
+#: cases that need a package the port does not have (suite -> case ids)
+DESELECT: dict[str, tuple[str, ...]] = {}
+
+#: the reference's hammer, imported from benchmarks/ on the path or as a
+#: module of the repository root, becomes its twin
+_HAMMER = re.compile(r"^(\s*from (?:benchmarks\.)?fdb_hammer)(?= import)", re.M)
 
 _CONFTEST = """\
 import sys
@@ -71,10 +75,13 @@ def results(tmp_path_factory):
     for suite in SUITES:
         source = (TESTS / suite).read_text()
         assert re.search(r"^\s*(from|import) (jax|repro_torch)\b", source, re.M) is None, suite
-        (root / suite).write_text(_REBASE.sub(r"\1\2 repro_torch", source))
+        (root / suite).write_text(_HAMMER.sub(r"\1_torch", _REBASE.sub(r"\1\2 repro_torch", source)))
         cmd.append(suite)
         cmd += [arg for case in DESELECT.get(suite, ()) for arg in ("--deselect", f"{suite}::{case}")]
-    env = dict(os.environ, PYTHONPATH=str(SRC), PYTEST_DISABLE_PLUGIN_AUTOLOAD="1")
+    # the hammer twin lives in benchmarks/, imported as fdb_hammer_torch or as
+    # benchmarks.fdb_hammer_torch; the processes it spawns inherit this path
+    path = os.pathsep.join(str(p) for p in (SRC, ROOT / "benchmarks", ROOT))
+    env = dict(os.environ, PYTHONPATH=path, PYTEST_DISABLE_PLUGIN_AUTOLOAD="1")
     out = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=900)
     outcomes: dict[str, list[tuple[str, str]]] = {suite: [] for suite in SUITES}
     for case in ElementTree.parse(root / "report.xml").getroot().iter("testcase"):
