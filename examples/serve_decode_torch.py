@@ -6,9 +6,14 @@ decode greedily with the KV cache, then disseminate the outputs through a
 Prefill attention goes through the hand-written flash-attention kernel on
 the card (``attn_impl="pallas"``, the reference's name for its kernel
 path); on the CPU the same call takes the kernel's plain PyTorch version.
+``--arch`` takes any model of ``repro_torch.configs.ARCHS`` but the audio
+family's, whose prefill needs encoder frames: the dense qwen2.5-3b (the
+default), the ssm mamba2-370m, the hybrid zamba2-7b, the moe
+granite-moe-3b-a800m, or the vlm internvl2-76b (fed token ids here).
 
     PYTHONPATH=src python examples/serve_decode_torch.py --tokens 16            # on the card
     PYTHONPATH=src python examples/serve_decode_torch.py --tokens 16 --device cpu
+    PYTHONPATH=src python examples/serve_decode_torch.py --arch zamba2-7b --device cpu
 """
 
 import argparse
@@ -87,7 +92,7 @@ def disseminate(gen: np.ndarray, logits: np.ndarray, n_consumers: int) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--arch", default="qwen2.5-3b", help="any model but the audio family's")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=16)
@@ -98,7 +103,9 @@ def main() -> None:
 
     dev = resolve_device(args.device)
     cfg = dataclasses.replace(reduced(get_config(args.arch)), attn_impl="pallas")
-    print(f"arch={cfg.name} (reduced {cfg.n_layers}L d={cfg.d_model}) on {dev} "
+    if cfg.is_encoder_decoder:
+        ap.error(f"{cfg.name}: the {cfg.family} family's prefill needs encoder frames")
+    print(f"arch={cfg.name} family={cfg.family} (reduced {cfg.n_layers}L d={cfg.d_model}) on {dev} "
           f"attn={cfg.attn_impl} batch={args.batch} prompt={args.prompt_len} gen={args.tokens}")
 
     params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)

@@ -4,6 +4,7 @@ from .model import (
     CACHE_BATCH_AXIS,
     decode_step,
     embed_inputs,
+    encode,
     forward_hidden,
     init_cache,
     init_params,
@@ -11,6 +12,7 @@ from .model import (
     prefill,
     train_loss,
 )
+from .ssm import init_ssm_state
 
 __all__ = [
     "AUX_COEF",
@@ -19,9 +21,11 @@ __all__ = [
     "ParamDict",
     "decode_step",
     "embed_inputs",
+    "encode",
     "forward_hidden",
     "init_cache",
     "init_params",
+    "init_ssm_state",
     "lm_logits",
     "params_from_numpy",
     "prefill",

@@ -1,14 +1,17 @@
-"""Parameters of the dense and ssm families as ``nn.Module``s, drawn or carried over.
+"""Parameters of every model family as ``nn.Module``s, drawn or carried over.
 
 The reference keeps its parameters as a pytree with layer-stacked leaves
 (``params["blocks"]["wq"]`` of shape (L, D, H, hd)).  The port keeps one
 :class:`ParamDict` per layer in a ``ModuleList``, with every parameter named
 like the reference's key: ``params["blocks"][i]["wq"]`` has shape
-(D, H, hd).  :func:`init_params` draws the reference's distributions from a
-``torch.Generator`` (it does not reproduce JAX's random numbers);
-:func:`params_from_numpy` carries a reference pytree across, given as numpy
-arrays.  ``A_log`` and ``D_skip`` of the ssm family stay float32 in a bf16
-model, as in the reference.
+(D, H, hd).  The same holds for the encoder's ``enc_blocks`` and the
+decoder's ``cross`` attention of the audio family; the hybrid family's one
+``shared`` block is a single :class:`ParamDict`.  :func:`init_params` draws
+the reference's distributions from a ``torch.Generator`` (it does not
+reproduce JAX's random numbers); :func:`params_from_numpy` carries a
+reference pytree across, given as numpy arrays.  ``A_log`` and ``D_skip`` of
+the ssm and hybrid families stay float32 in a bf16 model, as in the
+reference.
 
 Parameters are made with ``requires_grad=False``, which is what serving and
 scoring want; a trainer switches them on with ``params.requires_grad_(True)``.
@@ -28,25 +31,15 @@ from ..device import resolve_device
 
 __all__ = ["ParamDict", "ModelParams", "init_params", "params_from_numpy", "torch_dtype"]
 
-_ROADMAP_ITEM = {"ssm": 4, "hybrid": 5, "moe": 6, "vlm": 6, "audio": 7}
 #: leaves kept in float32 whatever the model dtype (``repro/models/init.py:201-206``)
 FLOAT32_LEAVES = ("A_log", "D_skip")
+#: the parts of a model besides ``blocks`` that hold layers (reference order)
+LAYER_LISTS = ("enc_blocks", "cross")
 
 
 def torch_dtype(name: str) -> torch.dtype:
     """The torch dtype of a config's dtype name (``"bfloat16"``, ``"float32"``)."""
     return getattr(torch, name)
-
-
-def require_family(cfg: ModelConfig, what: str, families: tuple[str, ...] = ("dense",)) -> None:
-    """Raise NotImplementedError for a family that ``what`` is not ported for."""
-    if cfg.family not in families:
-        raise NotImplementedError(
-            f"{what} for the {cfg.family} family is not ported yet "
-            f"(ROADMAP queue 1, item {_ROADMAP_ITEM.get(cfg.family, 6)}); "
-            f"repro_torch runs it for the {' and '.join(families)} famil"
-            f"{'ies' if len(families) > 1 else 'y'}"
-        )
 
 
 class ParamDict(nn.Module):
@@ -63,19 +56,37 @@ class ParamDict(nn.Module):
     def tree(self) -> dict[str, nn.Parameter]:
         return dict(self.named_parameters())
 
+    @torch.no_grad()
+    def copy_from(self, tree: Mapping) -> None:
+        for name, p in self.named_parameters():
+            p.copy_(tree[name])
+
 
 class ModelParams(nn.Module):
     """A model's parameters: ``embed``, ``blocks`` (one ParamDict per layer),
-    ``final_norm`` and, unless tied, ``lm_head``."""
+    ``final_norm`` and, unless tied, ``lm_head``; the hybrid family adds its
+    ``shared`` block, the audio family its encoder (``enc_blocks``,
+    ``enc_final_norm``) and the decoder's ``cross`` attention, one ParamDict
+    per layer."""
 
     def __init__(self, embed: torch.Tensor, blocks: list[Mapping[str, torch.Tensor]],
-                 final_norm: torch.Tensor, lm_head: torch.Tensor | None):
+                 final_norm: torch.Tensor, lm_head: torch.Tensor | None, *,
+                 shared: Mapping[str, torch.Tensor] | None = None,
+                 enc_blocks: list[Mapping[str, torch.Tensor]] | None = None,
+                 enc_final_norm: torch.Tensor | None = None,
+                 cross: list[Mapping[str, torch.Tensor]] | None = None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.blocks = nn.ModuleList(ParamDict(b) for b in blocks)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         if lm_head is not None:
             self.lm_head = nn.Parameter(lm_head, requires_grad=False)
+        if shared is not None:
+            self.shared = ParamDict(shared)
+        if enc_blocks is not None:
+            self.enc_blocks = nn.ModuleList(ParamDict(b) for b in enc_blocks)
+            self.enc_final_norm = nn.Parameter(enc_final_norm, requires_grad=False)
+            self.cross = nn.ModuleList(ParamDict(c) for c in cross)
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -85,10 +96,15 @@ class ModelParams(nn.Module):
         return self.embed.device
 
     def tree(self) -> dict:
-        """The parameters as the reference's pytree, with ``blocks`` a list of
-        per-layer dicts: ``{"embed": p, "blocks": [{"wq": p, ...}, ...], ...}``."""
+        """The parameters as the reference's pytree, with ``blocks`` (and
+        ``enc_blocks``, ``cross``) a list of per-layer dicts:
+        ``{"embed": p, "blocks": [{"wq": p, ...}, ...], ...}``."""
         out = {name: p for name, p in self.named_parameters(recurse=False)}
-        out["blocks"] = [bp.tree() for bp in self.blocks]
+        for name in ("blocks", *LAYER_LISTS):
+            if hasattr(self, name):
+                out[name] = [bp.tree() for bp in self[name]]
+        if hasattr(self, "shared"):
+            out["shared"] = self.shared.tree()
         return out
 
     @torch.no_grad()
@@ -97,32 +113,56 @@ class ModelParams(nn.Module):
         casting each leaf to its parameter's dtype and device."""
         for name, p in self.named_parameters(recurse=False):
             p.copy_(tree[name])
-        if len(tree["blocks"]) != len(self.blocks):
-            raise ValueError(f"tree has {len(tree['blocks'])} layers, the model {len(self.blocks)}")
-        for bp, src in zip(self.blocks, tree["blocks"]):
-            for name, p in bp.named_parameters():
-                p.copy_(src[name])
+        for name in ("blocks", *LAYER_LISTS):
+            if not hasattr(self, name):
+                continue
+            if len(tree[name]) != len(self[name]):
+                raise ValueError(f"tree has {len(tree[name])} {name}, the model {len(self[name])}")
+            for bp, src in zip(self[name], tree[name]):
+                bp.copy_from(src)
+        if hasattr(self, "shared"):
+            self.shared.copy_from(tree["shared"])
 
 
-def _attn_ffn_shapes(cfg: ModelConfig) -> dict[str, tuple]:
-    """``repro/models/init.py::_attn_shapes`` + ``_ffn_shapes``."""
-    hd, d = cfg.resolved_head_dim, cfg.d_model
+def _attn_shapes(cfg: ModelConfig, width_in: int) -> dict[str, tuple]:
+    """``repro/models/init.py::_attn_shapes``."""
+    hd = cfg.resolved_head_dim
     s: dict[str, tuple] = {
-        "attn_norm": (d,),
-        "wq": (d, cfg.n_heads, hd),
-        "wk": (d, cfg.n_kv_heads, hd),
-        "wv": (d, cfg.n_kv_heads, hd),
-        "wo": (cfg.n_heads, hd, d),
-        "ffn_norm": (d,),
-        "w_gate": (d, cfg.d_ff),
-        "w_up": (d, cfg.d_ff),
-        "w_down": (cfg.d_ff, d),
+        "attn_norm": (width_in,),
+        "wq": (width_in, cfg.n_heads, hd),
+        "wk": (width_in, cfg.n_kv_heads, hd),
+        "wv": (width_in, cfg.n_kv_heads, hd),
+        "wo": (cfg.n_heads, hd, cfg.d_model),
     }
     if cfg.qkv_bias:
         s["bq"] = (cfg.n_heads, hd)
         s["bk"] = (cfg.n_kv_heads, hd)
         s["bv"] = (cfg.n_kv_heads, hd)
     return s
+
+
+def _ffn_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    """``repro/models/init.py::_ffn_shapes``."""
+    return {
+        "ffn_norm": (cfg.d_model,),
+        "w_gate": (cfg.d_model, cfg.d_ff),
+        "w_up": (cfg.d_model, cfg.d_ff),
+        "w_down": (cfg.d_ff, cfg.d_model),
+    }
+
+
+def _moe_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    """``repro/models/init.py::_moe_shapes``: padded expert slots are
+    router-masked, never routed to."""
+    m = cfg.moe
+    e = m.e_total
+    return {
+        "ffn_norm": (cfg.d_model,),
+        "router": (cfg.d_model, e),
+        "w_gate": (e, cfg.d_model, m.d_expert),
+        "w_up": (e, cfg.d_model, m.d_expert),
+        "w_down": (e, m.d_expert, cfg.d_model),
+    }
 
 
 def _ssm_shapes(cfg: ModelConfig) -> dict[str, tuple]:
@@ -150,14 +190,52 @@ def _ssm_shapes(cfg: ModelConfig) -> dict[str, tuple]:
 
 
 def _block_shapes(cfg: ModelConfig) -> dict[str, tuple]:
-    """One layer's shapes."""
-    return _ssm_shapes(cfg) if cfg.family == "ssm" else _attn_ffn_shapes(cfg)
+    """One layer's shapes (``repro/models/init.py::_block_shapes``)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return _ssm_shapes(cfg)
+    if cfg.family == "moe":
+        return {**_attn_shapes(cfg, cfg.d_model), **_moe_shapes(cfg)}
+    return {**_attn_shapes(cfg, cfg.d_model), **_ffn_shapes(cfg)}
+
+
+def _shared_block_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    """The zamba2-style shared attention + FFN block, attention over
+    concat(h, x0) (2·d), ``repro/models/init.py::_shared_block_shapes``."""
+    return {**_attn_shapes(cfg, 2 * cfg.d_model), **_ffn_shapes(cfg)}
+
+
+def _cross_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    """One decoder layer's cross-attention (``_encdec_extra_shapes``'s ``cross``);
+    the encoder's layers are dense blocks."""
+    hd = cfg.resolved_head_dim
+    return {
+        "xattn_norm": (cfg.d_model,),
+        "xwq": (cfg.d_model, cfg.n_heads, hd),
+        "xwk": (cfg.d_model, cfg.n_kv_heads, hd),
+        "xwv": (cfg.d_model, cfg.n_kv_heads, hd),
+        "xwo": (cfg.n_heads, hd, cfg.d_model),
+    }
+
+
+def _has_shared(cfg: ModelConfig) -> bool:
+    return cfg.family == "hybrid" and bool(cfg.hybrid_attn_every)
+
+
+def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[dict[str, tuple], int]]:
+    """Every layer list of the model: name -> (one layer's shapes, layers)."""
+    out = {"blocks": (_block_shapes(cfg), cfg.n_layers)}
+    if cfg.is_encoder_decoder:
+        out["enc_blocks"] = ({**_attn_shapes(cfg, cfg.d_model), **_ffn_shapes(cfg)},
+                             cfg.encoder_layers)
+        out["cross"] = (_cross_shapes(cfg), cfg.n_layers)
+    return out
 
 
 def _fan_in(name: str, shape: tuple) -> int:
     """As ``repro/models/init.py::_init_tree``: the first axis, or the first
-    two for the output projection."""
-    fan_in = shape[0] * shape[1] if name == "wo" else shape[0]
+    two for the output projections (an expert's weights take the expert
+    count, as there)."""
+    fan_in = shape[0] * shape[1] if name in ("wo", "xwo") else shape[0]
     return max(1, fan_in)
 
 
@@ -166,8 +244,8 @@ def _leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) -> ModelParams:
-    """Random parameters of the dense or ssm family, with the reference's
-    distributions (``repro/models/init.py::_init_tree``).
+    """Random parameters of any family, with the reference's distributions
+    (``repro/models/init.py::_init_tree``).
 
     Matrices (and the QKV biases, which the reference draws the same way) are
     normal / sqrt(fan_in) drawn in float32 and cast to ``cfg.dtype``; norm
@@ -176,7 +254,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) ->
     ``generator``'s device and land on ``device`` (default:
     :func:`repro_torch.device.default_device`).
     """
-    require_family(cfg, "init_params", ("dense", "ssm"))
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
 
@@ -195,11 +272,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) ->
             return torch.ones(shape, dtype=torch.float32, device=dev)
         return dense(shape, _fan_in(name, shape))
 
+    def layers(shapes: dict[str, tuple], n: int) -> list[dict[str, torch.Tensor]]:
+        return [{name: leaf(name, shape) for name, shape in sorted(shapes.items())}
+                for _ in range(n)]
+
     embed = dense((cfg.padded_vocab, cfg.d_model), cfg.d_model)
-    shapes = sorted(_block_shapes(cfg).items())
-    blocks = [{name: leaf(name, shape) for name, shape in shapes} for _ in range(cfg.n_layers)]
+    stacks = {name: layers(shapes, n) for name, (shapes, n) in _layer_shapes(cfg).items()}
     lm_head = None if cfg.tie_embeddings else dense((cfg.d_model, cfg.padded_vocab), cfg.d_model)
-    return ModelParams(embed, blocks, torch.ones((cfg.d_model,), dtype=dtype, device=dev), lm_head)
+    extra: dict = {}
+    if _has_shared(cfg):
+        extra["shared"] = layers(_shared_block_shapes(cfg), 1)[0]
+    if cfg.is_encoder_decoder:
+        extra.update(enc_blocks=stacks["enc_blocks"], cross=stacks["cross"],
+                     enc_final_norm=torch.ones((cfg.d_model,), dtype=dtype, device=dev))
+    return ModelParams(embed, stacks["blocks"], torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+                       lm_head, **extra)
 
 
 def _tensor(a, device, dtype: torch.dtype) -> torch.Tensor:
@@ -215,14 +302,24 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping, *, device=None) -> ModelP
     """Carry the reference's parameter pytree across, as nested dicts of numpy
     arrays (``jax.tree.map(np.asarray, params)``); bf16 leaves go through a
     uint16 view.  Layer-stacked leaves are split per layer."""
-    require_family(cfg, "params_from_numpy", ("dense", "ssm"))
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
-    names = set(_block_shapes(cfg))
-    if set(tree["blocks"]) != names:
-        raise ValueError(f"blocks hold {sorted(tree['blocks'])}, the config needs {sorted(names)}")
-    stacked = {name: _tensor(a, dev, _leaf_dtype(name, dtype)) for name, a in tree["blocks"].items()}
-    blocks = [{name: t[i] for name, t in sorted(stacked.items())} for i in range(cfg.n_layers)]
+
+    def leaves(part: str, src: Mapping, shapes: dict[str, tuple]) -> dict[str, torch.Tensor]:
+        if set(src) != set(shapes):
+            raise ValueError(f"{part} hold {sorted(src)}, the config needs {sorted(shapes)}")
+        return {name: _tensor(a, dev, _leaf_dtype(name, dtype)) for name, a in sorted(src.items())}
+
+    stacks = {}
+    for part, (shapes, n) in _layer_shapes(cfg).items():
+        stacked = leaves(part, tree[part], shapes)
+        stacks[part] = [{name: t[i] for name, t in stacked.items()} for i in range(n)]
     lm_head = None if cfg.tie_embeddings else _tensor(tree["lm_head"], dev, dtype)
-    return ModelParams(_tensor(tree["embed"], dev, dtype), blocks,
-                       _tensor(tree["final_norm"], dev, dtype), lm_head)
+    extra: dict = {}
+    if _has_shared(cfg):
+        extra["shared"] = leaves("shared", tree["shared"], _shared_block_shapes(cfg))
+    if cfg.is_encoder_decoder:
+        extra.update(enc_blocks=stacks["enc_blocks"], cross=stacks["cross"],
+                     enc_final_norm=_tensor(tree["enc_final_norm"], dev, dtype))
+    return ModelParams(_tensor(tree["embed"], dev, dtype), stacks["blocks"],
+                       _tensor(tree["final_norm"], dev, dtype), lm_head, **extra)

@@ -1,14 +1,21 @@
-"""Model assembly: the train forward and chunked loss of the dense and ssm
-families, and prefill and decode_step for serving the dense family.
+"""Model assembly: the train forward and chunked loss, prefill and
+decode_step of every family (dense / moe / ssm / hybrid / audio enc-dec /
+vlm).
 
 The counterparts of ``repro.models.model``'s functions of the same names.
 The layer stack is a Python loop over ``params["blocks"]``, the counterpart
-of ``layer_scan``; ``remat`` wraps each layer of the train forward in
+of ``layer_scan``, so the hybrid family's shared-block condition is a plain
+int test; ``remat`` wraps each layer of the train forward in
 ``torch.utils.checkpoint``.  Caches are dicts of tensors as in the
 reference, with one difference the port makes to save memory:
-:func:`prefill` and :func:`decode_step` write the new keys and values into
-the cache tensors they are given, in place, and return the same dict with
-``pos`` replaced.  Other families raise ``NotImplementedError``.
+:func:`prefill` and :func:`decode_step` write into the cache tensors they
+are given, in place, and return the same dict with ``pos`` replaced.
+
+One fault of the reference is fixed here: its hybrid ``decode_step`` feeds
+the shared block the embedding of the *previous* token as ``x0``
+(``repro/models/model.py:503``), where the full-sequence forward feeds each
+position its own token's embedding; the port's decode feeds the current
+token's, so that decode continues the forward.
 """
 
 from __future__ import annotations
@@ -22,15 +29,17 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..distributed.sharding import constrain
-from .init import ModelParams, init_params, require_family, torch_dtype  # noqa: F401 (re-export)
+from .init import ModelParams, init_params, torch_dtype  # noqa: F401 (re-export)
+from .moe import moe_ffn
 from .ops import decode_attention, gqa_attention, rms_norm, rope, swiglu
-from .ssm import mamba_mixer
+from .ssm import init_ssm_state, mamba_decode_step, mamba_mixer, mamba_prefill
 
 __all__ = [
     "AUX_COEF",
     "CACHE_BATCH_AXIS",
     "init_params",
     "embed_inputs",
+    "encode",
     "forward_hidden",
     "train_loss",
     "lm_logits",
@@ -40,6 +49,8 @@ __all__ = [
 ]
 
 AUX_COEF = 0.01
+#: the families whose layers are attention + FFN blocks
+_ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 # =============================================================== primitives
@@ -69,10 +80,47 @@ def _attn(h, bp, cfg: ModelConfig, *, causal: bool, positions, kv_positions=None
     return torch.einsum("bshk,hkd->bsd", out, bp["wo"])
 
 
+def _cross_kv(cp, enc_out):
+    """The cross-attention's keys and values of the encoder output."""
+    return (torch.einsum("bsd,dhk->bshk", enc_out, cp["xwk"]),
+            torch.einsum("bsd,dhk->bshk", enc_out, cp["xwv"]))
+
+
+def _cross_attn(h, cp, cfg: ModelConfig, xk, xv):
+    """Bidirectional attention of the decoder over the encoder's keys and values."""
+    x = rms_norm(h, cp["xattn_norm"], cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", x, cp["xwq"])
+    out = gqa_attention(q, xk, xv, causal=False, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+    return torch.einsum("bshk,hkd->bsd", out, cp["xwo"])
+
+
 def _ffn(h, bp, cfg: ModelConfig):
-    """The dense SwiGLU FFN block -> (output, aux loss 0)."""
+    """The FFN block, SwiGLU or mixture of experts -> (output, aux loss)."""
     x = rms_norm(h, bp["ffn_norm"], cfg.norm_eps)
+    if cfg.moe.enabled:
+        return moe_ffn(x, bp, cfg.moe)
     return swiglu(x, bp["w_gate"], bp["w_up"], bp["w_down"]), torch.zeros((), device=h.device)
+
+
+def _is_shared_site(cfg: ModelConfig, i: int) -> bool:
+    """Whether the hybrid family's shared block follows layer ``i``."""
+    every = cfg.hybrid_attn_every
+    return bool(every) and i % every == every - 1
+
+
+def _shared_qkv(h, x0, sp, cfg: ModelConfig, positions):
+    """Zamba2's shared block, its attention's inputs: q, k, v over
+    concat(h, x0) (2·d), with RoPE."""
+    u = rms_norm(torch.cat([h, x0], dim=-1), sp["attn_norm"], cfg.norm_eps)
+    q, k, v = _qkv(u, sp, cfg)
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def _shared_out(h, out, sp, cfg: ModelConfig):
+    """Zamba2's shared block after its attention: output projection and SwiGLU FFN."""
+    h = h + torch.einsum("bshk,hkd->bsd", out, sp["wo"])
+    f = swiglu(rms_norm(h, sp["ffn_norm"], cfg.norm_eps), sp["w_gate"], sp["w_up"], sp["w_down"])
+    return h + f
 
 
 def _remat(fn, cfg: ModelConfig):
@@ -93,15 +141,32 @@ def embed_inputs(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor) ->
     return inputs.to(torch_dtype(cfg.dtype))  # precomputed frame/patch embeddings
 
 
-def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor):
+def encode(params: ModelParams, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over precomputed frame embeddings: bidirectional
+    attention, no RoPE."""
+    h = frames.to(torch_dtype(cfg.dtype))
+    positions = torch.arange(h.shape[1], device=h.device)
+
+    def body(hh, bp):
+        hh = hh + _attn(hh, bp, cfg, causal=False, positions=positions)
+        f, _ = _ffn(hh, bp, cfg)
+        return hh + f
+
+    layer = _remat(body, cfg)
+    for bp in params["enc_blocks"]:
+        h = layer(h, bp)
+    return rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
+
+
+def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, *,
+                   enc_out: torch.Tensor | None = None):
     """Full-sequence causal forward -> (hidden (B,S,D), aux loss)."""
-    require_family(cfg, "forward_hidden", ("dense", "ssm"))
     h = embed_inputs(params, cfg, inputs)
     h = constrain(h, "batch", "seq", "d_model")
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         def body(hh, bp):
             hh = hh + _attn(hh, bp, cfg, causal=True, positions=positions)
             f, a = _ffn(hh, bp, cfg)
@@ -113,13 +178,36 @@ def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor):
         for bp in params["blocks"]:
             h, a = layer(h, bp)
             aux = aux + a
-    else:  # ssm
-        def body(hh, bp):
-            return hh + mamba_mixer(rms_norm(hh, bp["norm_in"], cfg.norm_eps), bp, cfg)
+    elif cfg.family == "audio":
+        if enc_out is None:
+            raise ValueError("the audio family needs the encoder output, enc_out")
+
+        def body(hh, bp, cp):
+            hh = hh + _attn(hh, bp, cfg, causal=True, positions=positions)
+            hh = hh + _cross_attn(hh, cp, cfg, *_cross_kv(cp, enc_out))
+            f, _ = _ffn(hh, bp, cfg)
+            return hh + f
 
         layer = _remat(body, cfg)
-        for bp in params["blocks"]:
-            h = layer(h, bp)
+        for bp, cp in zip(params["blocks"], params["cross"]):
+            h = layer(h, bp, cp)
+    elif cfg.family in ("ssm", "hybrid"):
+        x0 = h
+
+        def body(hh, bp, shared: bool):
+            hh = hh + mamba_mixer(rms_norm(hh, bp["norm_in"], cfg.norm_eps), bp, cfg)
+            if shared:
+                sp = params["shared"]
+                q, k, v = _shared_qkv(hh, x0, sp, cfg, positions)
+                out = gqa_attention(q, k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+                hh = _shared_out(hh, out, sp, cfg)
+            return hh
+
+        layer = _remat(body, cfg)
+        for i, bp in enumerate(params["blocks"]):
+            h = layer(h, bp, _is_shared_site(cfg, i))
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
 
     return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
 
@@ -163,9 +251,17 @@ def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
 
 
 def train_loss(params: ModelParams, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
-    """batch: tokens + targets (B,S) int (-1 = ignore) -> (loss, {"ce", "aux"})."""
-    require_family(cfg, "train_loss", ("dense", "ssm"))
-    hidden, aux = forward_hidden(params, cfg, batch["tokens"])
+    """batch: tokens (or ``embeds`` of the vlm family, plus ``frames`` of the
+    audio family) and targets (B,S) int (-1 = ignore) -> (loss, {"ce", "aux"})."""
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = encode(params, cfg, batch["frames"])
+        inputs = batch["tokens"]
+    elif cfg.input_kind == "patches":
+        inputs = batch["embeds"]
+    else:
+        inputs = batch["tokens"]
+    hidden, aux = forward_hidden(params, cfg, inputs, enc_out=enc_out)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     ce = _chunked_ce(hidden, head, batch["targets"], ce_dtype=torch_dtype(cfg.ce_dtype))
     loss = ce + AUX_COEF * aux
@@ -174,49 +270,115 @@ def train_loss(params: ModelParams, cfg: ModelConfig, batch: dict) -> tuple[torc
 
 # =================================================================== caches
 #: the batch axis of each cache entry (``pos`` is per row and host-managed)
-CACHE_BATCH_AXIS = {"pos": 0, "k": 1, "v": 1}
+CACHE_BATCH_AXIS = {"pos": 0, "k": 1, "v": 1, "conv": 1, "ssm": 1, "shared_k": 1, "shared_v": 1,
+                    "x0": 0, "xk": 1, "xv": 1}
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None) -> dict[str, Any]:
-    """Zeroed KV cache: ``k``/``v`` (L, B, T, K, hd) in the model dtype and
-    ``pos`` (B,) int32, on ``device`` (default: the default device)."""
-    require_family(cfg, "init_cache")
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, enc_len: int = 0,
+               device=None) -> dict[str, Any]:
+    """Zeroed cache on ``device`` (default: the default device), the
+    reference's entries: ``pos`` (B,) int32; ``k``/``v`` (L, B, T, K, hd) of
+    the attention families; ``xk``/``xv`` (L, B, enc_len, K, hd) of the audio
+    family; ``conv`` and float32 ``ssm`` (L, B, ...) of the ssm and hybrid
+    families; and the hybrid's ``shared_k``/``shared_v`` (sites, B, T, K, hd)
+    and ``x0`` (B, 1, D)."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
-    }
+    hd, L = cfg.resolved_head_dim, cfg.n_layers
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    cache: dict[str, Any] = {"pos": zeros(batch, dt=torch.int32)}
+    if cfg.family in _ATTN_FAMILIES:
+        cache["k"] = zeros(L, batch, cache_len, cfg.n_kv_heads, hd)
+        cache["v"] = zeros(L, batch, cache_len, cfg.n_kv_heads, hd)
+    if cfg.family == "audio":
+        cache["xk"] = zeros(L, batch, enc_len, cfg.n_kv_heads, hd)
+        cache["xv"] = zeros(L, batch, enc_len, cfg.n_kv_heads, hd)
+    if cfg.family in ("ssm", "hybrid"):
+        st = init_ssm_state(cfg, batch, dtype, dev)
+        cache["conv"] = zeros(L, *st["conv"].shape)
+        cache["ssm"] = zeros(L, *st["ssm"].shape, dt=torch.float32)
+    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+        n_sites = cfg.n_layers // cfg.hybrid_attn_every
+        cache["shared_k"] = zeros(n_sites, batch, cache_len, cfg.n_kv_heads, hd)
+        cache["shared_v"] = zeros(n_sites, batch, cache_len, cfg.n_kv_heads, hd)
+        cache["x0"] = zeros(batch, 1, cfg.d_model)  # embedding of the last token
+    return cache
+
+
+def _write_kv(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """A prompt's keys and values into rows [0, S) of one layer's (B, T, K, hd)
+    cache; rows [S, T) are zeroed, as the reference pads them."""
+    s = k.shape[1]
+    for cached, new in ((kc, k), (vc, v)):
+        cached[:, :s] = new
+        cached[:, s:] = 0
 
 
 # ================================================================== prefill
-def prefill(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, cache: dict):
+def prefill(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, cache: dict, *,
+            enc_frames: torch.Tensor | None = None):
     """Run the full prompt, fill the cache, return last-token logits.
 
-    inputs: (B, S) token ids.  The cache's rows [0, S) take the prompt's keys
-    and values and rows [S, T) are zeroed, in place; ``pos`` becomes S.
+    inputs: (B, S) token ids (or (B, S, D) patch embeddings).  The cache's
+    rows [0, S) take the prompt's keys and values and rows [S, T) are
+    zeroed, in place; ``pos`` becomes S.  The audio family encodes
+    ``enc_frames`` (B, enc_len, D) first, into a cache made with that
+    ``enc_len``.
     """
-    require_family(cfg, "prefill")
     h = embed_inputs(params, cfg, inputs)
     s = h.shape[1]
-    cache_len = cache["k"].shape[2]
-    if s > cache_len:
-        raise ValueError(f"prompt of {s} tokens does not fit a cache of {cache_len}")
+    for name in ("k", "shared_k"):
+        if name in cache and s > cache[name].shape[2]:
+            raise ValueError(f"prompt of {s} tokens does not fit a cache of {cache[name].shape[2]}")
     positions = torch.arange(s, device=h.device)
-    for i, bp in enumerate(params["blocks"]):
-        x = rms_norm(h, bp["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(x, bp, cfg)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        out = gqa_attention(q, k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-        h = h + torch.einsum("bshk,hkd->bsd", out, bp["wo"])
-        f, _ = _ffn(h, bp, cfg)
-        h = h + f
-        for name, new in (("k", k), ("v", v)):
-            cache[name][i, :, :s] = new
-            cache[name][i, :, s:] = 0
+
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        if enc_frames is None:
+            raise ValueError("the audio family's prefill needs enc_frames")
+        if enc_frames.shape[1] != cache["xk"].shape[2]:
+            raise ValueError(f"{enc_frames.shape[1]} encoder frames do not fit a cache made "
+                             f"with enc_len {cache['xk'].shape[2]}")
+        enc_out = encode(params, cfg, enc_frames)
+
+    if cfg.family in _ATTN_FAMILIES:
+        cross = params["cross"] if cfg.family == "audio" else [None] * cfg.n_layers
+        for i, (bp, cp) in enumerate(zip(params["blocks"], cross)):
+            x = rms_norm(h, bp["attn_norm"], cfg.norm_eps)
+            q, k, v = _qkv(x, bp, cfg)
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+            out = gqa_attention(q, k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+            h = h + torch.einsum("bshk,hkd->bsd", out, bp["wo"])
+            _write_kv(cache["k"][i], cache["v"][i], k, v)
+            if cp is not None:
+                xk, xv = _cross_kv(cp, enc_out)
+                h = h + _cross_attn(h, cp, cfg, xk, xv)
+                cache["xk"][i] = xk
+                cache["xv"][i] = xv
+            f, _ = _ffn(h, bp, cfg)
+            h = h + f
+    elif cfg.family in ("ssm", "hybrid"):
+        x0 = h
+        for i, bp in enumerate(params["blocks"]):
+            y, conv, ssm = mamba_prefill(rms_norm(h, bp["norm_in"], cfg.norm_eps), bp, cfg)
+            h = h + y
+            cache["conv"][i] = conv
+            cache["ssm"][i] = ssm
+            if _is_shared_site(cfg, i):
+                sp, site = params["shared"], i // cfg.hybrid_attn_every
+                q, k, v = _shared_qkv(h, x0, sp, cfg, positions)
+                out = gqa_attention(q, k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+                h = _shared_out(h, out, sp, cfg)
+                _write_kv(cache["shared_k"][site], cache["shared_v"][site], k, v)
+        if "x0" in cache:
+            cache["x0"][:] = x0[:, -1:]
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
+
     cache["pos"] = torch.full((h.shape[0],), s, dtype=torch.int32, device=h.device)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(params, cfg, h[:, -1:, :])[:, 0]
@@ -231,25 +393,55 @@ def decode_step(params: ModelParams, cfg: ModelConfig, token: torch.Tensor, cach
     different depths (continuous batching); each row writes its KV at its
     own position, in place, and attends to its own length.  Every position
     must be below the cache length: the reference drops an out-of-range
-    write, a torch index raises.
+    write, a torch index raises.  The ssm and hybrid families' recurrent
+    state is replaced in place.
     """
-    require_family(cfg, "decode_step")
     h = embed_inputs(params, cfg, token)
     pos = cache["pos"].long()  # (B,)
     b_rows = torch.arange(h.shape[0], device=h.device)
     positions = pos[:, None]  # (B,1) for RoPE
-    for i, bp in enumerate(params["blocks"]):
-        x = rms_norm(h, bp["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(x, bp, cfg)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        kl, vl = cache["k"][i], cache["v"][i]
+
+    def attend(q, k, v, kl, vl):
+        """Write this step's k, v at each row's position and attend the row's length."""
         kl[b_rows, pos] = k[:, 0]
         vl[b_rows, pos] = v[:, 0]
-        out = decode_attention(q, kl, vl, pos + 1)
-        h = h + torch.einsum("bshk,hkd->bsd", out, bp["wo"])
-        f, _ = _ffn(h, bp, cfg)
-        h = h + f
+        return decode_attention(q, kl, vl, pos + 1)
+
+    if cfg.family in _ATTN_FAMILIES:
+        cross = params["cross"] if cfg.family == "audio" else [None] * cfg.n_layers
+        for i, (bp, cp) in enumerate(zip(params["blocks"], cross)):
+            x = rms_norm(h, bp["attn_norm"], cfg.norm_eps)
+            q, k, v = _qkv(x, bp, cfg)
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+            out = attend(q, k, v, cache["k"][i], cache["v"][i])
+            h = h + torch.einsum("bshk,hkd->bsd", out, bp["wo"])
+            if cp is not None:  # against the encoder's keys and values of the prefill
+                xq = torch.einsum("bsd,dhk->bshk", rms_norm(h, cp["xattn_norm"], cfg.norm_eps),
+                                  cp["xwq"])
+                xk, xv = cache["xk"][i], cache["xv"][i]
+                xout = decode_attention(xq, xk, xv, xk.shape[1])
+                h = h + torch.einsum("bshk,hkd->bsd", xout, cp["xwo"])
+            f, _ = _ffn(h, bp, cfg)
+            h = h + f
+    elif cfg.family in ("ssm", "hybrid"):
+        x0 = h  # this token's embedding, as the forward feeds each position its own
+        for i, bp in enumerate(params["blocks"]):
+            state = {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
+            y, st = mamba_decode_step(rms_norm(h, bp["norm_in"], cfg.norm_eps), state, bp, cfg)
+            h = h + y
+            cache["conv"][i] = st["conv"]
+            cache["ssm"][i] = st["ssm"]
+            if _is_shared_site(cfg, i):
+                sp, site = params["shared"], i // cfg.hybrid_attn_every
+                q, k, v = _shared_qkv(h, x0, sp, cfg, positions)
+                out = attend(q, k, v, cache["shared_k"][site], cache["shared_v"][site])
+                h = _shared_out(h, out, sp, cfg)
+        if "x0" in cache:
+            cache["x0"][:] = x0
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
+
     cache["pos"] = cache["pos"] + 1
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(params, cfg, h[:, 0, :])

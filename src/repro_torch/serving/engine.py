@@ -6,7 +6,10 @@ New requests are prefilled individually (batch=1) and their cache written
 into a free slot mid-flight, so long generations never block admission
 (continuous batching).  Completed slots free immediately.  Admission, EOS
 and budget rules are the reference's (``engine.py:95-149``).  The engine
-runs on the device its parameters live on, under ``torch.inference_mode``.
+runs on the device its parameters live on, under ``torch.inference_mode``.  Every family's cache goes through the
+same slots; the audio family is refused, as its prefill needs encoder
+frames that a request does not carry (the reference's engine never passes
+them either): serve it through ``prefill``/``decode_step`` directly.
 """
 
 from __future__ import annotations
@@ -50,6 +53,9 @@ def _insert_slot(batch_cache: dict, single_cache: dict, slot: int) -> dict:
 class ServeEngine:
     def __init__(self, params: ModelParams, cfg: ModelConfig, *, max_batch: int = 4,
                  cache_len: int = 256):
+        if cfg.is_encoder_decoder:
+            raise ValueError(f"ServeEngine does not serve the {cfg.family} family ({cfg.name}): "
+                             "its prefill needs enc_frames; call prefill and decode_step directly")
         self.params = params
         self.cfg = cfg
         self.device = params.device

@@ -31,7 +31,7 @@ from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as sr  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
-from repro_torch.models import init_params, train_loss  # noqa: E402
+from repro_torch.models import decode_step, init_cache, init_params, prefill, train_loss  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 
 NBITS_ALL = (1, 8, 16, 24, 31)
@@ -281,6 +281,54 @@ def test_serving_on_the_card_launches_the_kernel_per_layer_and_matches_the_cpu(c
         assert launches == (cfg.n_layers * len(prompts) if dev == "cuda" else 0)
         assert fa.INSTANCE_LAUNCHES == {"wgmma": 0, "cuda_cores": launches}  # float32
     assert gens["cuda"] == gens["cpu"]
+
+
+# the shapes chip_smoke.py's phase 8 serves that phases 4-5 do not: zamba2's
+# head dim 112 on the cuda_cores instance at its longest prompt, whisper's
+# encoder (bidirectional, 1500 frames) and cross attention (bidirectional,
+# Sq != Sk), 24 batch-heads
+@pytest.mark.parametrize("bk,groups,sq,sk,d,causal", [(32, 1, 1291, 1291, 112, True),
+                                                       (24, 1, 1500, 1500, 64, False),
+                                                       (24, 1, 391, 1500, 64, False),
+                                                       (24, 1, 309, 1500, 64, False)])
+def test_flash_kernel_at_the_families_served_shapes(cuda, bk, groups, sq, sk, d, causal):
+    q, k, v = attn_inputs(cuda, sq + sk, bk, groups, sq, sk, d, torch.bfloat16)
+    out = fk.flash_attention_call(q, k, v, groups=groups, causal=causal)
+    ref = flash_attention_ref(q, k, v, groups=groups, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **attn_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("arch,sites", [("mamba2-370m", 0), ("zamba2-7b", 1),
+                                        ("granite-moe-3b-a800m", 2), ("whisper-tiny", 6)])
+def test_every_family_decodes_on_the_card_as_on_the_cpu(cuda, arch, sites):
+    """Reduced configs in float32 with attn_impl="pallas": one kernel launch
+    per attention site per prefill (whisper: encoder, self and cross), and
+    the card's greedy tokens and logits equal the CPU's."""
+    cfg = dataclasses.replace(reduced(get_config(arch)), attn_impl="pallas")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    # 2 x 16 tokens: one moe dispatch group of the reduced group_size 32
+    prompt = rng.integers(1, cfg.vocab, (2, 16)).astype(np.int32)
+    frames = rng.standard_normal((2, 40, cfg.d_model), dtype=np.float32)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = params.to(dev)
+        kw = {"enc_frames": torch.from_numpy(frames).to(dev)} if cfg.is_encoder_decoder else {}
+        cache = init_cache(cfg, 2, 24, enc_len=40 if kw else 0, device=dev)
+        fa.reset_kernel_launches()
+        with torch.inference_mode():
+            logits, cache = prefill(p, cfg, torch.from_numpy(prompt).to(dev), cache, **kw)
+            out, toks = [logits.cpu()], []
+            for _ in range(3):
+                toks.append(logits[:, : cfg.vocab].argmax(-1).cpu())
+                logits, cache = decode_step(p, cfg, toks[-1][:, None].to(dev), cache)
+                out.append(logits.cpu())
+        assert fa.KERNEL_LAUNCHES["flash_attention"] == (sites if dev == "cuda" else 0)
+        runs[dev] = (out, toks)
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+    assert all(torch.equal(a, b) for a, b in zip(runs["cuda"][1], runs["cpu"][1]))
 
 
 # ---------------------------------------------------------------------------

@@ -104,6 +104,7 @@ PORTED = (
     "models/__init__.py",
     "models/init.py",
     "models/model.py",
+    "models/moe.py",
     "models/ops.py",
     "models/ssm.py",
     "roofline/__init__.py",

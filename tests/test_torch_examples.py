@@ -1,7 +1,9 @@
 """The workflow examples' torch twins (examples/quickstart_torch.py and
-examples/nwp_workflow_torch.py) run to the end with ``--device cpu``, in an
-interpreter where importing jax or repro fails, and refuse to run on a card
-that is not there when no device is asked for."""
+examples/nwp_workflow_torch.py), and the serving example for the ssm,
+hybrid, moe and vlm families (examples/serve_decode_torch.py --arch), run to
+the end with ``--device cpu``, in an interpreter where importing jax or
+repro fails; the workflow twins refuse to run on a card that is not there
+when no device is asked for."""
 
 import os
 import subprocess
@@ -50,6 +52,16 @@ def test_nwp_workflow_runs_on_the_cpu():
         assert line in out.stdout
     assert "merged list(param=2t) sees 25 fields across both tiers" in out.stdout
     assert "GiB/s write under contention" in out.stdout
+
+
+@pytest.mark.parametrize("arch,family", [("mamba2-370m", "ssm"), ("zamba2-7b", "hybrid"),
+                                         ("granite-moe-3b-a800m", "moe"), ("internvl2-76b", "vlm")])
+def test_serve_decode_runs_every_family_on_the_cpu(arch, family):
+    out = run_example("serve_decode_torch.py", "--device", "cpu", "--arch", arch, "--batch", "2",
+                      "--prompt-len", "9", "--tokens", "4", "--consumers", "2")
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert f"arch={arch} family={family}" in out.stdout
+    assert "disseminate: 2 consumers x 8 fields" in out.stdout
 
 
 @pytest.mark.parametrize("name", ("quickstart_torch.py", "nwp_workflow_torch.py"))

@@ -3,8 +3,12 @@
 ``repro_torch.serving.ServeEngine`` must generate exactly the reference
 engine's tokens, in float32, for the four scenarios of
 ``tests/test_serving.py``, with the reference's weights carried across by
-``params_from_numpy``.  The dissemination twin of ``examples/serve_decode.py``
-runs here on the CPU.
+``params_from_numpy``: for the dense family (qwen2.5-3b), the ssm family
+(mamba2-370m) and the moe family (granite-moe-3b-a800m).  The hybrid family
+(zamba2-7b) must generate the tokens of greedy decoding by the reference's
+full-sequence forward, which its own engine misses (its decode feeds the
+shared block the previous token's embedding).  The dissemination twin of
+``examples/serve_decode.py`` runs here on the CPU.
 """
 
 import os
@@ -18,16 +22,26 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import reduced as jreduced  # noqa: E402
+from repro.models import forward_hidden as jforward_hidden  # noqa: E402
 from repro.models import init_params as jinit_params  # noqa: E402
+from repro.models import lm_logits as jlm_logits  # noqa: E402
 from repro.serving import Request as JRequest  # noqa: E402
 from repro.serving import ServeEngine as JServeEngine  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import build_fdb  # noqa: E402
 from repro_torch.device import default_device, set_default_device  # noqa: E402
-from repro_torch.models import decode_step, init_cache, params_from_numpy, prefill  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    CACHE_BATCH_AXIS,
+    decode_step,
+    init_cache,
+    init_params,
+    params_from_numpy,
+    prefill,
+)
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 from repro_torch.serving.engine import _insert_slot  # noqa: E402
 
@@ -86,6 +100,72 @@ def scenario(name, vocab):
         p2 = rng.integers(1, vocab, size=12).astype(np.int32)
         return [(p1, 8, None), (p2, 3, None)], 2
     raise KeyError(name)
+
+
+SCENARIOS = ["single_request", "batched_requests", "admission_mid_flight", "eos_stops_early"]
+
+
+@pytest.fixture(scope="module", params=["mamba2-370m", "granite-moe-3b-a800m"])
+def family_setup(request):
+    jcfg = jreduced(jget_config(request.param))
+    jp = jinit_params(jcfg, jax.random.PRNGKey(0))
+    cfg = reduced(get_config(request.param))
+    return cfg, params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu"), jcfg, jp
+
+
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_ssm_and_moe_generations_equal_the_reference_engine(family_setup, name):
+    """The four scenarios of tests/test_serving.py on the ssm and moe families:
+    their caches (conv and ssm states; keys and values) go through the slots."""
+    cfg, params, jcfg, jp = family_setup
+    if name == "eos_stops_early":
+        prompt = np.arange(1, 6, dtype=np.int32)
+        jobs, max_batch = [(prompt, 50, sequential_generate(params, cfg, prompt, 1)[0])], 1
+    else:
+        jobs, max_batch = scenario(name, cfg.vocab)
+    got, _ = serve(ServeEngine, Request, params, cfg, jobs, max_batch)
+    want, _ = serve(JServeEngine, JRequest, jp, jcfg, jobs, max_batch)
+    assert got == want
+    if not cfg.moe.enabled:
+        # a moe decode step routes the batch's tokens as one dispatch group,
+        # whose capacity depends on the batch: batched and sequential decode
+        # differ by design, in both packages
+        for gen, (prompt, n, eos) in zip(got, jobs):
+            assert gen[:n] == sequential_generate(params, cfg, prompt, len(gen))
+    if name == "eos_stops_early":
+        assert got == [[jobs[0][2]]]
+
+
+def test_hybrid_generations_equal_greedy_decoding_by_the_reference_forward():
+    """zamba2 behind the engine, three requests over two slots: every token
+    is the argmax of the reference's forward over the prompt and the tokens
+    before it (run at a fixed length, as a causal forward's logits at a
+    position do not depend on later ones)."""
+    jcfg = jreduced(jget_config("zamba2-7b"))
+    jp = jinit_params(jcfg, jax.random.PRNGKey(0))
+    cfg = reduced(get_config("zamba2-7b"))
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
+    jobs, max_batch = scenario("batched_requests", cfg.vocab)
+    got, _ = serve(ServeEngine, Request, params, cfg, jobs, max_batch)
+    width = max(len(p) + n for p, n, _ in jobs)
+
+    @jax.jit
+    def forward_logits(tokens):
+        return jlm_logits(jp, jcfg, jforward_hidden(jp, jcfg, tokens)[0])
+
+    for gen, (prompt, n, _) in zip(got, jobs):
+        seq = list(prompt)
+        for _ in range(n):
+            logits = forward_logits(jnp.asarray(np.pad(seq, (0, width - len(seq)))[None], jnp.int32))
+            seq.append(int(jnp.argmax(logits[0, len(seq) - 1, : cfg.vocab])))
+        assert gen == seq[len(prompt):]
+
+
+def test_the_engine_refuses_the_audio_family():
+    cfg = reduced(get_config("whisper-tiny"))
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="audio family .* needs enc_frames"):
+        ServeEngine(params, cfg)
 
 
 @pytest.mark.parametrize("name", ["single_request", "batched_requests", "admission_mid_flight"])
@@ -154,6 +234,24 @@ def test_insert_slot_writes_one_slot_in_place():
     assert torch.equal(out["v"][:, 1], single["v"][:, 0])
     assert not out["k"][:, [0, 2]].any() and not out["v"][:, [0, 2]].any()
     assert not out["pos"].any()  # positions stay host-managed
+
+
+def test_insert_slot_writes_one_slot_of_every_hybrid_cache_entry():
+    """conv, ssm, shared_k/v carry their batch on axis 1, x0 on axis 0."""
+    cfg = reduced(get_config("zamba2-7b"))
+    batch = init_cache(cfg, 3, 8)
+    single = init_cache(cfg, 1, 8)
+    assert sorted(single) == ["conv", "pos", "shared_k", "shared_v", "ssm", "x0"]
+    for i, name in enumerate(sorted(single)):
+        single[name].fill_(i + 1)
+    _insert_slot(batch, single, 2)
+    for name, t in batch.items():
+        if name == "pos":
+            assert not t.any()
+            continue
+        got = t.movedim(CACHE_BATCH_AXIS[name], 0)
+        assert torch.equal(got[2], single[name].movedim(CACHE_BATCH_AXIS[name], 0)[0]), name
+        assert not got[:2].any(), name
 
 
 def test_cache_tier_builds_on_the_port(tmp_path):
