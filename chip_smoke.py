@@ -27,13 +27,14 @@ Phases, each fatal on failure:
    heads, 2048 tokens, head dim 128, bf16, causal), a ragged causal 1000,
    the shapes of tests/test_kernels.py in float32 and bf16, a q_offset
    window and every head dim the source instantiates (2e-4 in float32,
-   2e-2 in bf16).  The bf16 wgmma instance is held at head dims 64, 96 and
-   128 and groups 1, 3 and 8 at phase 5's served prompt lengths, Sq < 128,
-   Sq = 1, Sq < Sk with q_offset and bidirectional, against the plain
-   version at 2e-2 and against the plain version that rounds P to bf16 as
-   the instance does, at one bf16 ulp of the output.  Kernel, plain and
-   scaled_dot_product_attention times at the full-width shape beside the
-   bound;
+   2e-2 in bf16).  The bf16 wgmma instance is held at every head dim it
+   takes (64, 96, 112 and 128) and groups 1, 3 and 8 at phase 5's served
+   prompt lengths, Sq < 128, Sq = 1, Sq < Sk with q_offset and
+   bidirectional, against the plain version at 2e-2 and against the plain
+   version that rounds P to bf16 as the instance does, at one bf16 ulp of
+   the output.  Kernel, plain and scaled_dot_product_attention times beside
+   the bound at the full-width shape and at zamba2-7b's longest served
+   prefill (32 heads, groups 1, head dim 112);
 5. serve: qwen2.5-3b at full width (36 layers, bf16, random weights from
    --seed made on the card) behind ServeEngine(max_batch=4, cache_len=2048)
    answers 8 requests of ragged prompt lengths, 16 greedy tokens each; the
@@ -86,15 +87,15 @@ Phases, each fatal on failure:
    frames and prefills batch-4 prompts of 64-448 tokens through
    prefill/decode_step, 16 greedy tokens each.  The flash-attention kernel
    must have been launched once per attention site per prefill (13 for
-   zamba2, all on the cuda_cores instance; 32 for granite and 4 encoder + 4
-   self + 4 cross for whisper, all wgmma, the encoder's and the cross
+   zamba2, 32 for granite and 4 encoder + 4 self + 4 cross for whisper, all
+   on the wgmma instance, the encoder's and the cross
    attention's bidirectional, the cross attention's Sq != Sk); first-token
    logits through the kernel must agree with attn_impl="naive", and for
    zamba2 and mamba2 decode step 1 with a prefill of the prompt and its
    token.  Each model prints its token rates, ms per decode step, peak card
    memory, one profiled decode step, and the kernel's time at its served
-   shapes beside scaled_dot_product_attention's, each launch held against
-   the plain version.
+   shapes beside scaled_dot_product_attention's and the bound, each launch
+   held against the plain version.
 
 The line before the last is one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -210,7 +211,7 @@ REMOTE_PROCS = (1, 2, 4)
 # model's head dim, whether decode is held against an extended prefill)
 FAMILY_MODELS = {
     "zamba2-7b": (dict(n_layers=81, d_model=3584, n_heads=32, n_kv_heads=32, head_dim=112,
-                       d_ff=14336, hybrid_attn_every=6), 6_789_669_584, 13, "cuda_cores", True),
+                       d_ff=14336, hybrid_attn_every=6), 6_789_669_584, 13, "wgmma", True),
     "granite-moe-3b-a800m": (dict(n_layers=32, d_model=1536, n_heads=24, n_kv_heads=8, head_dim=64),
                              3_375_072_768, 32, "wgmma", False),
     "mamba2-370m": (dict(n_layers=48, d_model=1024), 420_136_448, 0, None, True),
@@ -239,9 +240,11 @@ def wgmma_cases(seed: int) -> list[tuple]:
     """(KV heads x batch, groups, Sq, Sk, d, causal, q_offset) for the bf16
     wgmma instance: every head dim it takes, groups 1, 3 and 8, Sq = Sk at
     each served length, Sq < 128, Sq = 1, Sq < Sk with q_offset, bidirectional."""
+    from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS
+
     shapes = [*((n, n, True, 0) for n in served_lengths(np.random.default_rng(seed))),
               (77, 77, True, 0), (1, 300, True, 299), (200, 645, True, 445), (333, 333, False, 0)]
-    return [(2, g, sq, sk, d, causal, off) for d in (64, 96, 128) for g in (1, 3, 8)
+    return [(2, g, sq, sk, d, causal, off) for d in WGMMA_HEAD_DIMS for g in (1, 3, 8)
             for sq, sk, causal, off in shapes]
 
 
@@ -457,26 +460,35 @@ def attention_phase(dev, seed: int) -> dict:
         + f" (tolerance 2e-4 float32, 2e-2 bf16); wgmma against plain with P in bf16 "
         f"{worst_round_p:.3g} (tolerance {ROUND_P_TOL})")
 
-    q, k, v = make(kh, g, s, s, d, torch.bfloat16)
-    call = lambda: fk.flash_attention_call(q, k, v, groups=g, causal=True)  # noqa: E731
-    plain = lambda: flash_attention_ref(q, k, v, groups=g, causal=True)  # noqa: E731
-    qs, ks, vs = q[None], k[None], v[None]  # (1, heads, S, d): SDPA's layout, no copy
-    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qs, ks, vs, is_causal=True, enable_gqa=True)
-    lib_err = float((library()[0].float() - call().float()).abs().max())
-    timing = {"ms": device_ms(call), "call_ms": call_ms(call),
-              "plain_ms": device_ms(plain, launches=5), "library_ms": device_ms(library)}
-    bound, by = attention_bound(kh * g, kh, s, s, d, 2, True)
-    flops = 4 * d * attention_pairs(s, s, True, 0) * kh * g
-    tflops = flops / timing["ms"] / 1e9
-    say(f"[attention] full width q ({kh * g}, {s}, {d}) bf16 causal, instance "
-        f"{fk.instance_for(torch.bfloat16, d)}: kernel {timing['ms']:.4f} ms ({tflops:.1f} TFLOP/s, "
-        f"{100 * bound / timing['ms']:.1f} % of the bound; one call from idle {timing['call_ms']:.4f} ms), "
-        f"plain {timing['plain_ms']:.4f} ms, scaled_dot_product_attention "
-        f"{timing['library_ms']:.4f} ms (max |sdpa - kernel| {lib_err:.3g}); bound {bound:.4f} ms "
-        f"by {by} ({flops / 1e9:.2f} GFLOP at {BF16_PEAK / 1e12:.0f} TFLOP/s bf16)")
-    return {**timing, "max_abs_err": max(worst.values()), "bound_ms": bound, "bound_by": by,
-            "instance": fk.instance_for(torch.bfloat16, d), "tflops": tflops}
+    def timed(label, kh, g, s, d):
+        """Kernel, plain and SDPA times at one causal bf16 shape, beside its bound."""
+        q, k, v = make(kh, g, s, s, d, torch.bfloat16)
+        call = lambda: fk.flash_attention_call(q, k, v, groups=g, causal=True)  # noqa: E731
+        plain = lambda: flash_attention_ref(q, k, v, groups=g, causal=True)  # noqa: E731
+        qs, ks, vs = q[None], k[None], v[None]  # (1, heads, S, d): SDPA's layout, no copy
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, ks, vs, is_causal=True, enable_gqa=True)
+        lib_err = float((library()[0].float() - call().float()).abs().max())
+        timing = {"ms": device_ms(call), "call_ms": call_ms(call),
+                  "plain_ms": device_ms(plain, launches=5), "library_ms": device_ms(library)}
+        bound, by = attention_bound(kh * g, kh, s, s, d, 2, True)
+        flops = 4 * d * attention_pairs(s, s, True, 0) * kh * g
+        tflops = flops / timing["ms"] / 1e9
+        instance = fk.instance_for(torch.bfloat16, d)
+        say(f"[attention] {label} q ({kh * g}, {s}, {d}) bf16 causal, instance {instance}: kernel "
+            f"{timing['ms']:.4f} ms ({tflops:.1f} TFLOP/s, {100 * bound / timing['ms']:.1f} % of the "
+            f"bound; one call from idle {timing['call_ms']:.4f} ms), plain {timing['plain_ms']:.4f} ms, "
+            f"scaled_dot_product_attention {timing['library_ms']:.4f} ms (max |sdpa - kernel| "
+            f"{lib_err:.3g}); bound {bound:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP at "
+            f"{BF16_PEAK / 1e12:.0f} TFLOP/s bf16)")
+        return {**timing, "bound_ms": bound, "bound_by": by, "instance": instance, "tflops": tflops}
+
+    full_width = timed("full width", kh, g, s, d)
+    # zamba2-7b's shared attention at its longest served prefill: 32 heads of 112, groups 1
+    zw = FAMILY_MODELS["zamba2-7b"][0]
+    zamba2 = timed("zamba2-7b's longest served prefill", zw["n_kv_heads"], 1,
+                   max(served_lengths(np.random.default_rng(seed))), zw["head_dim"])
+    return {**full_width, "max_abs_err": max(worst.values()), "zamba2": zamba2}
 
 
 def profile_call(fn) -> tuple[float, float, list]:
@@ -1301,9 +1313,11 @@ def serve_family(dev, seed: int, arch: str) -> dict:
         kernel_s = sum(sites * a["ms"] for a in at) / 1e3
         out.update(k3_ms=sum(a["ms"] for a in at) / len(at), k3_sdpa_ms=sum(a["sdpa_ms"] for a in at) / len(at),
                    k3_err=max(a["err"] for a in at), k3_s=kernel_s)
+        bounds = [attention_bound(kh * g, kh, n, n, hd, 2, True) for n in lengths]
         say(f"[families] {arch}: K3 ({instance}, head dim {hd}) / scaled_dot_product_attention ms "
-            "at each served length: " + "; ".join(f"{n}: {a['ms']:.4f} / {a['sdpa_ms']:.4f}"
-                                                 for n, a in zip(lengths, at))
+            "(bound ms by) at each served length: "
+            + "; ".join(f"{n}: {a['ms']:.4f} / {a['sdpa_ms']:.4f} ({b:.5f} by {by})"
+                        for n, a, (b, by) in zip(lengths, at, bounds))
             + f"; max |kernel - plain| {out['k3_err']:.3g}; kernel time {kernel_s * 1e3:.3f} ms = "
             f"{100 * kernel_s / st['prefill_s']:.2f} % of the prefill time")
 
@@ -1628,6 +1642,8 @@ def main() -> int:
         "launches_by_path": k3_paths,
         **{k: attn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "instance",
                                 "tflops")},
+        "zamba2": {k: attn["zamba2"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", "instance")},
         "max_abs_err": max(attn["max_abs_err"], *(f[k] for f in families.values()
                                                   for k in ("k3_err", "k3_model_err") if k in f)),
     })

@@ -10,8 +10,8 @@
 // Layout: q (BH, Sq, D), k and v (BH / groups, Sk, D), o (BH, Sq, D), all
 // contiguous.  The wrapper picks the instance from (dtype, D) alone.
 //
-// 1. flash_attention_wgmma: bf16 at D in {64, 96, 128}, the head dims of the
-//    repo's models.  What bounds it: at the prefill shapes the work is 4*D
+// 1. flash_attention_wgmma: bf16 at D in {64, 96, 112, 128}, the head dims of
+//    the repo's models.  What bounds it: at the prefill shapes the work is 4*D
 //    operations per (query, key) pair against 2*D elements moved per row,
 //    so the tensor cores' bf16 rate (989 TFLOP/s), not the memory, is the
 //    limit; the softmax's exponentials on the CUDA cores take about half as
@@ -23,8 +23,8 @@
 //    - TMA through 3-D tensor maps over (D, S, heads) with the 128-byte
 //      swizzle: Q once, then K and V through a ring of three 128-key
 //      stages, each with a full barrier for K, one for V and an empty
-//      barrier.  A row past seq_k (or a column past D = 96) is out of the
-//      map's bounds and lands as zeros, so a padded key adds 0 * V and
+//      barrier.  A row past seq_k (or a column past D = 96 or 112) is out of
+//      the map's bounds and lands as zeros, so a padded key adds 0 * V and
 //      never a NaN;
 //    - S = Q.K^T on wgmma m64n128k16 from shared memory (K is (keys, D),
 //      K-major), online softmax in registers on the accumulator's layout
@@ -38,6 +38,8 @@
 //      float32; a TPU at JAX's default precision multiplies float32 in bf16
 //      passes too), and V from shared memory with the transpose bit set
 //      (V is (keys, D), MN-major).  D = 96 runs as 128 with zero columns;
+//      D = 112 runs P.V as m64n112k16, which reads V's first 64-column
+//      block and 48 columns of its second, and Q.K^T in 7 k-steps;
 //    - overlap: a warpgroup issues Q.K^T of block kb + 1 together with P.V
 //      of block kb and waits only for Q.K^T before its softmax, so P.V runs
 //      under the exponentials; and the two consumer warpgroups take turns
@@ -45,11 +47,11 @@
 //      softmax;
 //    - the output, divided by max(l, 1e-37) and rounded to bf16, goes
 //      through the warpgroup's own rows of the Q tile to 16-byte stores.
-//    At D = 96 and 128 it holds 224 KB of shared memory: Q 32 KB +
+//    At D = 96, 112 and 128 it holds 224 KB of shared memory: Q 32 KB +
 //    3 x (K 32 KB + V 32 KB).
 //
 // 2. flash_attention_fwd: float32 at every head dim, and bf16 at D in
-//    {16, 32, 112}.  The tensor cores would take float32 only as TF32, which
+//    {16, 32}.  The tensor cores would take float32 only as TF32, which
 //    misses float32's 2e-4 tolerance, so this instance computes in float32
 //    on the CUDA cores (67 TFLOP/s peak), and P.V from an unrounded P as the
 //    Pallas body does.  One block of 128 threads computes a tile of 64 query
@@ -293,7 +295,6 @@ cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v, vo
     switch (d) {
         FA_CASE(__nv_bfloat16, 16)
         FA_CASE(__nv_bfloat16, 32)
-        FA_CASE(__nv_bfloat16, 112)
         default:
             return cudaErrorInvalidValue;
     }
@@ -320,12 +321,15 @@ constexpr int BLOCK_BYTES = 128 * ROW_BYTES;  // one 64-column block of a 128-ro
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// DP: the head dim as the shared-memory tiles hold it (96 is held as 128)
+// DP: the head dim as the shared-memory tiles hold it (96 and 112 are held as 128)
 template <int D> struct Dims {
     static constexpr int DP = D <= 64 ? 64 : 128;
     static constexpr int NB = DP / 64;                  // 64-column blocks per tile
     static constexpr int TILE_BYTES = NB * BLOCK_BYTES;  // one 128-row tile
     static constexpr int KSTEPS = D / 16;                // k-steps of S = Q.K^T
+    // N of P.V, the output columns a warpgroup accumulates: 112 reads V's
+    // 112 columns (m64n112k16), 96 takes the zero columns of the 128-wide tile
+    static constexpr int PV_N = D == 112 ? 112 : DP;
 };
 
 struct Barriers {
@@ -366,7 +370,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
                       int sq, int sk, int groups, int causal, int q_offset, float scale_log2) {
     using Dm = Dims<D>;
-    constexpr int DP = Dm::DP, NB = Dm::NB, TILE = Dm::TILE_BYTES;
+    constexpr int NB = Dm::NB, TILE = Dm::TILE_BYTES, PV_N = Dm::PV_N;
     extern __shared__ uint8_t smem_raw[];
     // tiles on a 1024-byte boundary, as the 128-byte swizzle's atoms need
     const uint32_t pad = (1024 - (smem_addr(smem_raw) & 1023)) & 1023;
@@ -433,12 +437,12 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         const int col0 = 2 * (lane % 4);  // accumulator columns col0 + 8j + {0, 1}
 
         float acc_s[64];        // S: 128 keys
-        float acc_o[DP / 2];    // O: DP columns
+        float acc_o[PV_N / 2];  // O: PV_N columns
         uint32_t p_regs[8][4];  // P as bf16, the A operand of each k-step of P.V
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc_s[i] = 0.f;
 #pragma unroll
-        for (int i = 0; i < DP / 2; ++i) acc_o[i] = 0.f;
+        for (int i = 0; i < PV_N / 2; ++i) acc_o[i] = 0.f;
         float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows row0, row0 + 8
 
         const uint32_t q_base = smem_addr(sq_tile) + 64 * c * ROW_BYTES;
@@ -542,7 +546,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         // of keys [16kk, 16kk + 16) is the A operand of k-step kk of P.V
         auto rescale_and_pack = [&]() {
 #pragma unroll
-            for (int i = 0; i < DP / 2; ++i) acc_o[i] *= (i & 2) ? alpha1 : alpha0;
+            for (int i = 0; i < PV_N / 2; ++i) acc_o[i] *= (i & 2) ? alpha1 : alpha0;
 #pragma unroll
             for (int kk = 0; kk < 8; ++kk) {
 #pragma unroll
@@ -606,7 +610,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
         const float d0 = fmaxf(l0, 1e-37f), d1 = fmaxf(l1, 1e-37f);
 #pragma unroll
-        for (int j = 0; j < DP / 8; ++j) {
+        for (int j = 0; j < PV_N / 8; ++j) {
             const int col = 8 * j + col0;
             *reinterpret_cast<uint32_t*>(sq_tile + swizzled(row0, col)) =
                 pack_bf16(acc_o[4 * j] / d0, acc_o[4 * j + 1] / d0);
@@ -614,7 +618,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 pack_bf16(acc_o[4 * j + 2] / d1, acc_o[4 * j + 3] / d1);
         }
         named_barrier(1 + c, 128);
-        constexpr int CHUNKS = DP / 8;  // 16-byte chunks per row
+        constexpr int CHUNKS = PV_N / 8;  // 16-byte chunks per row
         __nv_bfloat16* op = o + (size_t)bh * sq * D;
 #pragma unroll 4
         for (int idx = t; idx < 64 * CHUNKS; idx += 128) {
@@ -658,7 +662,7 @@ extern "C" {
 
 // The CUDA-core instance.  dtype 0 = float32, 1 = bfloat16.  Returns a
 // cudaError_t: 0 on success, cudaErrorInvalidValue for a (dtype, head dim)
-// that this instance does not take (bf16 at 64, 96 and 128 is the wgmma
+// that this instance does not take (bf16 at 64, 96, 112 and 128 is the wgmma
 // instance's).
 int flash_attention_fwd_launch(int dtype, int d, const void* q, const void* k, const void* v,
                                void* o, int bh, int sq, int sk, int groups, int causal,
@@ -673,7 +677,7 @@ int flash_attention_fwd_launch(int dtype, int d, const void* q, const void* k, c
     return cudaErrorInvalidValue;
 }
 
-// The bf16 wgmma instance, D in {64, 96, 128}; q, k and v 16-byte aligned.
+// The bf16 wgmma instance, D in {64, 96, 112, 128}; q, k and v 16-byte aligned.
 // Returns 0, a cudaError_t, or hopper::ENCODE_ERROR_BASE + the CUresult of a
 // tensor-map encode that failed.
 int flash_attention_wgmma_launch(int d, const void* q, const void* k, const void* v, void* o,
@@ -690,6 +694,10 @@ int flash_attention_wgmma_launch(int d, const void* q, const void* k, const void
         case 96:
             err = wg::launch<96>(q, k, v, o, bh, sq, sk, groups, causal, q_offset, sm_scale, s,
                                  &encode_err);
+            break;
+        case 112:
+            err = wg::launch<112>(q, k, v, o, bh, sq, sk, groups, causal, q_offset, sm_scale, s,
+                                  &encode_err);
             break;
         case 128:
             err = wg::launch<128>(q, k, v, o, bh, sq, sk, groups, causal, q_offset, sm_scale, s,

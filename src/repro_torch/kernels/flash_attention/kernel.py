@@ -3,8 +3,9 @@
 The CUDA source replaces the Pallas TPU kernel ``flash_attention_kernel`` of
 ``repro.kernels.flash_attention.kernel`` with two instances, picked from the
 dtype and head dim alone (:func:`instance_for`): ``"wgmma"``, bf16 on the
-tensor cores fed by TMA, at the head dims of the repo's models, and
-``"cuda_cores"``, float32 arithmetic on the CUDA cores, for everything else.
+tensor cores fed by TMA, at the head dims of the repo's models (64, 96, 112
+and 128), and ``"cuda_cores"``, float32 arithmetic on the CUDA cores, for
+everything else (float32 at every head dim, bf16 at 16 and 32).
 The source's header says what bounds each on the card and what its design
 does about it.  The source and ``kernels/csrc/hopper.cuh`` are built and
 loaded by :mod:`repro_torch.kernels._build` at the first launch; nothing
@@ -27,7 +28,7 @@ __all__ = ["HEAD_DIMS", "INSTANCES", "LIBRARY", "WGMMA_HEAD_DIMS", "flash_attent
 #: head dims the source instantiates
 HEAD_DIMS = (16, 32, 64, 96, 112, 128)
 #: head dims of the bf16 wgmma instance
-WGMMA_HEAD_DIMS = (64, 96, 128)
+WGMMA_HEAD_DIMS = (64, 96, 112, 128)
 INSTANCES = ("wgmma", "cuda_cores")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -284,14 +284,16 @@ def test_serving_on_the_card_launches_the_kernel_per_layer_and_matches_the_cpu(c
 
 
 # the shapes chip_smoke.py's phase 8 serves that phases 4-5 do not: zamba2's
-# head dim 112 on the cuda_cores instance at its longest prompt, whisper's
-# encoder (bidirectional, 1500 frames) and cross attention (bidirectional,
-# Sq != Sk), 24 batch-heads
+# head dim 112 at 32 heads, groups 1, at its longest and shortest prompts,
+# whisper's encoder (bidirectional, 1500 frames) and cross attention
+# (bidirectional, Sq != Sk), 24 batch-heads; all on the wgmma instance
 @pytest.mark.parametrize("bk,groups,sq,sk,d,causal", [(32, 1, 1291, 1291, 112, True),
+                                                       (32, 1, 123, 123, 112, True),
                                                        (24, 1, 1500, 1500, 64, False),
                                                        (24, 1, 391, 1500, 64, False),
                                                        (24, 1, 309, 1500, 64, False)])
 def test_flash_kernel_at_the_families_served_shapes(cuda, bk, groups, sq, sk, d, causal):
+    assert fk.instance_for(torch.bfloat16, d) == "wgmma"
     q, k, v = attn_inputs(cuda, sq + sk, bk, groups, sq, sk, d, torch.bfloat16)
     out = fk.flash_attention_call(q, k, v, groups=groups, causal=causal)
     ref = flash_attention_ref(q, k, v, groups=groups, causal=causal)

@@ -9,6 +9,7 @@ checked here too; the kernel itself runs in ``tests/test_torch_cuda.py``.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -33,6 +34,14 @@ SHAPES = [  # b, sq, sk, kh, g, d (tests/test_kernels.py:28-34)
     (2, 256, 256, 2, 3, 64),
     (1, 128, 384, 2, 2, 128),
     (2, 64, 64, 4, 1, 32),
+]
+# zamba2-7b's shared attention, which the wgmma instance takes in bf16: head
+# dim 112, groups 1, whole blocks of 64 and 128 rows (the interpreted kernel
+# gives NaN past a ragged key tail, pinned below)
+D112_SHAPES = [  # b, sq, sk, kh, g, d
+    (1, 64, 64, 2, 1, 112),
+    (2, 128, 128, 1, 1, 112),
+    (1, 128, 256, 2, 1, 112),
 ]
 
 
@@ -73,7 +82,7 @@ def test_plain_matches_reference_oracle(b, sq, sk, kh, g, d, causal, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,sq,sk,kh,g,d", SHAPES)
+@pytest.mark.parametrize("b,sq,sk,kh,g,d", SHAPES + D112_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_matches_pallas_kernel_interpreted(b, sq, sk, kh, g, d, causal, dtype):
     (jq, jk, jv), (q, k, v) = inputs(1, b, sq, sk, kh, g, d, dtype)
@@ -140,7 +149,7 @@ def flat(q, k, v):
             k.permute(0, 2, 1, 3).reshape(b * kh, sk, d), v.permute(0, 2, 1, 3).reshape(b * kh, sk, d))
 
 
-@pytest.mark.parametrize("b,sq,sk,kh,g,d", SHAPES)
+@pytest.mark.parametrize("b,sq,sk,kh,g,d", SHAPES + D112_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_round_p_plain_matches_pallas_kernel_interpreted(b, sq, sk, kh, g, d, causal):
     """The plain version with P rounded to bf16, as the wgmma instance rounds
@@ -173,8 +182,35 @@ def test_round_p_rounds_only_p_before_p_v():
 def test_instance_is_chosen_from_dtype_and_head_dim_alone():
     for d in fk.HEAD_DIMS:
         assert fk.instance_for(torch.float32, d) == "cuda_cores"
-        assert fk.instance_for(torch.bfloat16, d) == ("wgmma" if d in (64, 96, 128) else "cuda_cores")
-    assert fk.WGMMA_HEAD_DIMS == (64, 96, 128) and set(fk.INSTANCES) == set(INSTANCE_LAUNCHES)
+        assert fk.instance_for(torch.bfloat16, d) == ("wgmma" if d in (64, 96, 112, 128)
+                                                      else "cuda_cores")
+    assert fk.WGMMA_HEAD_DIMS == (64, 96, 112, 128) and set(fk.INSTANCES) == set(INSTANCE_LAUNCHES)
+
+
+def _c_function(source: str, signature: str) -> str:
+    """The body of the C function of the source that starts with ``signature``."""
+    start = source.index(signature)
+    body = source[source.index("{", start):]
+    depth = 0
+    for i, ch in enumerate(body):
+        depth += {"{": 1, "}": -1}.get(ch, 0)
+        if depth == 0:
+            return body[:i + 1]
+    raise AssertionError(f"no end to {signature}")
+
+
+def test_c_entry_points_take_the_head_dims_the_routing_sends_them():
+    # the Python routing (instance_for) and the C switch statements cannot
+    # drift apart: the wgmma entry point takes WGMMA_HEAD_DIMS, the CUDA-core
+    # one bf16 at the other head dims and float32 at every one
+    source = fk.LIBRARY.source.read_text()
+    wgmma = _c_function(source, "int flash_attention_wgmma_launch(")
+    assert tuple(int(d) for d in re.findall(r"case (\d+):", wgmma)) == fk.WGMMA_HEAD_DIMS
+    bf16 = _c_function(source, "cudaError_t dispatch_bf16(")
+    f32_ = _c_function(source, "cudaError_t dispatch_f32(")
+    assert tuple(int(d) for d in re.findall(r"FA_CASE\(__nv_bfloat16, (\d+)\)", bf16)) == tuple(
+        d for d in fk.HEAD_DIMS if d not in fk.WGMMA_HEAD_DIMS)
+    assert tuple(int(d) for d in re.findall(r"FA_CASE\(float, (\d+)\)", f32_)) == fk.HEAD_DIMS
 
 
 def test_cpu_tensors_take_the_plain_version_uncounted():
