@@ -95,7 +95,23 @@ Phases, each fatal on failure:
    token.  Each model prints its token rates, ms per decode step, peak card
    memory, one profiled decode step, and the kernel's time at its served
    shapes beside scaled_dot_product_attention's and the bound, each launch
-   held against the plain version.
+   held against the plain version;
+9. distributed: a one-rank NCCL process group and a (1, 1) cuda device mesh
+   ("data", "model").  Phase 6's last checkpoint of mamba2-370m (bf16
+   parameters and float32 optimizer state) is restored onto it through
+   CheckpointManager.restore(shardings=), the parameters' shardings from
+   make_rules and logical_axes, the optimizer state's from zero_shard_tree
+   over "data": every leaf must be a DTensor on the mesh, equal to the
+   saved state by its float64 checksum.  The held-out batch of phase 6 is
+   scored through the SSD-scan kernel from the restored parameters: every
+   launch on the split instance, the loss within 1e-6 of phase 6's.
+   make_rules is printed for mamba2-370m, qwen2.5-3b and zamba2-7b on
+   stand-in (16, 16) and (2, 16, 16) meshes (names and sizes only).  Then
+   benchmarks/run_torch.py runs once in a subprocess on the card: every line
+   name of benchmarks/run.py in order, a kernel line after each plain
+   kernel line (the instance that float32 selects, its launch count, its
+   difference from the plain line, which run_torch.py holds within 2e-4 +
+   2e-4 relative, K1 exact), and no jax, jaxlib or repro module imported.
 
 The line before the last is one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -184,6 +200,22 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CKPT_EVERY, FAIL_AT = 8, 2048, 6, 3, 4
 # the kernel, and 1.04e-3 and 1.83e-3 for the faulty scans of faulty_scans():
 # the limit lies between, about 4x from each.
 SCORE_TOL = 3e-4
+# phase 9 scores the restored weights through the same kernel on the same
+# batch as phase 6: the same bits in, the same loss out
+RESTORED_SCORE_TOL = 1e-6
+# phase 9: the stand-in meshes make_rules is printed for, and the models
+DIST_MESHES = {(16, 16): ("data", "model"), (2, 16, 16): ("pod", "data", "model")}
+DIST_RULES_MODELS = ("mamba2-370m", "qwen2.5-3b", "zamba2-7b")
+# the line names benchmarks/run.py prints, in order, when artifacts/dryrun is
+# absent; its twin must print each, and after each plain kernel line the
+# hand-written kernel's line at the same shape, with the instance expected
+RUN_LINES = ("fig3_parameter_optimisation(sim)", "fig4_short_scaling(sim)",
+             "fig5_profiling(real-daos)", "fig6_long_scaling(sim)", "listing_comparison(real)",
+             "fdb_hammer(real-backends)", "churn_interference(real-backends)", "attention_ref_1k",
+             "ssd_chunked_512", "grib_pack_8x256x512", "ckpt_async_overlap(real)", "roofline_table")
+RUN_KERNEL_LINES = {"attention_ref_1k": ("flash_attention_1k", "flash_attention", "cuda_cores"),
+                    "ssd_chunked_512": ("ssd_scan_512", "ssd_scan", "fwd"),
+                    "grib_pack_8x256x512": ("grib_pack_kernel_8x256x512", "grib_pack", "grib_pack")}
 # first-token logits through the kernel against attn_impl="naive", both bf16:
 # the naive path rounds scores, softmax weights and P.V to bf16, where the
 # kernel's wgmma instance keeps the scores, m and l in float32 and rounds only
@@ -969,8 +1001,11 @@ def train_phase(dev, seed: int) -> dict:
     assert len(layer_err) == cfg.n_layers, len(layer_err)
     assert abs(lk - ln) <= SCORE_TOL, (lk, ln)
     assert all(abs(v - ln) > SCORE_TOL for v in faults.values()), faults
+    restore_s = [rec["restore_s"] for rec in trainer.ckpt.timings if rec["op"] == "restore"]
     return {"launches": launches, "step_s": step_med, "losses": losses, "peak": peak,
-            "layer_err": max(layer_err)}
+            "layer_err": max(layer_err), "cfg": cfg, "fdb": fdb, "run": "mamba2-370m",
+            "saved": saved[TRAIN_STEPS], "batch": batch, "kernel_loss": lk,
+            "restore_s": restore_s[0]}
 
 
 def verify_hammer(fh, fdb, spec, dev) -> dict:
@@ -1437,6 +1472,118 @@ def families_phase(dev, seed: int) -> dict:
     return out
 
 
+def distributed_phase(dev, train: dict) -> dict:
+    """Phase 9: phase 6's last checkpoint restored onto a (1, 1) cuda device
+    mesh as DTensors and scored through the kernel; make_rules on stand-in
+    pod meshes; benchmarks/run_torch.py on the card."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (AbstractMesh, PartitionSpec, logical_to_spec, make_rules,
+                                         named_shardings, zero_shard_tree)
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.models import abstract_params, logical_axes, train_loss
+    from repro_torch.training.optimizer import OptState
+    from repro_torch.tree import leaf_groups, tree_map
+
+    t0 = time.perf_counter()
+    cfg = train["cfg"]
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        rules = make_rules(cfg, mesh)
+        abstract = abstract_params(cfg).tree()
+        pspecs = logical_to_spec(logical_axes(cfg), rules)
+        zspecs = zero_shard_tree(pspecs, abstract, mesh, axis="data")
+        shardings = named_shardings({"params": pspecs,
+                                     "opt": OptState(zspecs, zspecs, zspecs, PartitionSpec())}, mesh)
+        template = {"params": abstract, "opt": OptState(abstract, abstract, abstract, None)}
+        mgr = CheckpointManager(train["fdb"], train["run"], async_mode=False)
+        step, state = mgr.restore(template, shardings=shardings)
+        torch.cuda.synchronize()
+        restore_s = mgr.timings[-1]["restore_s"]
+        mgr.close()
+        groups = leaf_groups(state)
+        leaves = [t for _, group, _ in groups for t in group]
+        wrong = [name for name, group, _ in groups
+                 if not all(isinstance(t, DTensor) and t.device_mesh == mesh for t in group)]
+        assert not wrong, f"not DTensors on the mesh: {wrong[:5]}"
+        sums = checksums(tree_map(lambda t: t.full_tensor(), state))
+        assert sums == train["saved"], "restored state != the state phase 6 saved"
+        say(f"[dist] restored step {step} of phase 6 ({cfg.name}, {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}) onto mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}: {len(groups)} "
+            f"checkpoint leaves, {len(leaves)} DTensors (layer lists split), placements "
+            f"{sorted({str(t.placements) for t in leaves})}, every float64 checksum equal to the "
+            f"saved state's; restore {restore_s:.3f} s (phase 6's restore onto one card "
+            f"{train['restore_s']:.3f} s)")
+
+        params = abstract_params(cfg).to_empty(device=dev)
+        params.copy_from(tree_map(lambda t: t.to_local(), state["params"]))
+        del state, leaves
+        kernel_cfg = dataclasses.replace(cfg, attn_impl="pallas")
+        with torch.no_grad():
+            sops.reset_kernel_launches()
+            loss = float(train_loss(params, kernel_cfg, train["batch"])[0])
+            launches = sops.KERNEL_LAUNCHES["ssd_scan"]
+            by_instance = dict(sops.INSTANCE_LAUNCHES)
+        say(f"[dist] held-out batch scored from the restored parameters (to_local): loss {loss:.6f}, "
+            f"phase 6's through the kernel {train['kernel_loss']:.6f}, |diff| "
+            f"{abs(loss - train['kernel_loss']):.3g} (tolerance {RESTORED_SCORE_TOL}); ssd_scan "
+            f"launches {launches}, by instance {by_instance}")
+        assert by_instance == {"split": cfg.n_layers, "fwd": 0}, by_instance
+        assert launches == cfg.n_layers, launches
+        assert abs(loss - train["kernel_loss"]) <= RESTORED_SCORE_TOL, (loss, train["kernel_loss"])
+        del params
+        torch.cuda.empty_cache()
+
+        for arch in DIST_RULES_MODELS:
+            mcfg = get_config(arch)
+            for shape, names in DIST_MESHES.items():
+                stand_in = AbstractMesh(shape, names)
+                r = make_rules(mcfg, stand_in, batch_axes=tuple(a for a in ("pod", "data") if a in names))
+                sharded = {k: v for k, v in sorted(r.rules.items()) if v is not None}
+                say(f"[dist] make_rules {arch} on a stand-in {shape} {names} mesh: {sharded}")
+    finally:
+        dist.destroy_process_group()
+
+    t1 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-X", "importtime", "benchmarks/run_torch.py"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    harness_s = time.perf_counter() - t1
+    assert out.returncode == 0, out.stderr[-4000:]
+    imported = {line.rsplit("|", 1)[1].strip() for line in out.stderr.splitlines()
+                if line.startswith("import time:") and "|" in line}
+    loaded = sorted(m for m in imported if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not loaded, f"benchmarks/run_torch.py loaded {loaded}"
+    rows = [line.split(",", 2) for line in out.stdout.splitlines()[1:] if line.count(",") >= 2]
+    names = [r[0] for r in rows]
+    expected = [n for line in RUN_LINES for n in (line, *RUN_KERNEL_LINES.get(line, ())[:1])]
+    assert names == expected, (names, expected)
+    say(f"[dist] benchmarks/run_torch.py on the card in {harness_s:.2f} s, {len(imported)} modules "
+        f"imported, none of jax, jaxlib or repro:\n" + "\n".join(",".join(r) for r in rows))
+    by_name = {r[0]: r for r in rows}
+    harness = {}
+    for plain_name, (name, kname, instance) in RUN_KERNEL_LINES.items():
+        derived = dict(kv.split("=", 1) for kv in by_name[name][2].split() if "=" in kv)
+        assert derived["instance"] == instance, (name, derived)
+        harness[kname] = {"launches": int(derived["launches"]),
+                          "max_abs_err": float(derived["max_abs_err"]),
+                          "us": float(by_name[name][1]), "plain_us": float(by_name[plain_name][1])}
+    # run_torch.py held each kernel line against its plain line's output at
+    # tests/test_kernels.py's float32 tolerance (K1 exact) before printing it
+    assert harness["grib_pack"]["max_abs_err"] == 0.0, harness
+    seconds = time.perf_counter() - t0
+    say(f"[dist] phase 9 in {seconds:.2f} s (restore {restore_s:.2f} s, run_torch.py {harness_s:.2f} s)")
+    return {"launches": launches, "restore_s": restore_s, "loss": loss, "harness": harness,
+            "seconds": seconds}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1602,6 +1749,11 @@ def main() -> int:
 
     # ------------------------------------------------------------ 8. families
     families = families_phase(dev, args.seed)
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- 9. distributed
+    dist9 = distributed_phase(dev, train)
+    del train["fdb"]  # phase 6's checkpoints, held in host memory until now
 
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -1612,6 +1764,8 @@ def main() -> int:
         t = timing[16][kname]
         by_path = {"path": launches[kname],
                    **{f"hammer_{io}": m["launches"][kname] for io, m in hammer["modes"].items()}}
+        if kname == "grib_pack":
+            by_path["run_torch.py"] = dist9["harness"]["grib_pack"]["launches"]
         assert all(by_path.values()), by_path
         nbytes = 8 * ns + 8 * PER_MEMBER
         ops = (5 if kname == "grib_pack" else 3) * ns
@@ -1631,29 +1785,38 @@ def main() -> int:
         })
     # every path that runs K3: phase 5's, then phase 8's models with attention
     k3_paths = {"serve qwen2.5-3b": serve["launches"],
-                **{arch: f["launches"] for arch, f in families.items() if "k3_err" in f}}
+                **{arch: f["launches"] for arch, f in families.items() if "k3_err" in f},
+                "run_torch.py": dist9["harness"]["flash_attention"]["launches"]}
     assert all(k3_paths.values()), k3_paths
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
-        "launches": serve["launches"] + sum(f["launches"] for f in families.values()),
+        "launches": sum(k3_paths.values()),
         "launches_by_path": k3_paths,
         **{k: attn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "instance",
                                 "tflops")},
         "zamba2": {k: attn["zamba2"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                   "library_ms", "instance")},
-        "max_abs_err": max(attn["max_abs_err"], *(f[k] for f in families.values()
-                                                  for k in ("k3_err", "k3_model_err") if k in f)),
+        "max_abs_err": max(attn["max_abs_err"], dist9["harness"]["flash_attention"]["max_abs_err"],
+                           *(f[k] for f in families.values()
+                             for k in ("k3_err", "k3_model_err") if k in f)),
     })
+    # every path that runs K4: phase 6's scoring, phase 9's from the restored
+    # state, and run_torch.py's ssd_scan_512
+    k4_paths = {"score (phase 6)": train["launches"], "score restored (phase 9)": dist9["launches"],
+                "run_torch.py": dist9["harness"]["ssd_scan"]["launches"]}
+    assert all(k4_paths.values()), k4_paths
     kernels.append({
         "name": "ssd_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:30",
-        "launches": train["launches"],
-        "max_abs_err": max(ssd["max_abs_err"], train["layer_err"]),
+        "launches": sum(k4_paths.values()),
+        "launches_by_path": k4_paths,
+        "max_abs_err": max(ssd["max_abs_err"], train["layer_err"],
+                           dist9["harness"]["ssd_scan"]["max_abs_err"]),
         **{k: ssd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "instance",
                                "launch_ms", "chunked_ms")},
     })

@@ -29,9 +29,18 @@ The port of ``repro.checkpoint.manager``: the same keys, fields and commit
 order, so either package restores the other's checkpoints.  State is a tree
 of tensors (:mod:`repro_torch.tree`); ``save`` copies it to host memory
 before it returns, so the step loop may update the tensors in place.
-``restore`` takes ``device=`` where the reference takes ``shardings=``, which
-has no meaning on one card.  :attr:`CheckpointManager.timings` records each
-save's and restore's bytes and seconds.
+``restore`` takes ``device=`` for plain tensors, or ``shardings=`` as the
+reference does: a tree of :class:`~repro_torch.distributed.NamedSharding`
+shaped like the template, onto whose meshes each leaf is distributed as a
+``DTensor``.  :attr:`CheckpointManager.timings` records each save's and
+restore's bytes and seconds.
+
+Sharded state: a state holding ``DTensor`` leaves is gathered leaf by leaf
+on the caller's thread (``full_tensor()``, a collective, so every rank of
+the default process group calls ``save``, and later ``wait`` or ``close``).
+Rank 0 alone writes, through its writer thread as before, and the writer
+issues no collective: the other ranks meet rank 0 at a barrier once its
+write is durable, at the end of a blocking save or in ``wait``.
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ import torch
 
 from ..core import AsyncFDB, FDBClient, Key, Request, WipeReport
 from ..tree import tree_map
-from .serialization import decode_array, encode_array, flatten_tree, unflatten_tree
+from .serialization import decode_array, encode_array, flatten_tree, holds_dtensor, unflatten_tree
 
 __all__ = ["CheckpointManager"]
 
@@ -86,6 +95,8 @@ class CheckpointManager:
         self._q: queue.Queue = queue.Queue(maxsize=2)
         self._errors: list[Exception] = []
         self._thread: threading.Thread | None = None
+        # a sharded save made since the last barrier: the ranks owe one
+        self._owe_barrier = False
         #: one dict per save ({"op": "save", "step", "bytes", "snapshot_s",
         #: "write_s"}, appended once the step is published) and per restore
         #: ({"op": "restore", "step", "bytes", "restore_s"})
@@ -105,24 +116,42 @@ class CheckpointManager:
     def save(self, step: int, state: Any, *, blocking: bool | None = None) -> None:
         if self._errors:
             raise self._errors.pop(0)
-        # snapshot to host first (the step loop updates the tensors in place)
+        # snapshot to host first (the step loop updates the tensors in place);
+        # DTensor leaves are gathered here, on the caller's thread
         t0 = time.perf_counter()
+        sharded = holds_dtensor(state)
         host, manifest = flatten_tree(state)
         snapshot_s = time.perf_counter() - t0
+        writes = not sharded or torch.distributed.get_rank() == 0
+        self._owe_barrier = self._owe_barrier or sharded
         if self.async_mode and not blocking:
+            if not writes:
+                return
             if self._thread is None:  # restart after close(): manager is reusable
                 self._thread = threading.Thread(target=self._writer_loop, name="ckpt-writer", daemon=True)
                 self._thread.start()
             self._q.put((step, host, manifest, snapshot_s))
-        else:
-            self._write(step, host, manifest, snapshot_s)
+            return
+        try:
+            if writes:
+                self._write(step, host, manifest, snapshot_s)
+        finally:
+            self._barrier()
 
     def wait(self) -> None:
         """Block until all queued checkpoints are durable."""
         if self.async_mode:
             self._q.join()
+        self._barrier()
         if self._errors:
             raise self._errors.pop(0)
+
+    def _barrier(self) -> None:
+        """After a sharded save, every rank meets rank 0 once its write is
+        durable (on the callers' threads, never the writer's)."""
+        if self._owe_barrier:
+            self._owe_barrier = False
+            torch.distributed.barrier()
 
     def _writer_loop(self) -> None:
         while True:
@@ -192,17 +221,24 @@ class CheckpointManager:
             steps.add(int(e.key["step"]))
         return sorted(steps)
 
-    def restore(self, template: Any, step: int | None = None, *, device=None) -> tuple[int, Any]:
-        """Rebuild `template`-shaped state, on `device` if given (else host
-        tensors).
+    def restore(self, template: Any, step: int | None = None, *, device=None,
+                shardings=None) -> tuple[int, Any]:
+        """Rebuild `template`-shaped state, on `device` if given, or
+        distributed onto `shardings` (a tree of NamedSharding shaped like
+        the template: layer lists, not the stored layer-stacked leaves),
+        else as host tensors.
 
         Elastic restore: the stored fields carry no sharding or device, and
-        layer-stacked leaves split into the template's layer lists.
+        layer-stacked leaves split into the template's layer lists.  With
+        `shardings`, every rank reads the step and keeps its own shard of
+        each leaf (``distribute_tensor`` with no source rank: no collective).
 
         The whole step slice (manifest + every shard) comes back as ONE
         partial-request retrieval — catalogue-resolved, batched — instead of
         a read round-trip per leaf.
         """
+        if device is not None and shardings is not None:
+            raise ValueError("restore takes device= or shardings=, not both")
         t0 = time.perf_counter()
         steps = self.available_steps()
         if not steps:
@@ -225,6 +261,12 @@ class CheckpointManager:
         state = unflatten_tree(template, leaves)
         if device is not None:
             state = tree_map(lambda x: x.to(device), state)
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            state = tree_map(lambda x, s: distribute_tensor(x, s.mesh, s.placements(x.ndim),
+                                                            src_data_rank=None),
+                             state, shardings)
         self.timings.append({"op": "restore", "step": step,
                              "bytes": sum(len(blobs[name]) for name in manifest["leaves"]),
                              "restore_s": time.perf_counter() - t0})

@@ -8,7 +8,9 @@ writes and reads through ``ml_dtypes``; the port reads them through an
 int16 view and needs no ``ml_dtypes``.  Leaves are named as the reference
 names them (:mod:`repro_torch.tree`), and a layer list is written as one
 layer-stacked (L, ...) leaf, so a checkpoint written by either package
-restores in the other.
+restores in the other.  A ``DTensor`` leaf is written as its full value,
+gathered with ``full_tensor()``: a collective, so every rank of its mesh
+flattens the tree.
 """
 
 from __future__ import annotations
@@ -21,14 +23,29 @@ import torch
 
 from ..tree import is_layer_list, is_namedtuple, leaf_groups, leaf_name
 
-__all__ = ["encode_array", "decode_array", "flatten_tree", "unflatten_tree"]
+__all__ = ["encode_array", "decode_array", "flatten_tree", "holds_dtensor", "unflatten_tree"]
 
 _MAGIC = b"RPR1"
 
 
+def _is_dtensor(x) -> bool:
+    if not isinstance(x, torch.Tensor) or not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def holds_dtensor(tree) -> bool:
+    """Whether any leaf of ``tree`` is a ``DTensor``."""
+    return any(_is_dtensor(t) for _, group, _ in leaf_groups(tree) for t in group)
+
+
 def _as_tensor(x) -> torch.Tensor:
-    """A CPU tensor holding ``x`` (tensor, numpy array or scalar), sharing memory
-    with it where it can."""
+    """A CPU tensor holding ``x`` (tensor, DTensor, numpy array or scalar),
+    sharing memory with it where it can; a DTensor is gathered first."""
+    if _is_dtensor(x):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return x.detach().cpu()
     arr = np.asarray(x)
@@ -81,7 +98,8 @@ def flatten_tree(tree) -> tuple[dict[str, torch.Tensor], dict]:
 
     The copies are snapshots: later in-place updates of the tree (the
     optimizer's) do not reach them.  A layer list's per-layer tensors are
-    copied into one (L, ...) host tensor per name."""
+    copied into one (L, ...) host tensor per name; a DTensor leaf is
+    gathered to its full value."""
     leaves: dict[str, torch.Tensor] = {}
     for name, group, stacked in leaf_groups(tree):
         if name in leaves:
@@ -92,7 +110,7 @@ def flatten_tree(tree) -> tuple[dict[str, torch.Tensor], dict]:
             for i, t in enumerate(group):
                 out[i].copy_(_as_tensor(t))
             leaves[name] = out
-        elif isinstance(group[0], torch.Tensor):
+        elif isinstance(group[0], torch.Tensor) and not _is_dtensor(group[0]):
             leaves[name] = group[0].detach().to("cpu", copy=True)
         else:
             leaves[name] = _as_tensor(group[0]).clone()

@@ -357,6 +357,8 @@ cudaError_t dispatch(int p, const void* x, const void* dt, const void* a, const 
             return launch<T, 8>(x, dt, a, b, c, d, y, bh, s, n, q, heads, stream);
         case 16:
             return launch<T, 16>(x, dt, a, b, c, d, y, bh, s, n, q, heads, stream);
+        case 32:
+            return launch<T, 32>(x, dt, a, b, c, d, y, bh, s, n, q, heads, stream);
         case 64:
             return launch<T, 64>(x, dt, a, b, c, d, y, bh, s, n, q, heads, stream);
         default:

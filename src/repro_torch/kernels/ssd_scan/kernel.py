@@ -24,8 +24,8 @@ __all__ = ["HEAD_DIMS", "INSTANCES", "LIBRARY", "MAX_CHUNK", "SPLIT_HEAD_DIM", "
            "STATE_DIMS", "SplitScan", "instance_for", "ssd_scan_call"]
 
 #: head dims (P) the source instantiates: tests/test_kernels.py's 8, 16 and
-#: 64, which is also mamba2-370m's and zamba2-7b's
-HEAD_DIMS = (8, 16, 64)
+#: 64, which is also mamba2-370m's and zamba2-7b's, and benchmarks/run.py's 32
+HEAD_DIMS = (8, 16, 32, 64)
 #: state sizes (N) it takes: the test shapes' 4, 8 and 16 (16 is the reduced
 #: configs'), zamba2-7b's 64 and mamba2-370m's 128
 STATE_DIMS = (4, 8, 16, 64, 128)

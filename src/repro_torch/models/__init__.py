@@ -1,4 +1,4 @@
-from .init import ModelParams, ParamDict, params_from_numpy
+from .init import ModelParams, ParamDict, abstract_params, logical_axes, params_from_numpy
 from .model import (
     AUX_COEF,
     CACHE_BATCH_AXIS,
@@ -19,6 +19,7 @@ __all__ = [
     "CACHE_BATCH_AXIS",
     "ModelParams",
     "ParamDict",
+    "abstract_params",
     "decode_step",
     "embed_inputs",
     "encode",
@@ -27,6 +28,7 @@ __all__ = [
     "init_params",
     "init_ssm_state",
     "lm_logits",
+    "logical_axes",
     "params_from_numpy",
     "prefill",
     "train_loss",

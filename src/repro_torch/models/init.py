@@ -12,6 +12,9 @@ reproduce JAX's random numbers); :func:`params_from_numpy` carries a
 reference pytree across, given as numpy arrays.  ``A_log`` and ``D_skip`` of
 the ssm and hybrid families stay float32 in a bf16 model, as in the
 reference.
+:func:`logical_axes` names every parameter's axes for
+:mod:`repro_torch.distributed.sharding`, and :func:`abstract_params` makes the
+parameters on the meta device, shapes and dtypes without storage.
 
 Parameters are made with ``requires_grad=False``, which is what serving and
 scoring want; a trainer switches them on with ``params.requires_grad_(True)``.
@@ -29,7 +32,8 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 
-__all__ = ["ParamDict", "ModelParams", "init_params", "params_from_numpy", "torch_dtype"]
+__all__ = ["ParamDict", "ModelParams", "abstract_params", "init_params", "logical_axes",
+           "params_from_numpy", "torch_dtype"]
 
 #: leaves kept in float32 whatever the model dtype (``repro/models/init.py:201-206``)
 FLOAT32_LEAVES = ("A_log", "D_skip")
@@ -217,6 +221,78 @@ def _cross_shapes(cfg: ModelConfig) -> dict[str, tuple]:
     }
 
 
+_ATTN_AXES = {
+    "attn_norm": ("d_model",),
+    "wq": ("d_model", "heads", "head_dim"),
+    "wk": ("d_model", "kv_heads", "head_dim"),
+    "wv": ("d_model", "kv_heads", "head_dim"),
+    "wo": ("heads", "head_dim", "d_model"),
+    "bq": ("heads", "head_dim"),
+    "bk": ("kv_heads", "head_dim"),
+    "bv": ("kv_heads", "head_dim"),
+}
+
+_FFN_AXES = {
+    "ffn_norm": ("d_model",),
+    "w_gate": ("d_model", "d_ff"),
+    "w_up": ("d_model", "d_ff"),
+    "w_down": ("d_ff", "d_model"),
+}
+
+_MOE_AXES = {
+    "ffn_norm": ("d_model",),
+    "router": ("d_model", "experts"),
+    "w_gate": ("experts", "d_model", "d_expert"),
+    "w_up": ("experts", "d_model", "d_expert"),
+    "w_down": ("experts", "d_expert", "d_model"),
+}
+
+_SSM_AXES = {
+    "norm_in": ("d_model",),
+    "w_z": ("d_model", "ssm_inner"),
+    "w_x": ("d_model", "ssm_inner"),
+    "w_B": ("d_model", "ssm_state"),
+    "w_C": ("d_model", "ssm_state"),
+    "w_dt": ("d_model", "ssm_heads"),
+    "dt_bias": ("ssm_heads",),
+    "conv_x": ("conv_width", "ssm_inner"),
+    "conv_x_b": ("ssm_inner",),
+    "conv_B": ("conv_width", "ssm_state"),
+    "conv_B_b": ("ssm_state",),
+    "conv_C": ("conv_width", "ssm_state"),
+    "conv_C_b": ("ssm_state",),
+    "A_log": ("ssm_heads",),
+    "D_skip": ("ssm_heads",),
+    "norm": ("ssm_inner",),
+    "out_proj": ("ssm_inner", "d_model"),
+}
+
+_CROSS_AXES = {
+    "xattn_norm": ("d_model",),
+    "xwq": ("d_model", "heads", "head_dim"),
+    "xwk": ("d_model", "kv_heads", "head_dim"),
+    "xwv": ("d_model", "kv_heads", "head_dim"),
+    "xwo": ("heads", "head_dim", "d_model"),
+}
+
+
+def _attn_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    axes = dict(_ATTN_AXES)
+    if not cfg.qkv_bias:
+        for b in ("bq", "bk", "bv"):
+            axes.pop(b)
+    return axes
+
+
+def _block_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    """One layer's logical axes (``repro/models/init.py::_block_axes``)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return dict(_SSM_AXES)
+    if cfg.family == "moe":
+        return {**_attn_axes(cfg), **_MOE_AXES}
+    return {**_attn_axes(cfg), **_FFN_AXES}
+
+
 def _has_shared(cfg: ModelConfig) -> bool:
     return cfg.family == "hybrid" and bool(cfg.hybrid_attn_every)
 
@@ -287,6 +363,52 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) ->
                      enc_final_norm=torch.ones((cfg.d_model,), dtype=dtype, device=dev))
     return ModelParams(embed, stacks["blocks"], torch.ones((cfg.d_model,), dtype=dtype, device=dev),
                        lm_head, **extra)
+
+
+def logical_axes(cfg: ModelConfig) -> dict:
+    """A tuple of logical axis names per parameter, in the tree layout of
+    :meth:`ModelParams.tree`: ``blocks`` (and ``enc_blocks``, ``cross``) is a
+    list of per-layer dicts, so the reference's leading ``"layers"`` axis
+    is not there (``repro/models/init.py::logical_axes``)."""
+    block_axes = {"blocks": _block_axes(cfg), "enc_blocks": {**_attn_axes(cfg), **_FFN_AXES},
+                  "cross": dict(_CROSS_AXES)}
+    axes: dict = {"embed": ("vocab", "d_model"), "final_norm": ("d_model",)}
+    for name, (_, n) in _layer_shapes(cfg).items():
+        axes[name] = [dict(block_axes[name]) for _ in range(n)]
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("d_model", "vocab")
+    if _has_shared(cfg):
+        axes["shared"] = {**_attn_axes(cfg), **_FFN_AXES}
+    if cfg.is_encoder_decoder:
+        axes["enc_final_norm"] = ("d_model",)
+    return axes
+
+
+def abstract_params(cfg: ModelConfig) -> ModelParams:
+    """The model's parameters on the meta device: the shapes and dtypes of
+    :func:`init_params` (``A_log`` and ``D_skip`` float32) with no storage,
+    the counterpart of the reference's ``ShapeDtypeStruct`` tree
+    (``repro/models/init.py::abstract_params``)."""
+    dtype = torch_dtype(cfg.dtype)
+
+    def empty(name: str, shape: tuple) -> torch.Tensor:
+        return torch.empty(shape, dtype=_leaf_dtype(name, dtype), device="meta")
+
+    def layer(shapes: dict[str, tuple]) -> dict[str, torch.Tensor]:
+        return {name: empty(name, shape) for name, shape in sorted(shapes.items())}
+
+    stacks = {name: [layer(shapes) for _ in range(n)]
+              for name, (shapes, n) in _layer_shapes(cfg).items()}
+    vector = empty("final_norm", (cfg.d_model,))
+    lm_head = None if cfg.tie_embeddings else empty("lm_head", (cfg.d_model, cfg.padded_vocab))
+    extra: dict = {}
+    if _has_shared(cfg):
+        extra["shared"] = layer(_shared_block_shapes(cfg))
+    if cfg.is_encoder_decoder:
+        extra.update(enc_blocks=stacks["enc_blocks"], cross=stacks["cross"],
+                     enc_final_norm=empty("enc_final_norm", (cfg.d_model,)))
+    return ModelParams(empty("embed", (cfg.padded_vocab, cfg.d_model)), stacks["blocks"],
+                       vector, lm_head, **extra)
 
 
 def _tensor(a, device, dtype: torch.dtype) -> torch.Tensor:

@@ -3,10 +3,11 @@ decode_step of every family (dense / moe / ssm / hybrid / audio enc-dec /
 vlm).
 
 The counterparts of ``repro.models.model``'s functions of the same names.
-The layer stack is a Python loop over ``params["blocks"]``, the counterpart
-of ``layer_scan``, so the hybrid family's shared-block condition is a plain
-int test; ``remat`` wraps each layer of the train forward in
-``torch.utils.checkpoint``.  Caches are dicts of tensors as in the
+The train forward's layer stacks run through :func:`.scan.layer_scan`, a
+Python loop over ``params["blocks"]``, so the hybrid family's shared-block
+condition (``maybe_cond``) is a plain int test; ``remat`` wraps each layer of
+the train forward in ``torch.utils.checkpoint``.  Prefill and decode loop
+over the layers directly.  Caches are dicts of tensors as in the
 reference, with one difference the port makes to save memory:
 :func:`prefill` and :func:`decode_step` write into the cache tensors they
 are given, in place, and return the same dict with ``pos`` replaced.
@@ -32,6 +33,7 @@ from ..distributed.sharding import constrain
 from .init import ModelParams, init_params, torch_dtype  # noqa: F401 (re-export)
 from .moe import moe_ffn
 from .ops import decode_attention, gqa_attention, rms_norm, rope, swiglu
+from .scan import layer_scan, maybe_cond
 from .ssm import init_ssm_state, mamba_decode_step, mamba_mixer, mamba_prefill
 
 __all__ = [
@@ -150,11 +152,9 @@ def encode(params: ModelParams, cfg: ModelConfig, frames: torch.Tensor) -> torch
     def body(hh, bp):
         hh = hh + _attn(hh, bp, cfg, causal=False, positions=positions)
         f, _ = _ffn(hh, bp, cfg)
-        return hh + f
+        return hh + f, None
 
-    layer = _remat(body, cfg)
-    for bp in params["enc_blocks"]:
-        h = layer(h, bp)
+    h, _ = layer_scan(_remat(body, cfg), h, params["enc_blocks"], unroll=not cfg.scan_layers)
     return rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -165,47 +165,46 @@ def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, 
     h = constrain(h, "batch", "seq", "d_model")
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    unroll = not cfg.scan_layers
 
     if cfg.family in ("dense", "moe", "vlm"):
-        def body(hh, bp):
+        def body(carry, bp):
+            hh, aux = carry
             hh = hh + _attn(hh, bp, cfg, causal=True, positions=positions)
             f, a = _ffn(hh, bp, cfg)
             # SP: between blocks the residual stream is sequence-sharded on
             # the model axis (a no-op on one card)
-            return constrain(hh + f, "batch", "seq_sp", "d_model"), a
+            return (constrain(hh + f, "batch", "seq_sp", "d_model"), aux + a), None
 
-        layer = _remat(body, cfg)
-        for bp in params["blocks"]:
-            h, a = layer(h, bp)
-            aux = aux + a
+        (h, aux), _ = layer_scan(_remat(body, cfg), (h, aux), params["blocks"], unroll=unroll)
     elif cfg.family == "audio":
         if enc_out is None:
             raise ValueError("the audio family needs the encoder output, enc_out")
 
-        def body(hh, bp, cp):
+        def body(hh, xs):
+            bp, cp = xs
             hh = hh + _attn(hh, bp, cfg, causal=True, positions=positions)
             hh = hh + _cross_attn(hh, cp, cfg, *_cross_kv(cp, enc_out))
             f, _ = _ffn(hh, bp, cfg)
-            return hh + f
+            return hh + f, None
 
-        layer = _remat(body, cfg)
-        for bp, cp in zip(params["blocks"], params["cross"]):
-            h = layer(h, bp, cp)
+        h, _ = layer_scan(_remat(body, cfg), h, (params["blocks"], params["cross"]), unroll=unroll)
     elif cfg.family in ("ssm", "hybrid"):
         x0 = h
 
-        def body(hh, bp, shared: bool):
-            hh = hh + mamba_mixer(rms_norm(hh, bp["norm_in"], cfg.norm_eps), bp, cfg)
-            if shared:
-                sp = params["shared"]
-                q, k, v = _shared_qkv(hh, x0, sp, cfg, positions)
-                out = gqa_attention(q, k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-                hh = _shared_out(hh, out, sp, cfg)
-            return hh
+        def shared_block(hh):
+            sp = params["shared"]
+            q, k, v = _shared_qkv(hh, x0, sp, cfg, positions)
+            out = gqa_attention(q, k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+            return _shared_out(hh, out, sp, cfg)
 
-        layer = _remat(body, cfg)
-        for i, bp in enumerate(params["blocks"]):
-            h = layer(h, bp, _is_shared_site(cfg, i))
+        def body(hh, xs):
+            bp, i = xs
+            hh = hh + mamba_mixer(rms_norm(hh, bp["norm_in"], cfg.norm_eps), bp, cfg)
+            return maybe_cond(_is_shared_site(cfg, i), shared_block, lambda v: v, hh), None
+
+        h, _ = layer_scan(_remat(body, cfg), h, (params["blocks"], list(range(cfg.n_layers))),
+                          unroll=unroll)
     else:
         raise ValueError(f"unknown family {cfg.family}")
 

@@ -27,14 +27,18 @@ def is_layer_list(node) -> bool:
     return isinstance(node, list) and bool(node) and all(isinstance(x, Mapping) for x in node)
 
 
-def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over corresponding leaves of trees of one structure."""
+def tree_map(fn: Callable, tree, *rest, is_leaf: Callable | None = None):
+    """``fn`` over corresponding leaves of trees of one structure; a node of
+    ``tree`` for which ``is_leaf`` is true is a leaf (a tuple of axis names,
+    a partition spec), as in ``jax.tree.map``."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, Mapping):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf) for k in tree}
     if is_namedtuple(tree):
-        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+        return type(tree)(*(tree_map(fn, *xs, is_leaf=is_leaf) for xs in zip(tree, *rest)))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+        return type(tree)(tree_map(fn, *xs, is_leaf=is_leaf) for xs in zip(tree, *rest))
     return fn(tree, *rest)
 
 

@@ -467,8 +467,8 @@ def test_fwd_instance_refuses_the_split_shapes_in_bf16(cuda, n):
 
 
 def test_ssd_kernel_refuses_bad_inputs(cuda):
-    x, dt, a, bb, cc, d = ssd_inputs(cuda, 1, 1, 64, 2, 32, 8, torch.float32)
-    with pytest.raises(ValueError, match="head dim 32"):
+    x, dt, a, bb, cc, d = ssd_inputs(cuda, 1, 1, 64, 2, 24, 8, torch.float32)
+    with pytest.raises(ValueError, match="head dim 24"):
         sk.ssd_scan_call(x, dt, a, bb, cc, d, heads=2, chunk=32)
     x, dt, a, bb, cc, d = ssd_inputs(cuda, 1, 1, 64, 2, 16, 32, torch.float32)
     with pytest.raises(ValueError, match="state size 32"):

@@ -88,6 +88,7 @@ PORTED = (
     "core/codec.py",
     "distributed/__init__.py",
     "distributed/sharding.py",
+    "distributed/zero.py",
     "kernels/__init__.py",
     "kernels/flash_attention/__init__.py",
     "kernels/flash_attention/kernel.py",
@@ -106,6 +107,7 @@ PORTED = (
     "models/model.py",
     "models/moe.py",
     "models/ops.py",
+    "models/scan.py",
     "models/ssm.py",
     "roofline/__init__.py",
     "roofline/analysis.py",
@@ -127,6 +129,8 @@ TWINS = {
     "ckpt_overlap_torch.py": "ckpt_overlap.py",
     "fdb_hammer_torch.py": "fdb_hammer.py",
     "figures_torch.py": "figures.py",
+    "roofline_table_torch.py": "roofline_table.py",
+    "run_torch.py": "run.py",
 }
 
 
@@ -136,6 +140,37 @@ def _replace(old: str, new: str):
 
     return apply
 
+
+def _top_level(text: str, func: str) -> tuple[int, int]:
+    """Where the top-level ``def func`` lies in ``text``: from its line to
+    the next top-level ``def``, or to the end."""
+    start = text.index(f"\ndef {func}(") + 1
+    end = text.find("\ndef ", start)
+    return start, len(text) if end < 0 else end + 1
+
+
+def _own(twin: str, func: str):
+    """The reference's top-level ``func`` replaced by the twin's own, for a
+    function the twin rewrites whole."""
+    def apply(text: str) -> str:
+        own = (BENCH / twin).read_text()
+        a, b = _top_level(own, func)
+        start, end = _top_level(text, func)
+        return text[:start] + own[a:b] + text[end:]
+
+    return apply
+
+
+RUN_TORCH_DOC = """\
+per-figure CSVs under artifacts/bench_torch/.  Roofline terms come from
+the port's dry-run records if present (artifacts/dryrun_torch).
+
+    PYTHONPATH=src python benchmarks/run_torch.py [--device cuda|cpu]
+
+``--device`` (default ``cuda``) is where the port runs.  bench_kernels times
+the plain PyTorch versions at the reference's shapes under its line names;
+on the card each is followed by a line for the hand-written kernel at the
+same shape, naming the instance that ran and its launch count."""
 
 #: the named differences a twin may have beyond the rebased imports
 ALLOWED = {
@@ -154,6 +189,21 @@ ALLOWED = {
         ("imports the hammer twin", _replace("from .fdb_hammer import", "from .fdb_hammer_torch import")),
         ("writes its CSVs beside the reference's, not over them",
          _replace('"artifacts", "bench")', '"artifacts", "bench_torch")')),
+    ],
+    "roofline_table_torch.py": [
+        ("reads the port's dry-run records (artifacts/dryrun_torch), never the TPU meshes' ones",
+         _replace("dryrun", "dryrun_torch")),
+    ],
+    "run_torch.py": [
+        ("the docstring names the twin's outputs, its dry-run records, --device and the kernel lines",
+         _replace("per-figure CSVs under artifacts/bench/.  Roofline terms come from the\n"
+                  "dry-run artifacts if present (artifacts/dryrun).", RUN_TORCH_DOC)),
+        ("imports the figures twin", _replace("from . import figures\n", "from . import figures_torch as figures\n")),
+        ("imports the checkpoint-overlap twin", _replace("from .ckpt_overlap import", "from .ckpt_overlap_torch import")),
+        ("imports the roofline table twin", _replace("from .roofline_table import", "from .roofline_table_torch import")),
+        ("bench_kernels times the port's plain versions, and on the card its kernels, on --device",
+         _own("run_torch.py", "bench_kernels")),
+        ("main takes --device, and the file runs as a script", _own("run_torch.py", "main")),
     ],
 }
 

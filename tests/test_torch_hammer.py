@@ -192,6 +192,30 @@ print(len(rows), lst["posix"]["entries"], ov["blocking_s"] > 0, sim.bandwidth_Gi
     assert out.split()[-5:] == ["48", "120", "True", "True", "memory"]
 
 
+def test_harness_twin_prints_the_reference_lines_on_the_cpu(tmp_path):
+    """``benchmarks/run_torch.py --device cpu`` run as a file: every line name
+    of ``benchmarks/run.py`` in its order, no kernel line (the caller asked
+    for the CPU), and with no dry-run records the reference's last line."""
+    out = run_blocked(f"""
+import runpy
+import benchmarks.figures_torch
+benchmarks.figures_torch.ART = {str(tmp_path / "art")!r}
+sys.argv = ["run_torch.py", "--device", "cpu"]
+runpy.run_path({str(ROOT / "benchmarks" / "run_torch.py")!r}, run_name="__main__")
+""", tmp_path)
+    lines = out.splitlines()
+    names = re.findall(r'^\s*_line\("([^"]+)"', (ROOT / "benchmarks" / "run.py").read_text(), re.M)
+    assert lines[0] == "name,us_per_call,derived"
+    assert [line.split(",", 1)[0] for line in lines[1:]] == names
+    assert lines[-1] == "roofline_table,0.00,no-dryrun-artifacts"
+    kernels = {line.split(",")[0]: line.split(",")[2] for line in lines[1:]}
+    assert kernels["attention_ref_1k"].endswith("GFLOPs_cpu")
+    assert kernels["ssd_chunked_512"] == "oracle_cpu"
+    assert kernels["grib_pack_8x256x512"].endswith("GiBps_cpu")
+    assert sorted(p.name for p in (tmp_path / "art").iterdir())[:2] == [
+        "churn_interference.csv", "fig3_parameter_optimisation.csv"]
+
+
 def test_remote_sweep_spawns_clients_that_import_only_the_port(tmp_path):
     out = run_blocked("""
 import json

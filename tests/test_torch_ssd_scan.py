@@ -11,6 +11,7 @@ of the split instance's three launches, composed.  The port's own
 
 import dataclasses
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -308,11 +309,19 @@ def test_state_pass_starts_from_zero_and_decays_by_the_chunk_total():
 @pytest.mark.parametrize("dtype,p,n,instance", [
     (torch.bfloat16, 64, 64, "split"), (torch.bfloat16, 64, 128, "split"),
     (torch.bfloat16, 64, 16, "fwd"), (torch.bfloat16, 16, 128, "fwd"), (torch.bfloat16, 8, 4, "fwd"),
-    (torch.float32, 64, 128, "fwd"), (torch.float32, 64, 64, "fwd"),
+    (torch.float32, 64, 128, "fwd"), (torch.float32, 64, 64, "fwd"), (torch.float32, 32, 16, "fwd"),
 ])
 def test_instance_is_chosen_from_dtype_head_dim_and_state_size(dtype, p, n, instance):
     assert sk.instance_for(dtype, p, n) == instance
     assert instance in sk.INSTANCES and ss.INSTANCE_LAUNCHES.keys() == set(sk.INSTANCES)
+
+
+def test_fwd_instance_dispatches_every_head_dim_the_wrapper_admits():
+    # the C switch of ssd_scan_fwd's dispatch and HEAD_DIMS cannot drift apart
+    source = sk.LIBRARY.source.read_text()
+    start = source.index("cudaError_t dispatch(int p,")
+    body = source[start:source.index("\n}\n", start)]
+    assert tuple(int(d) for d in re.findall(r"case (\d+):", body)) == sk.HEAD_DIMS
 
 
 def test_split_scan_takes_cuda_tensors_only():
