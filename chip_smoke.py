@@ -111,7 +111,26 @@ Phases, each fatal on failure:
    name of benchmarks/run.py in order, a kernel line after each plain
    kernel line (the instance that float32 selects, its launch count, its
    difference from the plain line, which run_torch.py holds within 2e-4 +
-   2e-4 relative, K1 exact), and no jax, jaxlib or repro module imported.
+   2e-4 relative, K1 exact), and no jax, jaxlib or repro module imported;
+10. launch: (a) the dry run (repro_torch.launch.dryrun.run_cell) of
+   qwen2.5-3b train_4k, decode_32k, prefill_32k with attn_impl="pallas"
+   and long_500k on the fake (16, 16) mesh, and mamba2-370m train_4k on
+   the fake (2, 16, 16) one, one spawned process a cell, in parallel, into
+   a temporary directory: every record ok (long_500k skipped), collective
+   bytes counted, model_flops equal to model_flops_for, the prefill's
+   trace through the flash-attention operator once per layer; their terms
+   and roofline_table_torch.render_table printed.  (b) The built steps at
+   full width on make_debug_mesh(), a one-rank NCCL (1, 1) mesh, random
+   bf16 weights from --seed, cut in traffic only: qwen2.5-3b's
+   build_prefill (attn_impl="pallas") over 8 x 8192 tokens, 36 K3 launches
+   all on wgmma, each held against the plain version on its first and last
+   256 query rows of every head, the logits bit-equal to a direct prefill();
+   its build_decode at batch 32 over an 8192-entry cache; mamba2-370m's
+   build_train_step over 8 x 2048 tokens, the first loss within 1e-6 of
+   train_loss on the same weights and batch.  Each step: CUDA-event times
+   of 3 runs after a warm-up, its own dry run on a fake (1, 1) mesh (flops,
+   bytes, compute_s, memory_s, bottleneck), the dry run's peak bytes beside
+   torch.cuda.max_memory_allocated, and model_flops / (step_s * peak).
 
 The line before the last is one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -139,6 +158,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path[:0] = [str(ROOT / "src"), str(ROOT / "benchmarks")]
 
 from fdb_hammer_torch import TIERED_CODEC_CONFIG  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import attention_pairs  # noqa: E402
 from repro_torch.roofline import HW  # noqa: E402
 
 F, H, W = 32, 1801, 3600  # one step of the 0.1-degree HRES grid
@@ -251,6 +271,24 @@ FAMILY_MODELS = {
 MOE_PROMPTS = (100, 1024)  # granite: one dispatch group of group_size 1024 at most
 WHISPER_FRAMES, WHISPER_BATCH, WHISPER_PROMPTS = 1500, 4, (64, 448)  # 30 s; 448 target tokens
 WHISPER_PREFILLS = 2
+# phase 10 (a): the dry-run cells, traced on fake production meshes (arch,
+# shape, multi-pod, attn_impl); long_500k of a full-attention arch is skipped
+LAUNCH_CELLS = (("qwen2.5-3b", "train_4k", False, None), ("qwen2.5-3b", "decode_32k", False, None),
+                ("qwen2.5-3b", "prefill_32k", False, "pallas"), ("mamba2-370m", "train_4k", True, None),
+                ("qwen2.5-3b", "long_500k", False, None))
+# phase 10 (b): the built steps at full width on a one-rank (1, 1) mesh, cut
+# in traffic only: (arch, builder's shape (name, seq, batch, kind), attn_impl)
+BUILT_PREFILL = ("qwen2.5-3b", ("prefill_8k", 8192, 8, "prefill"), "pallas")
+BUILT_DECODE = ("qwen2.5-3b", ("decode_8k", 8192, 32, "decode"), "naive")
+BUILT_TRAIN = ("mamba2-370m", ("train_2k", TRAIN_SEQ, TRAIN_BATCH, "train"), "naive")
+# the built prefill's K3 launches are held against the plain version on the
+# first and the last CHECK_ROWS query rows of every head (the plain version
+# of all 8192 rows would hold a 34 GB score matrix)
+CHECK_ROWS = 256
+STEP_RUNS = 3  # timed runs of each built step, after one warm-up
+# the built train step's first loss against train_loss on the same weights
+# and batch: the same computation
+BUILT_LOSS_TOL = 1e-6
 WHISPER_WIDTHS = dict(n_layers=4, encoder_layers=4, d_model=384, n_heads=6, n_kv_heads=6, head_dim=64,
                       d_ff=1536)
 
@@ -428,13 +466,6 @@ def drive_path(x: torch.Tensor, keys: list, *, trace: bool) -> dict:
                 tot[1] += 1
     return {"archive_s": t_archive, "retrieve_s": t_retrieve, "launches": launches,
             "codec_counts": codec_counts, "wire": wire, "spans": spans}
-
-
-def attention_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
-    """(query, key) pairs a row attends, summed over the rows of one head."""
-    if not causal:
-        return sq * sk
-    return sum(min(sk, i + q_offset + 1) for i in range(sq))
 
 
 def attention_bound(bh: int, bk: int, sq: int, sk: int, d: int, itemsize: int,
@@ -1584,6 +1615,234 @@ def distributed_phase(dev, train: dict) -> dict:
             "seconds": seconds}
 
 
+def dry_cell(cell: tuple, out_dir: str) -> dict:
+    """One dry-run cell on its fake production mesh (a spawned worker)."""
+    from repro_torch.launch.dryrun import run_cell
+
+    arch, shape, multi_pod, attn_impl = cell
+    t0 = time.perf_counter()
+    rec = run_cell(arch, shape, multi_pod, out_dir, attn_impl)
+    return {**rec, "wall_s": time.perf_counter() - t0}
+
+
+def dry_built(arch: str, shape: tuple, attn_impl: str) -> dict:
+    """A built step of phase 10 (b) traced on a fake (1, 1) mesh (a spawned
+    worker): its per-device counts and roofline terms, one card."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.distributed import AbstractMesh
+    from repro_torch.launch.dryrun import fake_mesh, trace_cell
+    from repro_torch.roofline import model_flops_for, roofline
+
+    cfg = dataclasses.replace(get_config(arch), attn_impl=attn_impl)
+    sc = ShapeConfig(*shape)
+    with fake_mesh(AbstractMesh((1, 1), ("data", "model"))) as mesh:
+        c = trace_cell(cfg, mesh, sc, hp=TrainConfig() if sc.kind == "train" else None)
+    rep = roofline(arch=arch, shape=sc.name, mesh="1x1", chips=1,
+                   cost={"flops": c["flops"], "bytes accessed": c["bytes"]},
+                   collectives={"total_bytes": c["coll_total"]}, model_flops=model_flops_for(cfg, sc))
+    return {**c, "roofline": rep.as_dict()}
+
+
+def step_ms(fn, before=None) -> list[float]:
+    """CUDA-event times of STEP_RUNS calls of ``fn`` after one warm-up call;
+    ``before`` runs ahead of each call, outside the timed span."""
+    times = []
+    for i in range(STEP_RUNS + 1):
+        if before is not None:
+            before()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        if i:
+            times.append(a.elapsed_time(b))
+    return times
+
+
+def launch_phase(dev, seed: int, smi: str) -> dict:
+    """Phase 10: the dry run of phase 10's cells on fake production meshes,
+    then the built steps at full width on a one-rank NCCL (1, 1) mesh beside
+    their own dry-run records."""
+    import dataclasses
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch import build_decode, build_prefill, build_train_step, make_debug_mesh
+    from repro_torch.models import init_cache, init_params, prefill, train_loss
+    from repro_torch.roofline import model_flops_for
+    from repro_torch.training.optimizer import init_opt_state
+    from roofline_table_torch import render_table
+
+    t0 = time.perf_counter()
+    built = (BUILT_PREFILL, BUILT_DECODE, BUILT_TRAIN)
+    with tempfile.TemporaryDirectory() as out_dir, ProcessPoolExecutor(
+            max_workers=min(len(LAUNCH_CELLS) + len(built), max(1, (os.cpu_count() or 2) - 1)),
+            mp_context=get_context("spawn")) as pool:
+        cells = [pool.submit(dry_cell, cell, out_dir) for cell in LAUNCH_CELLS]
+        debug = [pool.submit(dry_built, *b) for b in built]
+        recs = [f.result() for f in cells]
+        debug = [f.result() for f in debug]
+    dry_s = time.perf_counter() - t0
+    for cell, rec in zip(LAUNCH_CELLS, recs):
+        arch, shape, _, attn_impl = cell
+        if shape == "long_500k":
+            assert rec["status"] == "skipped", rec
+            say(f"[launch] {rec['cell']}: skipped ({rec['reason']})")
+            continue
+        assert rec["status"] == "ok", rec
+        rl = rec["roofline"]
+        cfg = dataclasses.replace(get_config(arch), attn_impl=attn_impl or "naive")
+        assert rl["model_flops"] == model_flops_for(cfg, SHAPES[shape]), rec["cell"]
+        assert rl["collective_bytes"] > 0 and sum(rec["collectives_raw_scanned"]["counts"].values())
+        if attn_impl == "pallas":
+            assert rec["ops"] == {"repro_torch::flash_attention": cfg.n_layers}, rec["ops"]
+        say(f"[launch] {rec['cell']} on {rec['chips']} fake devices: traced in {rec['lower_s']} s "
+            f"({rec['wall_s']:.1f} s with the probes); per device flops {rl['hlo_flops']:.4g}, bytes "
+            f"{rl['hlo_bytes']:.4g}, collective bytes {rl['collective_bytes']:.4g} "
+            f"{rec['collectives_raw_scanned']['counts']}; compute_s {rl['compute_s']:.4g}, memory_s "
+            f"{rl['memory_s']:.4g}, collective_s {rl['collective_s']:.4g}: {rl['bottleneck']}-bound; "
+            f"model_flops {rl['model_flops']:.4g}, useful {rl['useful_ratio']:.3f}; peak "
+            f"{rec['memory']['peak_bytes'] / 1e9:.3f} GB a device; operators {rec['ops']}")
+    for mesh_name in ("pod16x16", "pod2x16x16"):
+        say(f"[launch] roofline_table_torch.render_table, mesh {mesh_name}:\n"
+            + render_table(recs, mesh_name))
+    say(f"[launch] dry runs in {dry_s:.1f} s (one spawned process a cell, in parallel)")
+
+    torch.cuda.set_device(dev)
+    mesh = make_debug_mesh()  # a one-rank NCCL group and a (1, 1) cuda mesh
+    steps = {}
+    try:
+        # ---- qwen2.5-3b prefill, through K3
+        arch, shape, impl = BUILT_PREFILL
+        cfg = dataclasses.replace(get_config(arch), attn_impl=impl)
+        sc = ShapeConfig(*shape)
+        params = init_params(cfg, torch.Generator(dev).manual_seed(seed), device=dev)
+        rng = np.random.default_rng(seed)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (sc.global_batch, sc.seq_len))).to(dev)
+        fn, *_ = build_prefill(cfg, mesh, sc)
+        cache = init_cache(cfg, sc.global_batch, sc.seq_len, device=dev)
+        errs: list = []
+        launch_k3 = fops.flash_attention_call
+
+        def held(q, k, v, *, groups, causal, q_offset=0):
+            out = launch_k3(q, k, v, groups=groups, causal=causal, q_offset=q_offset)
+            n, s = CHECK_ROWS, q.shape[1]
+            for rows, keys, off in ((slice(0, n), slice(0, n), 0), (slice(s - n, s), slice(0, s), s - n)):
+                ref = flash_attention_ref(q[:, rows], k[:, keys], v[:, keys], groups=groups,
+                                          causal=causal, q_offset=off)
+                torch.testing.assert_close(out[:, rows].float(), ref.float(), **ATTN_TOL[q.dtype])
+                errs.append(float((out[:, rows].float() - ref.float()).abs().max()))
+            return out
+
+        fops.reset_kernel_launches()
+        with mock.patch.object(fops, "flash_attention_call", held):
+            logits, _ = fn(params, tokens, cache)
+        launches = fops.KERNEL_LAUNCHES["flash_attention"]
+        by_instance = dict(fops.INSTANCE_LAUNCHES)
+        assert launches == cfg.n_layers and by_instance == {"wgmma": cfg.n_layers, "cuda_cores": 0}, \
+            (launches, by_instance)
+        direct, _ = prefill(params, cfg, tokens, init_cache(cfg, sc.global_batch, sc.seq_len, device=dev))
+        assert torch.equal(logits, direct), "the built prefill's logits != prefill()'s"
+        del direct
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = step_ms(lambda: fn(params, tokens, cache))
+        steps["prefill"] = {"ms": ms, "peak": torch.cuda.max_memory_allocated(dev)}
+        say(f"[launch] built prefill {arch} {sc}: {launches} K3 launches, by instance {by_instance}, "
+            f"each held against the plain version on its first and last {CHECK_ROWS} query rows of "
+            f"every head: max |diff| {max(errs):.3g} (tolerance {ATTN_TOL[torch.bfloat16]}); logits "
+            f"bit-equal to prefill() on the same inputs")
+        del params, cache, logits, tokens
+        torch.cuda.empty_cache()
+
+        # ---- qwen2.5-3b decode over a full cache
+        arch, shape, impl = BUILT_DECODE
+        cfg = dataclasses.replace(get_config(arch), attn_impl=impl)
+        sc = ShapeConfig(*shape)
+        params = init_params(cfg, torch.Generator(dev).manual_seed(seed), device=dev)
+        fn, *_ = build_decode(cfg, mesh, sc)
+        cache = init_cache(cfg, sc.global_batch, sc.seq_len, device=dev)
+        gen = torch.Generator(dev).manual_seed(seed + 1)
+        for name in ("k", "v"):
+            cache[name].normal_(generator=gen)
+        token = torch.from_numpy(rng.integers(0, cfg.vocab, (sc.global_batch, 1))).to(dev)
+
+        def last_slot():  # each step attends to the whole cache and writes its last entry
+            cache["pos"] = torch.full((sc.global_batch,), sc.seq_len - 1, dtype=torch.int32, device=dev)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = step_ms(lambda: fn(params, token, cache), before=last_slot)
+        last_slot()
+        logits, _ = fn(params, token, cache)
+        assert bool(torch.isfinite(logits).all()) and logits.shape == (sc.global_batch, cfg.padded_vocab)
+        steps["decode"] = {"ms": ms, "peak": torch.cuda.max_memory_allocated(dev)}
+        del params, cache, logits
+        torch.cuda.empty_cache()
+
+        # ---- mamba2-370m train step, ZeRO-1 as TrainConfig has it
+        from repro_torch.configs import TrainConfig
+
+        arch, shape, impl = BUILT_TRAIN
+        cfg = dataclasses.replace(get_config(arch), attn_impl=impl)
+        sc = ShapeConfig(*shape)
+        hp = TrainConfig()
+        params = init_params(cfg, torch.Generator(dev).manual_seed(seed), device=dev)
+        opt = init_opt_state(params.tree())
+        toks = rng.integers(0, cfg.vocab, (sc.global_batch, sc.seq_len + 1))
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                 "targets": torch.from_numpy(toks[:, 1:]).to(dev, torch.int32)}
+        fn, *_ = build_train_step(cfg, hp, mesh, sc)
+        with torch.no_grad():
+            loss0 = float(train_loss(params, cfg, batch)[0])
+        losses = []
+
+        def train_step():
+            nonlocal params, opt
+            params, opt, metrics = fn(params, opt, batch)
+            losses.append(metrics["loss"])
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = step_ms(train_step)
+        losses = [float(x) for x in losses]
+        assert abs(losses[0] - loss0) <= BUILT_LOSS_TOL, (losses[0], loss0)
+        assert all(math.isfinite(x) for x in losses) and int(opt.step) == len(losses)
+        steps["train"] = {"ms": ms, "peak": torch.cuda.max_memory_allocated(dev)}
+        say(f"[launch] built train step {arch} {sc}, zero1={hp.zero1}: {len(losses)} steps, losses "
+            + ", ".join(f"{x:.6f}" for x in losses) + f"; the first against train_loss on the same "
+            f"weights and batch {loss0:.6f}, |diff| {abs(losses[0] - loss0):.3g} (tolerance "
+            f"{BUILT_LOSS_TOL})")
+        del params, opt, batch
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    for (key, (arch, shape, _)), rec in zip((("prefill", BUILT_PREFILL), ("decode", BUILT_DECODE),
+                                             ("train", BUILT_TRAIN)), debug):
+        st, rl = steps[key], rec["roofline"]
+        step_s = statistics.median(st["ms"]) / 1e3
+        st.update(step_s=step_s, mfu=rl["model_flops"] / (step_s * HW["peak_flops"]),
+                  bound_s=max(rl["compute_s"], rl["memory_s"]), dry=rec)
+        say(f"[launch] built {key} {arch} {shape} on the (1, 1) mesh ({smi}): "
+            f"{', '.join(f'{t:.2f}' for t in st['ms'])} ms (CUDA events, {STEP_RUNS} runs after a "
+            f"warm-up), median {step_s:.4f} s; dry run on a fake (1, 1) mesh: flops {rl['hlo_flops']:.4g}, "
+            f"bytes {rl['hlo_bytes']:.4g}, compute_s {rl['compute_s']:.4g}, memory_s "
+            f"{rl['memory_s']:.4g}, {rl['bottleneck']}-bound, bound {st['bound_s'] / step_s:.3f} of "
+            f"the step; model_flops {rl['model_flops']:.4g}, mfu {st['mfu']:.4f}; peak memory "
+            f"estimated {rec['memory']['peak_bytes'] / 1e9:.3f} GB, measured "
+            f"{st['peak'] / 1e9:.3f} GB (torch.cuda.max_memory_allocated)")
+    seconds = time.perf_counter() - t0
+    say(f"[launch] phase 10 in {seconds:.2f} s (dry runs {dry_s:.2f} s)")
+    return {"launches": launches, "k3_err": max(errs), "steps": steps, "seconds": seconds}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1755,6 +2014,9 @@ def main() -> int:
     dist9 = distributed_phase(dev, train)
     del train["fdb"]  # phase 6's checkpoints, held in host memory until now
 
+    # ------------------------------------------------------------- 10. launch
+    launch = launch_phase(dev, args.seed, smi)
+
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not loaded, f"the port loaded {loaded}"
@@ -1786,7 +2048,8 @@ def main() -> int:
     # every path that runs K3: phase 5's, then phase 8's models with attention
     k3_paths = {"serve qwen2.5-3b": serve["launches"],
                 **{arch: f["launches"] for arch, f in families.items() if "k3_err" in f},
-                "run_torch.py": dist9["harness"]["flash_attention"]["launches"]}
+                "run_torch.py": dist9["harness"]["flash_attention"]["launches"],
+                "launch prefill_8k (phase 10)": launch["launches"]}
     assert all(k3_paths.values()), k3_paths
     kernels.append({
         "name": "flash_attention",
@@ -1800,6 +2063,7 @@ def main() -> int:
         "zamba2": {k: attn["zamba2"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                   "library_ms", "instance")},
         "max_abs_err": max(attn["max_abs_err"], dist9["harness"]["flash_attention"]["max_abs_err"],
+                           launch["k3_err"],
                            *(f[k] for f in families.values()
                              for k in ("k3_err", "k3_model_err") if k in f)),
     })

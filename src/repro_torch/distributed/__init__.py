@@ -6,8 +6,10 @@ from .sharding import (
     axis_rules,
     constrain,
     current_rules,
+    finish_partial,
     logical_to_spec,
     make_rules,
+    map_shards,
     mesh_sizes,
     named_shardings,
 )
@@ -21,8 +23,10 @@ __all__ = [
     "axis_rules",
     "constrain",
     "current_rules",
+    "finish_partial",
     "logical_to_spec",
     "make_rules",
+    "map_shards",
     "mesh_sizes",
     "named_shardings",
     "zero_shard_spec",

@@ -23,6 +23,7 @@ differ from JAX's.
 
 from __future__ import annotations
 
+import functools
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -40,8 +41,10 @@ __all__ = [
     "axis_rules",
     "constrain",
     "current_rules",
+    "finish_partial",
     "logical_to_spec",
     "make_rules",
+    "map_shards",
     "mesh_sizes",
     "named_shardings",
 ]
@@ -152,7 +155,75 @@ def constrain(x: torch.Tensor, *logical: str | None) -> torch.Tensor:
 
     if not isinstance(x, DTensor):
         return x
-    return x.redistribute(r.mesh, r.sharding(*logical).placements(x.ndim))
+    return _Constrain.apply(x, r.mesh, r.sharding(*logical).placements(x.ndim))
+
+
+class _Constrain(torch.autograd.Function):
+    """Redistribute to ``placements``, and the gradient to the same placements
+    in the backward pass, as JAX's sharding constraint binds the cotangent
+    too.  (DTensor's own redistribute sends the gradient back towards the
+    input's placements, which it cannot do for a partial sum of another kind,
+    such as the masked one of a vocab-sharded embedding lookup.)"""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        return x.redistribute(mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.placements), None, None
+
+
+def finish_partial(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor reduced over a sharded dim is a partial sum on each rank:
+    complete it on every rank (an all-reduce), where DTensor would otherwise
+    scatter it over another dim at the next pointwise op.  Anything else
+    comes back unchanged."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        t = t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p for p in t.placements])
+    return t
+
+
+def map_shards(fn, args: tuple, roles: tuple, out_roles, *, lead: int = 0, **kwargs):
+    """``fn(*args, **kwargs)`` for DTensor ``args``, rank by rank: for a
+    function that is independent along some dims of its tensors (batch rows,
+    channels, heads), each rank runs ``fn`` on its own shards
+    (``torch.distributed.tensor.experimental.local_map``), with no
+    collective inside.
+
+    ``roles`` names, per argument, the tensor dim of each such axis
+    (``{"batch": 0, "heads": 2}``).  The argument at ``lead`` leads: its
+    sharding of its named dims is kept, and any other mesh axis of it is
+    gathered.  Every argument is then sharded on the same mesh axes along
+    its dims of the same names and replicated on the others; a plain tensor
+    counts as replicated.  ``out_roles`` places the output (a tuple of them, the
+    outputs of a function that returns a tuple)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = args[lead].device_mesh
+    role_at = {d: r for r, d in roles[lead].items()}
+    axis_role = [role_at.get(p.dim) if p.is_shard() else None for p in args[lead].placements]
+
+    def placements(named: dict) -> tuple:
+        return tuple(Shard(named[r]) if r in named else Replicate() for r in axis_role)
+
+    in_placements = tuple(placements(r) for r in roles)
+    local_args = []
+    for a, pl in zip(args, in_placements):
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        local_args.append(a.redistribute(mesh, pl))
+    if isinstance(out_roles, tuple):
+        out_placements = tuple(list(placements(r)) for r in out_roles)
+    else:
+        out_placements = list(placements(out_roles))
+    run = local_map(functools.partial(fn, **kwargs), out_placements=out_placements,
+                    in_placements=in_placements, device_mesh=mesh)
+    return run(*local_args)
 
 
 def logical_to_spec(axes_tree, rules: AxisRules):

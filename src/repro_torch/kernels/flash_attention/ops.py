@@ -8,6 +8,15 @@ comes back as (B, Sq, K, G, d).  A CPU tensor goes to the plain version in
 the launch raises).  Neither has a backward: the reference kernel has no
 VJP.  :data:`KERNEL_LAUNCHES` counts launches of the CUDA kernel only, and
 :data:`INSTANCE_LAUNCHES` the same launches by the instance that ran them.
+
+Tensors that hold no data of their own reach the kernel through an operator
+that tracing sees, ``torch.ops.repro_torch.flash_attention``: fake and meta
+tensors (the dry run of :mod:`repro_torch.launch.dryrun`) get its output's
+shape from ``register_fake``, and a DTensor is split by its sharding rule
+into the local tensors each rank computes, which then take the path of a
+plain tensor.  Its flop count, 4·d per attended (query, key) pair, is
+registered with ``torch.utils.flop_counter``.  A plain CUDA tensor calls the
+kernel directly, without the operator's dispatch.
 """
 
 from __future__ import annotations
@@ -15,12 +24,16 @@ from __future__ import annotations
 import threading
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
 from .._autograd import forward_only
 from .kernel import INSTANCES, flash_attention_call, instance_for
 from .ref import flash_attention_ref
 
-__all__ = ["INSTANCE_LAUNCHES", "KERNEL_LAUNCHES", "flash_attention", "reset_kernel_launches"]
+__all__ = ["INSTANCE_LAUNCHES", "KERNEL_LAUNCHES", "attention_pairs", "flash_attention",
+           "reset_kernel_launches"]
 
 #: launches of the CUDA kernel (the plain CPU version is not counted)
 KERNEL_LAUNCHES = {"flash_attention": 0}
@@ -37,6 +50,8 @@ def reset_kernel_launches() -> None:
 
 
 def _attend(qf, kf, vf, groups: int, causal: bool, q_offset: int) -> torch.Tensor:
+    if type(qf) is not torch.Tensor or qf.device.type == "meta":
+        return torch.ops.repro_torch.flash_attention(qf, kf, vf, groups, causal, q_offset)
     if qf.device.type == "cpu":
         return flash_attention_ref(qf, kf, vf, groups=groups, causal=causal, q_offset=q_offset)
     out = flash_attention_call(qf.contiguous(), kf.contiguous(), vf.contiguous(),
@@ -45,6 +60,44 @@ def _attend(qf, kf, vf, groups: int, causal: bool, q_offset: int) -> torch.Tenso
         KERNEL_LAUNCHES["flash_attention"] += 1
         INSTANCE_LAUNCHES[instance_for(qf.dtype, qf.shape[-1])] += 1
     return out
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: int,
+                        causal: bool, q_offset: int) -> torch.Tensor:
+    """(B*K*G, Sq, d), (B*K, Sk, d), (B*K, Sk, d) -> (B*K*G, Sq, d)."""
+    return _attend(q, k, v, groups, causal, q_offset)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, groups, causal, q_offset):
+    return torch.empty_like(q)
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
+    """(query, key) pairs a row attends, summed over the rows of one head:
+    row i sees min(sk, i + q_offset + 1) keys when causal."""
+    if not causal:
+        return sq * sk
+    a = q_offset + 1
+    short = min(sq, max(0, sk - a + 1))  # rows that see fewer than sk keys
+    return short * a + short * (short - 1) // 2 + (sq - short) * sk
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, groups, causal, q_offset, *args, out_shape=None, **kwargs) -> int:
+    """4·d operations per attended pair (q·k and p·v, a multiply and an add each)."""
+    bh, sq, d = q_shape
+    return 4 * d * attention_pairs(sq, k_shape[1], causal, q_offset) * bh
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention.default)
+def _sharding(q, k, v, groups, causal, q_offset):
+    """Per mesh axis: every tensor replicated, or q, k, v and the output split
+    along their first dimension, batch·heads (whole KV groups, as the
+    flattening of a batch sharded over that axis gives them)."""
+    none = [None, None, None]
+    return [([Replicate()], [Replicate()] * 3 + none), ([Shard(0)], [Shard(0)] * 3 + none)]
 
 
 def flash_attention(

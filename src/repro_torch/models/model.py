@@ -21,15 +21,17 @@ token's, so that decode continues the forward.
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from ..distributed.sharding import constrain
+from ..distributed.sharding import constrain, finish_partial, map_shards
 from .init import ModelParams, init_params, torch_dtype  # noqa: F401 (re-export)
 from .moe import moe_ffn
 from .ops import decode_attention, gqa_attention, rms_norm, rope, swiglu
@@ -139,6 +141,8 @@ def _remat(fn, cfg: ModelConfig):
 # ============================================================ train forward
 def embed_inputs(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor) -> torch.Tensor:
     if inputs.dtype in (torch.int32, torch.int64):
+        if isinstance(params["embed"], DTensor):  # DTensor's rules for an index vary by version
+            return F.embedding(inputs, params["embed"])
         return params["embed"][inputs]
     return inputs.to(torch_dtype(cfg.dtype))  # precomputed frame/patch embeddings
 
@@ -171,6 +175,7 @@ def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, 
         def body(carry, bp):
             hh, aux = carry
             hh = hh + _attn(hh, bp, cfg, causal=True, positions=positions)
+            hh = constrain(hh, "batch", "seq", "d_model")  # the attention's partial sums
             f, a = _ffn(hh, bp, cfg)
             # SP: between blocks the residual stream is sequence-sharded on
             # the model axis (a no-op on one card)
@@ -196,11 +201,12 @@ def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, 
             sp = params["shared"]
             q, k, v = _shared_qkv(hh, x0, sp, cfg, positions)
             out = gqa_attention(q, k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-            return _shared_out(hh, out, sp, cfg)
+            return constrain(_shared_out(hh, out, sp, cfg), "batch", "seq_sp", "d_model")
 
         def body(hh, xs):
             bp, i = xs
             hh = hh + mamba_mixer(rms_norm(hh, bp["norm_in"], cfg.norm_eps), bp, cfg)
+            hh = constrain(hh, "batch", "seq_sp", "d_model")
             return maybe_cond(_is_shared_site(cfg, i), shared_block, lambda v: v, hh), None
 
         h, _ = layer_scan(_remat(body, cfg), h, (params["blocks"], list(range(cfg.n_layers))),
@@ -216,13 +222,61 @@ def lm_logits(params: ModelParams, cfg: ModelConfig, hidden: torch.Tensor) -> to
     return torch.matmul(hidden, head)
 
 
+def _logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(x, -1)`` of (B, S, V) DTensor logits, written out as
+    PyTorch computes it (max shift, an infinite max taken as 0), so that
+    vocab-sharded logits reduce their shards where DTensor would gather the
+    whole row.  The shift is a constant of the gradient, the softmax."""
+    m = torch.amax(x.detach(), dim=-1, keepdim=True)
+    m = torch.where(torch.isinf(m), 0.0, m)
+    e = constrain(torch.exp(x - m), "batch", "seq", "vocab")  # its gradient stays sharded too
+    return torch.log(finish_partial(torch.sum(e, dim=-1))) + m[..., 0]
+
+
+def _sharded_ce(hidden: torch.Tensor, head: torch.Tensor, targets: torch.Tensor, *,
+                n_chunks: int = 8, ce_dtype=torch.float32) -> torch.Tensor:
+    """:func:`_chunked_ce` of a DTensor ``hidden``, in the reduction's
+    sharding-friendly form.  It chunks the sequence, every row at once, where
+    :func:`_chunked_ce` chunks the flattened tokens (a DTensor cannot split
+    a sharded dimension in two): the chunks hold as many tokens, and only
+    the order of the float32 sums differs.  The target's logit is selected
+    by a mask where :func:`_chunked_ce` gathers it (the same value, and a
+    gradient that keeps vocab-sharded logits sharded: DTensor's gather
+    backward fills a replicated zeros tensor of the logits' global shape),
+    and the logsumexp is :func:`_logsumexp`."""
+    s = hidden.shape[1]
+    n_chunks = max(1, min(n_chunks, s))
+    chunk = (s + n_chunks - 1) // n_chunks
+    if chunk * n_chunks != s:
+        pad = chunk * n_chunks - s
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=hidden.device)
+    for i in range(n_chunks):
+        hx, tx = hidden[:, i * chunk:(i + 1) * chunk], targets[:, i * chunk:(i + 1) * chunk]
+        logits = torch.matmul(hx, head).to(ce_dtype)
+        lse = _logsumexp(logits.float())
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        hit = constrain(vocab == tx[..., None], "batch", "seq", "vocab")
+        tgt = finish_partial(constrain(torch.where(hit, logits, 0.0), "batch", "seq", "vocab").sum(-1))
+        valid = tx >= 0
+        tot = tot + torch.sum(torch.where(valid, lse - tgt, 0.0))
+        cnt = cnt + torch.sum(valid)
+    return tot / torch.clamp(cnt, min=1)
+
+
 def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor, targets: torch.Tensor, *,
                 n_chunks: int = 8, ce_dtype=torch.float32) -> torch.Tensor:
     """Cross-entropy without materialising the full (T, V) logits.
 
     A fixed, Python-unrolled chunk count keeps the logits of one chunk,
     T/n_chunks x V, at a time in the forward pass; the float32 logsumexp
-    and the -1 (ignore) targets are the reference's."""
+    and the -1 (ignore) targets are the reference's.  A DTensor takes
+    :func:`_sharded_ce`."""
+    if isinstance(hidden, DTensor):
+        return _sharded_ce(hidden, head, targets, n_chunks=n_chunks, ce_dtype=ce_dtype)
     b, s, d = hidden.shape
     t = b * s
     hf = hidden.reshape(t, d)
@@ -313,7 +367,8 @@ def _write_kv(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor, v: torch.Tens
     s = k.shape[1]
     for cached, new in ((kc, k), (vc, v)):
         cached[:, :s] = new
-        cached[:, s:] = 0
+        if s < cached.shape[1]:
+            cached[:, s:].zero_()
 
 
 # ================================================================== prefill
@@ -327,7 +382,7 @@ def prefill(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, cache: 
     ``enc_frames`` (B, enc_len, D) first, into a cache made with that
     ``enc_len``.
     """
-    h = embed_inputs(params, cfg, inputs)
+    h = constrain(embed_inputs(params, cfg, inputs), "batch", "seq", "d_model")
     s = h.shape[1]
     for name in ("k", "shared_k"):
         if name in cache and s > cache[name].shape[2]:
@@ -352,6 +407,7 @@ def prefill(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, cache: 
             k = rope(k, positions, cfg.rope_theta)
             out = gqa_attention(q, k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
             h = h + torch.einsum("bshk,hkd->bsd", out, bp["wo"])
+            h = constrain(h, "batch", "seq", "d_model")
             _write_kv(cache["k"][i], cache["v"][i], k, v)
             if cp is not None:
                 xk, xv = _cross_kv(cp, enc_out)
@@ -360,18 +416,20 @@ def prefill(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, cache: 
                 cache["xv"][i] = xv
             f, _ = _ffn(h, bp, cfg)
             h = h + f
+            h = constrain(h, "batch", "seq", "d_model")
     elif cfg.family in ("ssm", "hybrid"):
         x0 = h
         for i, bp in enumerate(params["blocks"]):
             y, conv, ssm = mamba_prefill(rms_norm(h, bp["norm_in"], cfg.norm_eps), bp, cfg)
             h = h + y
+            h = constrain(h, "batch", "seq", "d_model")
             cache["conv"][i] = conv
             cache["ssm"][i] = ssm
             if _is_shared_site(cfg, i):
                 sp, site = params["shared"], i // cfg.hybrid_attn_every
                 q, k, v = _shared_qkv(h, x0, sp, cfg, positions)
                 out = gqa_attention(q, k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-                h = _shared_out(h, out, sp, cfg)
+                h = constrain(_shared_out(h, out, sp, cfg), "batch", "seq", "d_model")
                 _write_kv(cache["shared_k"][site], cache["shared_v"][site], k, v)
         if "x0" in cache:
             cache["x0"][:] = x0[:, -1:]
@@ -385,6 +443,39 @@ def prefill(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, cache: 
 
 
 # ==================================================================== decode
+def _write_at(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+              start: torch.Tensor) -> torch.Tensor:
+    """Each row's entry at its position, into one rank's shard of a (B, T, K,
+    hd) cache that holds positions [start, start + T): a row whose position
+    lies elsewhere keeps its entries."""
+    t = cache.shape[1]
+    here = pos - start
+    idx = here.clamp(0, t - 1)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    mine = ((here >= 0) & (here < t))[:, None, None]
+    cache[rows, idx] = torch.where(mine, new, cache[rows, idx])
+    return cache
+
+
+def _write_sharded(cache, new, pos) -> None:
+    """``cache[rows, pos] = new`` for a DTensor cache whose batch, length
+    and heads may be sharded (the flash-decoding split of the length over
+    `model`, ``launch.specs.cache_spec_tree``): each rank writes the rows
+    whose positions its shard holds.  DTensor has no in-place sharding rule
+    for the indexed write."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, t = cache.device_mesh, cache.shape[1]
+    splits = math.prod(mesh.size(i) for i, p in enumerate(cache.placements) if p.is_shard(1))
+    starts = torch.arange(0, t, t // splits, device=cache.device)  # each shard's first position
+    starts = DTensor.from_local(starts, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    starts = starts.redistribute(mesh, [Shard(0) if p.is_shard(1) else Replicate()
+                                        for p in cache.placements])
+    roles = {"batch": 0, "len": 1, "heads": 2}
+    map_shards(_write_at, (cache, new, pos, starts),
+               (roles, {"batch": 0, "heads": 1}, {"batch": 0}, {"len": 0}), roles)
+
+
 def decode_step(params: ModelParams, cfg: ModelConfig, token: torch.Tensor, cache: dict):
     """One decode step.  token: (B,1) int -> (logits (B,V), the cache).
 
@@ -395,15 +486,19 @@ def decode_step(params: ModelParams, cfg: ModelConfig, token: torch.Tensor, cach
     write, a torch index raises.  The ssm and hybrid families' recurrent
     state is replaced in place.
     """
-    h = embed_inputs(params, cfg, token)
+    h = constrain(embed_inputs(params, cfg, token), "batch", "seq", "d_model")
     pos = cache["pos"].long()  # (B,)
     b_rows = torch.arange(h.shape[0], device=h.device)
     positions = pos[:, None]  # (B,1) for RoPE
 
     def attend(q, k, v, kl, vl):
         """Write this step's k, v at each row's position and attend the row's length."""
-        kl[b_rows, pos] = k[:, 0]
-        vl[b_rows, pos] = v[:, 0]
+        if isinstance(kl, DTensor):
+            _write_sharded(kl, k[:, 0], pos)
+            _write_sharded(vl, v[:, 0], pos)
+        else:
+            kl[b_rows, pos] = k[:, 0]
+            vl[b_rows, pos] = v[:, 0]
         return decode_attention(q, kl, vl, pos + 1)
 
     if cfg.family in _ATTN_FAMILIES:
@@ -415,6 +510,7 @@ def decode_step(params: ModelParams, cfg: ModelConfig, token: torch.Tensor, cach
             k = rope(k, positions, cfg.rope_theta)
             out = attend(q, k, v, cache["k"][i], cache["v"][i])
             h = h + torch.einsum("bshk,hkd->bsd", out, bp["wo"])
+            h = constrain(h, "batch", "seq", "d_model")
             if cp is not None:  # against the encoder's keys and values of the prefill
                 xq = torch.einsum("bsd,dhk->bshk", rms_norm(h, cp["xattn_norm"], cfg.norm_eps),
                                   cp["xwq"])
@@ -423,19 +519,21 @@ def decode_step(params: ModelParams, cfg: ModelConfig, token: torch.Tensor, cach
                 h = h + torch.einsum("bshk,hkd->bsd", xout, cp["xwo"])
             f, _ = _ffn(h, bp, cfg)
             h = h + f
+            h = constrain(h, "batch", "seq", "d_model")
     elif cfg.family in ("ssm", "hybrid"):
         x0 = h  # this token's embedding, as the forward feeds each position its own
         for i, bp in enumerate(params["blocks"]):
             state = {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
             y, st = mamba_decode_step(rms_norm(h, bp["norm_in"], cfg.norm_eps), state, bp, cfg)
             h = h + y
+            h = constrain(h, "batch", "seq", "d_model")
             cache["conv"][i] = st["conv"]
             cache["ssm"][i] = st["ssm"]
             if _is_shared_site(cfg, i):
                 sp, site = params["shared"], i // cfg.hybrid_attn_every
                 q, k, v = _shared_qkv(h, x0, sp, cfg, positions)
                 out = attend(q, k, v, cache["shared_k"][site], cache["shared_v"][site])
-                h = _shared_out(h, out, sp, cfg)
+                h = constrain(_shared_out(h, out, sp, cfg), "batch", "seq", "d_model")
         if "x0" in cache:
             cache["x0"][:] = x0
     else:

@@ -14,8 +14,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
-from ..distributed.sharding import constrain
+from ..distributed.sharding import constrain, finish_partial, map_shards
 
 __all__ = [
     "rms_norm",
@@ -29,6 +30,11 @@ __all__ = [
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Normalise in float32, cast back, then scale in the model dtype."""
+    if isinstance(x, DTensor):  # partial sums completed first; a sharded width's sum too
+        x = finish_partial(x)
+        x32 = x.float()
+        var = finish_partial(torch.sum(x32 * x32, dim=-1, keepdim=True)) / x.shape[-1]
+        return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
@@ -71,10 +77,42 @@ def causal_mask_bias(s_q: int, s_k: int, q_offset: int = 0, dtype=torch.float32,
     return torch.where(kj <= qi, zero, float("-inf")).to(dtype)
 
 
+def _kv_splits_heads(q: torch.Tensor, n_kv: int) -> bool:
+    """Whether ``q`` is a DTensor whose head dim is sharded over a mesh axis
+    whose size the KV head count does not divide.  A DTensor shards one
+    tensor dimension per mesh axis, so such heads cannot be viewed as (K, G)
+    while sharded (XLA shards the two as tiles of the axis)."""
+    return isinstance(q, DTensor) and any(
+        p.is_shard(2) and n_kv % q.device_mesh.size(i) for i, p in enumerate(q.placements))
+
+
 def _split_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
-    """(B, S, H, d) -> (B, S, K, G, d) with H = K*G."""
+    """(B, S, H, d) -> (B, S, K, G, d) with H = K*G; heads sharded where K
+    cannot follow (:func:`_kv_splits_heads`) are gathered first."""
     b, s, h, d = q.shape
+    if _kv_splits_heads(q, n_kv):
+        q = q.redistribute(q.device_mesh, [Replicate() if p.is_shard(2) else p for p in q.placements])
     return q.reshape(b, s, n_kv, h // n_kv, d)
+
+
+def _repeat_kv(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, T, K, d) -> (B, T, K*G, d): each query head its own copy of its KV head."""
+    b, n, kh, d = t.shape
+    return t[:, :, :, None, :].expand(b, n, kh, groups, d).reshape(b, n, kh * groups, d)
+
+
+_HEADS = {"batch": 0, "heads": 2}
+
+
+def _sharded_attention(q, k, v, **kw) -> torch.Tensor:
+    """:func:`gqa_attention` of DTensors, rank by rank (``map_shards``):
+    attention is independent per batch row and per head.  Each KV head is
+    repeated per query head where the KV heads cannot follow q's head
+    sharding (:func:`_kv_splits_heads`)."""
+    h, n_kv = q.shape[2], k.shape[2]
+    if _kv_splits_heads(q, n_kv):
+        k, v = _repeat_kv(k, h // n_kv), _repeat_kv(v, h // n_kv)
+    return map_shards(gqa_attention, (q, k, v), (_HEADS,) * 3, _HEADS, **kw)
 
 
 def _naive_attention(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
@@ -163,6 +201,9 @@ def gqa_attention(
     sm_dtype=torch.float32,
 ) -> torch.Tensor:
     """Grouped-query attention.  q: (B,S,H,d), k/v: (B,T,K,d) -> (B,S,H,d)."""
+    if isinstance(q, DTensor):
+        return _sharded_attention(q, k, v, causal=causal, q_offset=q_offset, impl=impl, chunk=chunk,
+                                  sm_dtype=sm_dtype)
     b, s, h, d = q.shape
     n_kv = k.shape[2]
     qg = _split_gqa(q, n_kv)
@@ -184,7 +225,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
     q: (B,1,H,d); k/v_cache: (B,T,K,d); length: () or (B,) valid lengths —
     per-row lengths support continuous batching (rows at different depths).
+    A DTensor cache whose length is not split runs rank by rank, each rank
+    its rows and the cache's heads (``map_shards``); one whose length is
+    split over a mesh axis (flash-decoding) is left to DTensor, which then
+    reduces the softmax and P·V over that axis.
     """
+    if isinstance(k_cache, DTensor) and not any(p.is_shard(1) for p in k_cache.placements):
+        heads = {"batch": 0, "heads": 2}
+        if isinstance(length, torch.Tensor):
+            return map_shards(decode_attention, (q, k_cache, v_cache, length),
+                              (heads, heads, heads, {"batch": 0}), heads, lead=1)
+        return map_shards(decode_attention, (q, k_cache, v_cache), (heads,) * 3, heads, lead=1,
+                          length=length)
     b, _, h, d = q.shape
     n_kv = k_cache.shape[2]
     qg = _split_gqa(q, n_kv)

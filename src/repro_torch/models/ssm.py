@@ -16,9 +16,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import constrain
+from ..distributed.sharding import constrain, map_shards
 from .ops import rms_norm
 
 __all__ = ["ssd_chunked", "causal_conv1d", "mamba_mixer", "mamba_prefill",
@@ -86,12 +87,21 @@ def ssd_chunked(
     return y
 
 
+#: the SSD scan's independent axes: batch rows and heads (B and C are shared
+#: by the heads of a row)
+_SSD_ROLES = ({"batch": 0, "heads": 2}, {"batch": 0, "heads": 2}, {"heads": 0}, {"batch": 0},
+              {"batch": 0}, {"heads": 0})
+
+
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv. x: (B,S,C), w: (K,C) -> (B,S,C), silu applied.
 
     ``F.conv1d`` with one group per channel over a left pad of K-1, weight
     ``w.T[:, None, :]``; like JAX's convolution it is a cross-correlation, so
     neither flips the kernel."""
+    if isinstance(x, DTensor):  # independent per batch row and channel: each rank its shards
+        return map_shards(causal_conv1d, (x, w, bias), ({"batch": 0, "chan": 2}, {"chan": 1},
+                                                         {"chan": 0}), {"batch": 0, "chan": 2})
     k, c = w.shape
     xp = F.pad(x.transpose(1, 2), (k - 1, 0))  # (B,C,S+K-1)
     out = F.conv1d(xp, w.T[:, None, :].to(x.dtype), groups=c).transpose(1, 2)
@@ -122,9 +132,14 @@ def mamba_mixer(x: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
     if cfg.attn_impl == "pallas":
         from ..kernels.ssd_scan import ops as ssd_ops
 
-        y = ssd_ops.ssd_scan(xh, dt, A, B_, C_, params["D_skip"], chunk=cfg.ssm.chunk)
+        scan = ssd_ops.ssd_scan
     else:
-        y = ssd_chunked(xh, dt, A, B_, C_, params["D_skip"], chunk=cfg.ssm.chunk)
+        scan = ssd_chunked
+    args = (xh, dt, A, B_, C_, params["D_skip"])
+    if isinstance(xh, DTensor):  # each rank scans its batch rows and heads
+        y = map_shards(scan, args, _SSD_ROLES, _SSD_ROLES[0], chunk=cfg.ssm.chunk)
+    else:
+        y = scan(*args, chunk=cfg.ssm.chunk)
     y = y.reshape(b, s, di)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
     return torch.matmul(y, params["out_proj"])
@@ -167,7 +182,12 @@ def mamba_prefill(x: torch.Tensor, params, cfg: ModelConfig):
     C_c = causal_conv1d(C_, params["conv_C"], params["conv_C_b"])
     xh = xin_c.reshape(b, s, hds, p)
     A = -torch.exp(params["A_log"].float())
-    y, hstate = _ssd_with_state(xh, dt, A, B_c, C_c, params["D_skip"], cfg.ssm.chunk)
+    args = (xh, dt, A, B_c, C_c, params["D_skip"])
+    if isinstance(xh, DTensor):
+        y, hstate = map_shards(_ssd_with_state, args, _SSD_ROLES,
+                               (_SSD_ROLES[0], {"batch": 0, "heads": 1}), chunk=cfg.ssm.chunk)
+    else:
+        y, hstate = _ssd_with_state(*args, chunk=cfg.ssm.chunk)
     y = y.reshape(b, s, di)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
     conv_state = torch.cat([xin[:, -k1:], B_[:, -k1:], C_[:, -k1:]], dim=-1)

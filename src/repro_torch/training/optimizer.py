@@ -23,11 +23,13 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import TrainConfig
 from ..tree import leaf_groups, tree_map
 
-__all__ = ["OptState", "init_opt_state", "adamw_step", "lr_schedule", "global_norm"]
+__all__ = ["OptState", "abstract_opt_state", "init_opt_state", "adamw_step", "lr_schedule",
+           "global_norm"]
 
 
 class OptState(NamedTuple):
@@ -56,6 +58,19 @@ def init_opt_state(params) -> OptState:
     )
 
 
+def abstract_opt_state(params_abstract) -> OptState:
+    """The optimizer state of a parameter tree on the meta device: float32
+    master/m/v of the parameters' shapes and an int32 scalar step, no storage
+    (``repro/training/optimizer.py::abstract_opt_state``)."""
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")  # noqa: E731
+    return OptState(
+        master=tree_map(f32, params_abstract),
+        m=tree_map(f32, params_abstract),
+        v=tree_map(f32, params_abstract),
+        step=torch.empty((), dtype=torch.int32, device="meta"),
+    )
+
+
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g, _ in _tensors(tree)))
 
@@ -69,7 +84,13 @@ def lr_schedule(step: torch.Tensor, hp: TrainConfig) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_step(grads, params, opt: OptState, hp: TrainConfig):
-    """Returns (params in the model dtype, OptState, metrics), all updated in place."""
+    """Returns (params in the model dtype, OptState, metrics), all updated in place.
+
+    DTensor gradients are first redistributed to the master copy's
+    placements: with ZeRO-1 specs, a reduce-scatter over `data`; the updated
+    master copy is then gathered into the parameters by the copy."""
+    grads = tree_map(lambda g, m: g.redistribute(m.device_mesh, m.placements)
+                     if isinstance(g, DTensor) else g, grads, opt.master)
     step = opt.step + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(hp.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0) if hp.grad_clip else 1.0

@@ -56,21 +56,20 @@ def ref_mesh(shape, names):
     return types.SimpleNamespace(axis_names=names, devices=np.empty(shape))
 
 
-def batch_axes(names) -> tuple[str, ...]:
-    """As ``repro/launch/specs.py::rules_for``: the batch over (pod, data)."""
-    return tuple(a for a in ("pod", "data") if a in names) or ("data",)
-
-
 # ------------------------------------------------------------------ make_rules
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 @pytest.mark.parametrize("shape", sorted(MESHES))
 def test_make_rules_equals_reference(arch, shape):
+    """make_rules through launch.specs.rules_for (the batch over (pod, data)), as the
+    reference's launch/specs.py calls it."""
     from repro.configs import get_config as jget_config
-    from repro.distributed.sharding import make_rules as jmake_rules
+    from repro.launch.specs import rules_for as jrules_for
+
+    from repro_torch.launch.specs import rules_for
 
     names = MESHES[shape]
-    ours = make_rules(get_config(arch), AbstractMesh(shape, names), batch_axes=batch_axes(names))
-    theirs = jmake_rules(jget_config(arch), ref_mesh(shape, names), batch_axes=batch_axes(names))
+    ours = rules_for(get_config(arch), AbstractMesh(shape, names))
+    theirs = jrules_for(jget_config(arch), ref_mesh(shape, names))
     assert ours.rules == theirs.rules
 
 

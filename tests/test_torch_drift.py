@@ -102,6 +102,10 @@ PORTED = (
     "kernels/ssd_scan/kernel.py",
     "kernels/ssd_scan/ops.py",
     "kernels/ssd_scan/ref.py",
+    "launch/dryrun.py",
+    "launch/mesh.py",
+    "launch/specs.py",
+    "launch/steps.py",
     "models/__init__.py",
     "models/init.py",
     "models/model.py",
@@ -112,6 +116,7 @@ PORTED = (
     "roofline/__init__.py",
     "roofline/analysis.py",
     "roofline/codec.py",
+    "roofline/probes.py",
     "serving/__init__.py",
     "serving/engine.py",
     "training/__init__.py",
