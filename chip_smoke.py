@@ -114,22 +114,32 @@ Phases, each fatal on failure:
    2e-4 relative, K1 exact), and no jax, jaxlib or repro module imported;
 10. launch: (a) the dry run (repro_torch.launch.dryrun.run_cell) of
    qwen2.5-3b train_4k, decode_32k, prefill_32k with attn_impl="pallas"
-   and long_500k on the fake (16, 16) mesh, and mamba2-370m train_4k on
-   the fake (2, 16, 16) one, one spawned process a cell, in parallel, into
-   a temporary directory: every record ok (long_500k skipped), collective
-   bytes counted, model_flops equal to model_flops_for, the prefill's
-   trace through the flash-attention operator once per layer; their terms
-   and roofline_table_torch.render_table printed.  (b) The built steps at
-   full width on make_debug_mesh(), a one-rank NCCL (1, 1) mesh, random
-   bf16 weights from --seed, cut in traffic only: qwen2.5-3b's
-   build_prefill (attn_impl="pallas") over 8 x 8192 tokens, 36 K3 launches
-   all on wgmma, each held against the plain version on its first and last
-   256 query rows of every head, the logits bit-equal to a direct prefill();
+   and long_500k, granite-moe-3b-a800m train_4k (tensor parallelism inside
+   its 40 experts), phi3.5-moe-42b-a6.6b train_4k, prefill_32k with
+   attn_impl="pallas" and decode_32k (expert parallelism) and zamba2-7b
+   long_500k (a decode of one row, the cache length split over "data") on
+   the fake (16, 16) mesh, and mamba2-370m train_4k on the fake (2, 16, 16)
+   one, one spawned process a cell, in parallel, into a temporary directory: every record ok (a cell that
+   dryrun._skip_reason skips is skipped), collective bytes counted,
+   model_flops equal to model_flops_for, a pallas prefill's trace through
+   the flash-attention operator once per layer; their terms and
+   roofline_table_torch.render_table printed.  (b) The built steps at full
+   width on make_debug_mesh(), a one-rank NCCL (1, 1) mesh, random bf16
+   weights from --seed, cut in traffic only: qwen2.5-3b's build_prefill
+   (attn_impl="pallas") over 8 x 8192 tokens, 36 K3 launches all on
+   wgmma, each held against the plain version on its first and last 256
+   query rows of every head, the logits bit-equal to a direct prefill();
    its build_decode at batch 32 over an 8192-entry cache; mamba2-370m's
    build_train_step over 8 x 2048 tokens, the first loss within 1e-6 of
-   train_loss on the same weights and batch.  Each step: CUDA-event times
-   of 3 runs after a warm-up, its own dry run on a fake (1, 1) mesh (flops,
-   bytes, compute_s, memory_s, bottleneck), the dry run's peak bytes beside
+   train_loss on the same weights and batch.  Then, as DTensors
+   (launch.shard_args), granite-moe-3b-a800m's build_prefill over 8 x 4096
+   tokens (32 dispatch groups of 1024; 32 K3 launches, held as above), the
+   logits bit-equal to prefill() on plain tensors, and zamba2-7b's
+   build_decode of one row over a 131072-entry cache (long_500k cut in
+   cache length only), its logits bit-equal to decode_step() on plain
+   tensors.  Each step: CUDA-event times of 3 runs after a warm-up, its own
+   dry run on a fake (1, 1) mesh (flops, bytes, compute_s, memory_s,
+   bottleneck), the dry run's peak bytes beside
    torch.cuda.max_memory_allocated, and model_flops / (step_s * peak).
 
 The line before the last is one JSON object describing each kernel; the
@@ -272,15 +282,25 @@ MOE_PROMPTS = (100, 1024)  # granite: one dispatch group of group_size 1024 at m
 WHISPER_FRAMES, WHISPER_BATCH, WHISPER_PROMPTS = 1500, 4, (64, 448)  # 30 s; 448 target tokens
 WHISPER_PREFILLS = 2
 # phase 10 (a): the dry-run cells, traced on fake production meshes (arch,
-# shape, multi-pod, attn_impl); long_500k of a full-attention arch is skipped
+# shape, multi-pod, attn_impl); a cell that dryrun._skip_reason skips
+# (long_500k of a full-attention arch) is skipped
 LAUNCH_CELLS = (("qwen2.5-3b", "train_4k", False, None), ("qwen2.5-3b", "decode_32k", False, None),
                 ("qwen2.5-3b", "prefill_32k", False, "pallas"), ("mamba2-370m", "train_4k", True, None),
-                ("qwen2.5-3b", "long_500k", False, None))
+                ("qwen2.5-3b", "long_500k", False, None), ("granite-moe-3b-a800m", "train_4k", False, None),
+                ("phi3.5-moe-42b-a6.6b", "train_4k", False, None),
+                ("phi3.5-moe-42b-a6.6b", "prefill_32k", False, "pallas"),
+                ("phi3.5-moe-42b-a6.6b", "decode_32k", False, None), ("zamba2-7b", "long_500k", False, None))
 # phase 10 (b): the built steps at full width on a one-rank (1, 1) mesh, cut
 # in traffic only: (arch, builder's shape (name, seq, batch, kind), attn_impl)
 BUILT_PREFILL = ("qwen2.5-3b", ("prefill_8k", 8192, 8, "prefill"), "pallas")
 BUILT_DECODE = ("qwen2.5-3b", ("decode_8k", 8192, 32, "decode"), "naive")
 BUILT_TRAIN = ("mamba2-370m", ("train_2k", TRAIN_SEQ, TRAIN_BATCH, "train"), "naive")
+# ... and the sharded paths, as DTensors on the same mesh: granite's prefill
+# through K3 (32 dispatch groups of 1024 tokens), and zamba2's decode of one
+# row, the long_500k path cut in cache length only (524288 entries of 13
+# shared sites would take 98 GB)
+BUILT_MOE_PREFILL = ("granite-moe-3b-a800m", ("prefill_4k", 4096, 8, "prefill"), "pallas")
+BUILT_LONG_DECODE = ("zamba2-7b", ("decode_128k", 131072, 1, "decode"), "naive")
 # the built prefill's K3 launches are held against the plain version on the
 # first and the last CHECK_ROWS query rows of every head (the plain version
 # of all 8192 rows would hold a 34 GB score matrix)
@@ -1676,14 +1696,16 @@ def launch_phase(dev, seed: int, smi: str) -> dict:
     from repro_torch.configs import SHAPES, ShapeConfig, get_config
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.launch import build_decode, build_prefill, build_train_step, make_debug_mesh
-    from repro_torch.models import init_cache, init_params, prefill, train_loss
+    from repro_torch.launch import (build_decode, build_prefill, build_train_step, make_debug_mesh,
+                                    shard_args)
+    from repro_torch.launch.dryrun import _skip_reason
+    from repro_torch.models import decode_step, init_cache, init_params, prefill, train_loss
     from repro_torch.roofline import model_flops_for
     from repro_torch.training.optimizer import init_opt_state
     from roofline_table_torch import render_table
 
     t0 = time.perf_counter()
-    built = (BUILT_PREFILL, BUILT_DECODE, BUILT_TRAIN)
+    built = (BUILT_PREFILL, BUILT_DECODE, BUILT_TRAIN, BUILT_MOE_PREFILL, BUILT_LONG_DECODE)
     with tempfile.TemporaryDirectory() as out_dir, ProcessPoolExecutor(
             max_workers=min(len(LAUNCH_CELLS) + len(built), max(1, (os.cpu_count() or 2) - 1)),
             mp_context=get_context("spawn")) as pool:
@@ -1694,13 +1716,13 @@ def launch_phase(dev, seed: int, smi: str) -> dict:
     dry_s = time.perf_counter() - t0
     for cell, rec in zip(LAUNCH_CELLS, recs):
         arch, shape, _, attn_impl = cell
-        if shape == "long_500k":
+        cfg = dataclasses.replace(get_config(arch), attn_impl=attn_impl or "naive")
+        if _skip_reason(cfg, SHAPES[shape]):
             assert rec["status"] == "skipped", rec
             say(f"[launch] {rec['cell']}: skipped ({rec['reason']})")
             continue
         assert rec["status"] == "ok", rec
         rl = rec["roofline"]
-        cfg = dataclasses.replace(get_config(arch), attn_impl=attn_impl or "naive")
         assert rl["model_flops"] == model_flops_for(cfg, SHAPES[shape]), rec["cell"]
         assert rl["collective_bytes"] > 0 and sum(rec["collectives_raw_scanned"]["counts"].values())
         if attn_impl == "pallas":
@@ -1821,11 +1843,83 @@ def launch_phase(dev, seed: int, smi: str) -> dict:
             f"{BUILT_LOSS_TOL})")
         del params, opt, batch
         torch.cuda.empty_cache()
+
+        # ---- granite-moe-3b-a800m prefill as DTensors: K3 through map_shards,
+        # the moe FFN through its sharded form (one rank holds every expert)
+        arch, shape, impl = BUILT_MOE_PREFILL
+        cfg = dataclasses.replace(get_config(arch), attn_impl=impl)
+        sc = ShapeConfig(*shape)
+        params = init_params(cfg, torch.Generator(dev).manual_seed(seed), device=dev)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (sc.global_batch, sc.seq_len))).to(dev)
+        fn, _, ins, _, _ = build_prefill(cfg, mesh, sc)
+        args = shard_args((params, tokens, init_cache(cfg, sc.global_batch, sc.seq_len, device=dev)), ins)
+        first = len(errs)
+        fops.reset_kernel_launches()
+        with mock.patch.object(fops, "flash_attention_call", held):
+            logits, _ = fn(*args)
+        moe_launches = fops.KERNEL_LAUNCHES["flash_attention"]
+        by_instance = dict(fops.INSTANCE_LAUNCHES)
+        assert moe_launches == cfg.n_layers and by_instance == {"wgmma": cfg.n_layers, "cuda_cores": 0}, \
+            (moe_launches, by_instance)
+        direct, _ = prefill(params, cfg, tokens, init_cache(cfg, sc.global_batch, sc.seq_len, device=dev))
+        logits = logits.to_local()
+        # a one-rank mesh holds every tensor whole: the same ops on the same
+        # tensors as plain prefill(), so the same bits
+        assert torch.equal(logits, direct), \
+            f"the sharded prefill's logits != prefill()'s: max |diff| {float((logits - direct).abs().max())}"
+        del direct
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = step_ms(lambda: fn(*args))
+        steps["moe_prefill"] = {"ms": ms, "peak": torch.cuda.max_memory_allocated(dev)}
+        say(f"[launch] built prefill {arch} {sc} as DTensors: {moe_launches} K3 launches, by instance "
+            f"{by_instance}, each held against the plain version on its first and last {CHECK_ROWS} "
+            f"query rows of every head: max |diff| {max(errs[first:]):.3g} (tolerance "
+            f"{ATTN_TOL[torch.bfloat16]}); logits bit-equal to prefill() on plain tensors")
+        del params, args, logits, tokens
+        torch.cuda.empty_cache()
+
+        # ---- zamba2-7b decode of one row over a long cache, as DTensors
+        arch, shape, impl = BUILT_LONG_DECODE
+        cfg = dataclasses.replace(get_config(arch), attn_impl=impl)
+        sc = ShapeConfig(*shape)
+        params = init_params(cfg, torch.Generator(dev).manual_seed(seed), device=dev)
+        fn, _, ins, _, _ = build_decode(cfg, mesh, sc)
+        cache = init_cache(cfg, sc.global_batch, sc.seq_len, device=dev)
+        gen = torch.Generator(dev).manual_seed(seed + 2)
+        for name in ("shared_k", "shared_v", "conv", "ssm"):
+            cache[name].normal_(generator=gen)
+        cache["pos"].fill_(sc.seq_len - 1)  # each step attends to the whole cache
+        token = torch.from_numpy(rng.integers(0, cfg.vocab, (sc.global_batch, 1))).to(dev)
+        # the DTensors hold the plain tensors' storage: one copy of the cache
+        dparams, dtoken, dcache = shard_args((params, token, cache), ins)
+        assert dcache["shared_k"].to_local().data_ptr() == cache["shared_k"].data_ptr()
+        state = {name: cache[name].clone() for name in ("conv", "ssm")}
+        want, _ = decode_step(params, cfg, token, dict(cache))
+        for name, saved in state.items():  # the plain step replaced the recurrent state in place
+            cache[name].copy_(saved)
+        got, _ = fn(dparams, dtoken, dcache)
+        got = got.to_local()
+        assert torch.equal(got, want), \
+            f"the sharded decode's logits != decode_step()'s: max |diff| {float((got - want).abs().max())}"
+        pos = dcache["pos"]
+
+        def rewind():  # the same position every step; the recurrent state runs on
+            dcache["pos"] = pos
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = step_ms(lambda: fn(dparams, dtoken, dcache), before=rewind)
+        steps["long_decode"] = {"ms": ms, "peak": torch.cuda.max_memory_allocated(dev)}
+        say(f"[launch] built decode {arch} {sc} as DTensors: one row over {sc.seq_len} cache entries "
+            f"({sum(cache[n].numel() * cache[n].element_size() for n in cache) / 1e9:.2f} GB of cache), "
+            f"logits bit-equal to decode_step() on plain tensors")
+        del params, dparams, cache, dcache, got, want, state
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
     for (key, (arch, shape, _)), rec in zip((("prefill", BUILT_PREFILL), ("decode", BUILT_DECODE),
-                                             ("train", BUILT_TRAIN)), debug):
+                                             ("train", BUILT_TRAIN), ("moe_prefill", BUILT_MOE_PREFILL),
+                                             ("long_decode", BUILT_LONG_DECODE)), debug):
         st, rl = steps[key], rec["roofline"]
         step_s = statistics.median(st["ms"]) / 1e3
         st.update(step_s=step_s, mfu=rl["model_flops"] / (step_s * HW["peak_flops"]),
@@ -1840,7 +1934,8 @@ def launch_phase(dev, seed: int, smi: str) -> dict:
             f"{st['peak'] / 1e9:.3f} GB (torch.cuda.max_memory_allocated)")
     seconds = time.perf_counter() - t0
     say(f"[launch] phase 10 in {seconds:.2f} s (dry runs {dry_s:.2f} s)")
-    return {"launches": launches, "k3_err": max(errs), "steps": steps, "seconds": seconds}
+    return {"launches": launches, "moe_launches": moe_launches, "k3_err": max(errs), "steps": steps,
+            "seconds": seconds}
 
 
 def main() -> int:
@@ -2049,7 +2144,8 @@ def main() -> int:
     k3_paths = {"serve qwen2.5-3b": serve["launches"],
                 **{arch: f["launches"] for arch, f in families.items() if "k3_err" in f},
                 "run_torch.py": dist9["harness"]["flash_attention"]["launches"],
-                "launch prefill_8k (phase 10)": launch["launches"]}
+                "launch prefill_8k (phase 10)": launch["launches"],
+                "launch granite prefill_4k as DTensors (phase 10)": launch["moe_launches"]}
     assert all(k3_paths.values()), k3_paths
     kernels.append({
         "name": "flash_attention",

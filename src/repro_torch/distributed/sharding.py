@@ -24,6 +24,7 @@ differ from JAX's.
 from __future__ import annotations
 
 import functools
+import math
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -42,6 +43,7 @@ __all__ = [
     "constrain",
     "current_rules",
     "finish_partial",
+    "fit_placements",
     "logical_to_spec",
     "make_rules",
     "map_shards",
@@ -155,7 +157,27 @@ def constrain(x: torch.Tensor, *logical: str | None) -> torch.Tensor:
 
     if not isinstance(x, DTensor):
         return x
-    return _Constrain.apply(x, r.mesh, r.sharding(*logical).placements(x.ndim))
+    return _Constrain.apply(x, r.mesh, fit_placements(r.sharding(*logical).placements(x.ndim), x.shape,
+                                                       r.mesh))
+
+
+def fit_placements(placements: tuple, shape, mesh) -> tuple:
+    """``placements`` for a tensor of ``shape``, with the shards DTensor
+    cannot take made ``Replicate``: those over a mesh axis of size 1, which
+    split nothing, and a dimension's outermost mesh axes until the product
+    of those left divides its size (as ``batch_partition`` falls back from
+    (pod, data) to data to none).  XLA pads a dimension its axes do not
+    divide, so that one device holds a batch of one; DTensor would split
+    it unevenly, and its view rules refuse to reshape a sharded dimension of
+    size 1 at all."""
+    from torch.distributed.tensor import Replicate
+
+    out = [Replicate() if mesh.size(i) == 1 else p for i, p in enumerate(placements)]
+    for d in {p.dim for p in out if p.is_shard()}:
+        axes = [i for i, p in enumerate(out) if p.is_shard(d)]
+        while axes and shape[d] % math.prod(mesh.size(i) for i in axes):
+            out[axes.pop(0)] = Replicate()
+    return tuple(out)
 
 
 class _Constrain(torch.autograd.Function):
@@ -200,8 +222,10 @@ def map_shards(fn, args: tuple, roles: tuple, out_roles, *, lead: int = 0, **kwa
     gathered.  Every argument is then sharded on the same mesh axes along
     its dims of the same names and replicated on the others; a plain tensor
     counts as replicated.  ``out_roles`` places the output (a tuple of them, the
-    outputs of a function that returns a tuple)."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    outputs of a function that returns a tuple).  An argument that is whole
+    on an axis that splits the lead (a weight beside batch rows) takes its
+    gradient there as a partial sum, completed where DTensor next needs it."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = args[lead].device_mesh
@@ -210,6 +234,12 @@ def map_shards(fn, args: tuple, roles: tuple, out_roles, *, lead: int = 0, **kwa
 
     def placements(named: dict) -> tuple:
         return tuple(Shard(named[r]) if r in named else Replicate() for r in axis_role)
+
+    def grad_placements(named: dict) -> tuple:
+        # an argument whole on an axis that splits the lead serves every
+        # rank's slice of it: its gradient there is a partial sum
+        return tuple(Shard(named[r]) if r in named else Replicate() if r is None else Partial()
+                     for r in axis_role)
 
     in_placements = tuple(placements(r) for r in roles)
     local_args = []
@@ -222,7 +252,8 @@ def map_shards(fn, args: tuple, roles: tuple, out_roles, *, lead: int = 0, **kwa
     else:
         out_placements = list(placements(out_roles))
     run = local_map(functools.partial(fn, **kwargs), out_placements=out_placements,
-                    in_placements=in_placements, device_mesh=mesh)
+                    in_placements=in_placements,
+                    in_grad_placements=tuple(grad_placements(r) for r in roles), device_mesh=mesh)
     return run(*local_args)
 
 

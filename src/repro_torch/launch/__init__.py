@@ -3,7 +3,7 @@ builders (the port of ``repro.launch``); the dry run is
 ``python -m repro_torch.launch.dryrun``."""
 
 from .mesh import make_debug_mesh, make_production_mesh, mesh_axis_sizes
-from .steps import build_cell, build_decode, build_prefill, build_train_step
+from .steps import build_cell, build_decode, build_prefill, build_train_step, shard_args
 
 __all__ = [
     "build_cell",
@@ -13,4 +13,5 @@ __all__ = [
     "make_debug_mesh",
     "make_production_mesh",
     "mesh_axis_sizes",
+    "shard_args",
 ]

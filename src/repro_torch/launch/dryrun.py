@@ -247,12 +247,12 @@ def _to_fake(args, shardings, mesh):
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
-    from ..distributed.sharding import NamedSharding
+    from ..distributed.sharding import NamedSharding, fit_placements
     from ..models import ModelParams
     from ..tree import tree_map
 
     def plan(t, sh):  # before the fake mode: local shapes are computed on real numbers
-        placements = NamedSharding(mesh, sh.spec).placements(t.ndim)
+        placements = fit_placements(NamedSharding(mesh, sh.spec).placements(t.ndim), t.shape, mesh)
         local, _ = compute_local_shape_and_global_offset(t.shape, mesh, placements)
         return t, placements, tuple(local)
 
@@ -271,11 +271,7 @@ def _to_fake(args, shardings, mesh):
         out = []
         for a, p in zip(args, plans):
             tree = tree_map(fake, p, is_leaf=is_plan)
-            if isinstance(a, ModelParams):
-                tree = ModelParams(tree["embed"], tree["blocks"], tree["final_norm"], tree.get("lm_head"),
-                                   shared=tree.get("shared"), enc_blocks=tree.get("enc_blocks"),
-                                   enc_final_norm=tree.get("enc_final_norm"), cross=tree.get("cross"))
-            out.append(tree)
+            out.append(ModelParams.from_tree(tree) if isinstance(a, ModelParams) else tree)
     return mode, out
 
 
@@ -285,7 +281,6 @@ def trace_cell(cfg, mesh, shape, hp=None) -> dict:
     DTensors, and return its per-device counts.  A failure raises
     :class:`CellFailed`, naming the op in flight."""
     from torch.distributed.tensor.debug import CommDebugMode
-    from torch.distributed.tensor.experimental import implicit_replication
 
     from .steps import build_cell
 
@@ -294,7 +289,7 @@ def trace_cell(cfg, mesh, shape, hp=None) -> dict:
     cost, wire, comm = _Cost(), _Wire(), CommDebugMode()
     t0 = time.perf_counter()
     try:
-        with fake_mode, implicit_replication(), comm, wire, cost:
+        with fake_mode, comm, wire, cost:
             out = fn(*fargs)
     except Exception as e:
         raise CellFailed(cost.op, f"{type(e).__name__}: {e}") from e

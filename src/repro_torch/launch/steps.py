@@ -20,17 +20,29 @@ and decode write into the cache they are given, which they return.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig, TrainConfig
 from ..distributed.sharding import PartitionSpec as P
-from ..distributed.sharding import axis_rules, named_shardings
-from ..models import abstract_params, decode_step, prefill, train_loss
+from ..distributed.sharding import AxisRules, axis_rules, fit_placements, named_shardings
+from ..models import ModelParams, abstract_params, decode_step, prefill, train_loss
 from ..training.optimizer import abstract_opt_state, adamw_step
 from ..tree import tree_map
 from . import specs as S
 
-__all__ = ["build_train_step", "build_prefill", "build_decode", "build_cell"]
+__all__ = ["build_train_step", "build_prefill", "build_decode", "build_cell", "shard_args"]
+
+
+@contextlib.contextmanager
+def _sharded(rules: AxisRules):
+    """The cell's rules, and plain tensors made inside the step (positions,
+    masks) taken as replicated beside DTensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with axis_rules(rules), implicit_replication():
+        yield
 
 
 def _grads(params, accum: int):
@@ -48,7 +60,7 @@ def build_train_step(cfg: ModelConfig, hp: TrainConfig, mesh, shape: ShapeConfig
     accum = max(1, hp.grad_accum)
 
     def train_step(params, opt, batch):
-        with axis_rules(rules):
+        with _sharded(rules):
             params.requires_grad_(True)
             params.zero_grad(set_to_none=True)
             if accum == 1:
@@ -95,11 +107,11 @@ def build_prefill(cfg: ModelConfig, mesh, shape: ShapeConfig):
 
     if cfg.is_encoder_decoder:
         def serve_prefill(params, inputs, cache, enc_frames):
-            with axis_rules(rules):
+            with _sharded(rules):
                 return prefill(params, cfg, inputs, cache, enc_frames=enc_frames)
     else:
         def serve_prefill(params, inputs, cache):
-            with axis_rules(rules):
+            with _sharded(rules):
                 return prefill(params, cfg, inputs, cache)
 
     pspecs = S.param_specs(cfg, mesh, rules)
@@ -119,7 +131,7 @@ def build_decode(cfg: ModelConfig, mesh, shape: ShapeConfig):
     cspecs = S.cache_spec_tree(cfg, mesh, cache_abs)
 
     def serve_step(params, token, cache):
-        with axis_rules(rules):
+        with _sharded(rules):
             return decode_step(params, cfg, token, cache)
 
     pspecs = S.param_specs(cfg, mesh, rules)
@@ -130,6 +142,24 @@ def build_decode(cfg: ModelConfig, mesh, shape: ShapeConfig):
     out_shardings = (S.ns(mesh, _logits_spec(mesh, b)), named_shardings(cspecs, mesh))
     args = (abstract_params(cfg), token_abs, cache_abs)
     return serve_step, args, in_shardings, out_shardings, (2,)
+
+
+def shard_args(args, in_shardings) -> tuple:
+    """A builder's arguments as DTensors with the placements of its
+    ``in_shardings`` on their (real) mesh (``fit_placements``): every rank
+    passes the whole of each tensor and keeps its own shards
+    (``distribute_tensor``).  A
+    :class:`~repro_torch.models.ModelParams` comes back as one over DTensors."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def put(t, sh):
+        return distribute_tensor(t.detach(), sh.mesh,
+                                 fit_placements(sh.placements(t.ndim), t.shape, sh.mesh))
+
+    is_tensor = lambda v: isinstance(v, torch.Tensor)  # noqa: E731
+    return tuple(ModelParams.from_tree(tree_map(put, a.tree(), s, is_leaf=is_tensor))
+                 if isinstance(a, ModelParams) else tree_map(put, a, s, is_leaf=is_tensor)
+                 for a, s in zip(args, in_shardings))
 
 
 def build_cell(cfg: ModelConfig, mesh, shape: ShapeConfig, hp: TrainConfig | None = None):

@@ -111,6 +111,14 @@ class ModelParams(nn.Module):
             out["shared"] = self.shared.tree()
         return out
 
+    @classmethod
+    def from_tree(cls, tree: Mapping) -> "ModelParams":
+        """The parameters of a tree shaped like :meth:`tree`, its tensors held
+        as they are (DTensors, fake tensors)."""
+        return cls(tree["embed"], tree["blocks"], tree["final_norm"], tree.get("lm_head"),
+                   shared=tree.get("shared"), enc_blocks=tree.get("enc_blocks"),
+                   enc_final_norm=tree.get("enc_final_norm"), cross=tree.get("cross"))
+
     @torch.no_grad()
     def copy_from(self, tree: Mapping) -> None:
         """Copy a tree shaped like :meth:`tree` into the parameters, in place,

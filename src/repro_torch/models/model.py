@@ -21,7 +21,6 @@ token's, so that decode continues the forward.
 
 from __future__ import annotations
 
-import math
 from typing import Any
 
 import torch
@@ -34,7 +33,7 @@ from ..device import resolve_device
 from ..distributed.sharding import constrain, finish_partial, map_shards
 from .init import ModelParams, init_params, torch_dtype  # noqa: F401 (re-export)
 from .moe import moe_ffn
-from .ops import decode_attention, gqa_attention, rms_norm, rope, swiglu
+from .ops import decode_attention, gqa_attention, length_starts, rms_norm, rope, swiglu
 from .scan import layer_scan, maybe_cond
 from .ssm import init_ssm_state, mamba_decode_step, mamba_mixer, mamba_prefill
 
@@ -459,20 +458,12 @@ def _write_at(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
 
 def _write_sharded(cache, new, pos) -> None:
     """``cache[rows, pos] = new`` for a DTensor cache whose batch, length
-    and heads may be sharded (the flash-decoding split of the length over
-    `model`, ``launch.specs.cache_spec_tree``): each rank writes the rows
-    whose positions its shard holds.  DTensor has no in-place sharding rule
-    for the indexed write."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    mesh, t = cache.device_mesh, cache.shape[1]
-    splits = math.prod(mesh.size(i) for i, p in enumerate(cache.placements) if p.is_shard(1))
-    starts = torch.arange(0, t, t // splits, device=cache.device)  # each shard's first position
-    starts = DTensor.from_local(starts, mesh, [Replicate()] * mesh.ndim, run_check=False)
-    starts = starts.redistribute(mesh, [Shard(0) if p.is_shard(1) else Replicate()
-                                        for p in cache.placements])
+    and heads may be sharded (the flash-decoding split of the length,
+    ``launch.specs.cache_spec_tree``): each rank writes the rows whose
+    positions its shard holds.  DTensor has no in-place sharding rule for
+    the indexed write."""
     roles = {"batch": 0, "len": 1, "heads": 2}
-    map_shards(_write_at, (cache, new, pos, starts),
+    map_shards(_write_at, (cache, new, pos, length_starts(cache)),
                (roles, {"batch": 0, "heads": 1}, {"batch": 0}, {"len": 0}), roles)
 
 

@@ -25,6 +25,7 @@ __all__ = [
     "gqa_attention",
     "decode_attention",
     "causal_mask_bias",
+    "length_starts",
 ]
 
 
@@ -32,9 +33,10 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     """Normalise in float32, cast back, then scale in the model dtype."""
     if isinstance(x, DTensor):  # partial sums completed first; a sharded width's sum too
         x = finish_partial(x)
-        x32 = x.float()
-        var = finish_partial(torch.sum(x32 * x32, dim=-1, keepdim=True)) / x.shape[-1]
-        return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
+        if any(p.is_shard(x.ndim - 1) for p in x.placements):
+            x32 = x.float()
+            var = finish_partial(torch.sum(x32 * x32, dim=-1, keepdim=True)) / x.shape[-1]
+            return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
@@ -219,6 +221,56 @@ def gqa_attention(
     return out.reshape(b, s, h, d)
 
 
+def length_starts(cache: torch.Tensor) -> torch.Tensor:
+    """The first position each rank's shard of a (B, T, K, hd) DTensor cache
+    holds: a DTensor sharded like the cache's length (dim 1), one entry a
+    shard (an equal split, as ``launch.specs.cache_spec_tree`` makes it)."""
+    from torch.distributed.tensor import Shard
+
+    mesh, t = cache.device_mesh, cache.shape[1]
+    splits = math.prod(mesh.size(i) for i, p in enumerate(cache.placements) if p.is_shard(1))
+    starts = torch.arange(0, t, t // splits, device=cache.device)
+    starts = DTensor.from_local(starts, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return starts.redistribute(mesh, [Shard(0) if p.is_shard(1) else Replicate()
+                                      for p in cache.placements])
+
+
+def _decode_part(q, k_cache, v_cache, length, start):
+    """One rank's stretch [start, start + T) of a length-split cache: per
+    batch row and head, the largest score ``m``, the sum of exponentials
+    ``l`` and the unnormalised float32 P·V ``o``, each with a leading dim of
+    one for the stretch."""
+    b, _, h, d = q.shape
+    n_kv, t = k_cache.shape[2], k_cache.shape[1]
+    qg = q.reshape(b, 1, n_kv, h // n_kv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k_cache).float() * (1.0 / math.sqrt(d))
+    valid = (start + torch.arange(t, device=q.device))[None, :] < length[:, None]
+    scores = scores.masked_fill(~valid[:, None, None, None, :], float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - torch.where(torch.isfinite(m), m, 0.0))
+    o = torch.einsum("bkgst,btkd->bskgd", p, v_cache.float())
+    return m.reshape(1, b, h), p.sum(-1).reshape(1, b, h), o.reshape(1, b, h, d)
+
+
+def _split_decode_attention(q, k_cache, v_cache, length) -> torch.Tensor:
+    """:func:`decode_attention` of a DTensor cache whose length is split
+    over mesh axes (flash-decoding): each rank attends to its own stretch
+    (``map_shards``), and the stretches are merged by their log-sum-exp, so
+    that only the per-head statistics cross the wire."""
+    b, _, h, d = q.shape
+    length = torch.as_tensor(length, device=q.device).broadcast_to((b,))
+    cache = {"batch": 0, "len": 1, "heads": 2}
+    part = {"len": 0, "batch": 1, "heads": 2}
+    m, l, o = map_shards(_decode_part, (q, k_cache, v_cache, length, length_starts(k_cache)),
+                         ({"batch": 0, "heads": 2}, cache, cache, {"batch": 0}, {"len": 0}),
+                         (part, part, part), lead=1)
+    top = finish_partial(torch.amax(m, dim=0))
+    w = torch.exp(m - top)  # 0 for a stretch wholly past the row's length
+    total = finish_partial(torch.sum(l * w, dim=0))
+    out = finish_partial(torch.sum(o * w[..., None], dim=0)) / total[..., None]
+    return out.to(v_cache.dtype).reshape(b, 1, h, d)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      length) -> torch.Tensor:
     """Single-position attention against a cache.
@@ -227,10 +279,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     per-row lengths support continuous batching (rows at different depths).
     A DTensor cache whose length is not split runs rank by rank, each rank
     its rows and the cache's heads (``map_shards``); one whose length is
-    split over a mesh axis (flash-decoding) is left to DTensor, which then
-    reduces the softmax and P·V over that axis.
+    split over mesh axes takes :func:`_split_decode_attention`.
     """
-    if isinstance(k_cache, DTensor) and not any(p.is_shard(1) for p in k_cache.placements):
+    if isinstance(k_cache, DTensor):
+        if any(p.is_shard(1) for p in k_cache.placements):
+            return _split_decode_attention(q, k_cache, v_cache, length)
         heads = {"batch": 0, "heads": 2}
         if isinstance(length, torch.Tensor):
             return map_shards(decode_attention, (q, k_cache, v_cache, length),

@@ -17,6 +17,12 @@
   stack; a ``--attn-impl pallas`` trace calls the flash-attention operator
   once per attention site and never its plain version; a cell the
   reference skips is skipped.
+- The cells whose moe FFN or hybrid decode only DTensor's sharded forms
+  trace (granite-moe-3b-a800m and phi3.5-moe-42b-a6.6b, zamba2-7b
+  ``long_500k``) at published widths, cut to two layers: ``ok`` on the
+  (16, 16) mesh and one on (2, 16, 16), ``model_flops`` equal to the
+  reference's, and a pallas moe prefill through the kernel's operator once
+  a layer.
 
 Every process group (gloo for the real mesh, PyTorch's fake backend for the
 dry run) is made in a spawned process."""
@@ -365,6 +371,60 @@ def test_a_pallas_trace_calls_the_kernel_op_at_every_attention_site(dry):
     res, _ = dry
     assert res["pallas"]["ops"] == {"repro_torch::flash_attention": 3}
     assert res["plain_calls"] == 0
+
+
+#: cells the port's sharded moe FFN and hybrid decode trace, at published
+#: widths cut to two layers: (arch, shape, multi-pod, attn_impl)
+REPAIRED = [("granite-moe-3b-a800m", "train_4k", False, None),
+            ("phi3.5-moe-42b-a6.6b", "train_4k", False, None),
+            ("phi3.5-moe-42b-a6.6b", "prefill_32k", False, None),
+            ("phi3.5-moe-42b-a6.6b", "decode_32k", False, None),
+            ("zamba2-7b", "long_500k", False, None),
+            ("phi3.5-moe-42b-a6.6b", "decode_32k", True, None),
+            ("phi3.5-moe-42b-a6.6b", "prefill_32k", False, "pallas")]
+CUT = {"n_layers": 2}
+
+
+def _repaired_cell(cell: tuple, out_dir: str) -> dict:
+    from repro_torch.launch import dryrun
+
+    arch, shape, multi_pod, attn_impl = cell
+    return dryrun.run_cell(arch, shape, multi_pod, out_dir, attn_impl, overrides=CUT)
+
+
+@pytest.fixture(scope="module")
+def repaired(tmp_path_factory):
+    """run_cell of every REPAIRED cell, three spawned processes at a time
+    (each makes its own fake process group)."""
+    from concurrent.futures import ProcessPoolExecutor
+
+    out = str(tmp_path_factory.mktemp("repaired"))
+    with ProcessPoolExecutor(max_workers=3, mp_context=mp.get_context("spawn")) as pool:
+        recs = list(pool.map(_repaired_cell, REPAIRED, [out] * len(REPAIRED), timeout=600))
+    return dict(zip(REPAIRED, recs))
+
+
+@pytest.mark.parametrize("cell", REPAIRED[:-1], ids=lambda c: f"{c[0]}-{c[1]}-{'pod2x16x16' if c[2] else 'pod16x16'}")
+def test_moe_and_hybrid_cells_trace_on_the_production_meshes(cell, repaired):
+    from repro.configs import SHAPES as JSHAPES
+    from repro.configs import get_config as jget_config
+    from repro.roofline.analysis import model_flops_for as jmodel_flops_for
+
+    arch, shape, multi_pod, _ = cell
+    rec = repaired[cell]
+    assert rec["status"] == "ok", rec
+    assert rec["chips"] == (512 if multi_pod else 256)
+    jcfg = dataclasses.replace(jget_config(arch), **CUT)
+    assert rec["roofline"]["model_flops"] == jmodel_flops_for(jcfg, JSHAPES[shape])
+    assert rec["cost"]["flops"] > 0 and rec["collectives_raw_scanned"]["total_bytes"] > 0
+    assert sum(rec["collectives_raw_scanned"]["counts"].values()) > 0
+
+
+def test_a_pallas_moe_prefill_calls_the_kernel_op_once_a_layer(repaired):
+    rec = repaired[REPAIRED[-1]]
+    assert rec["status"] == "ok", rec
+    assert rec["attn_impl"] == "pallas"
+    assert rec["ops"] == {"repro_torch::flash_attention": CUT["n_layers"]}
 
 
 def test_cells_the_reference_skips_are_skipped(tmp_path):
