@@ -199,7 +199,9 @@ def test_harness_twin_prints_the_reference_lines_on_the_cpu(tmp_path):
     out = run_blocked(f"""
 import runpy
 import benchmarks.figures_torch
+import benchmarks.roofline_table_torch
 benchmarks.figures_torch.ART = {str(tmp_path / "art")!r}
+benchmarks.roofline_table_torch.ART = {str(tmp_path / "no_dryrun")!r}
 sys.argv = ["run_torch.py", "--device", "cpu"]
 runpy.run_path({str(ROOT / "benchmarks" / "run_torch.py")!r}, run_name="__main__")
 """, tmp_path)
