@@ -372,6 +372,68 @@ def test_precision_tool_edits_match_the_source_once():
             assert source.count(old) == 1 and old != new, name
 
 
+GATE_LAYERS = 3
+
+
+def gated_pass(scan):
+    """A reduced mamba2 (3 layers, chunk 32) scoring 2 x 4 chunks through the
+    per-layer gate around ``scan``; the gate."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.ssd_scan import gate as sg
+    from repro_torch.models import init_params, train_loss
+
+    cfg = dataclasses.replace(reduced(get_config("mamba2-370m"), n_layers=GATE_LAYERS),
+                              attn_impl="pallas")
+    assert cfg.ssm.chunk == 32
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    held = SyntheticLM(cfg.vocab, 4 * cfg.ssm.chunk, 2, seed=1).batch_for_step(0)
+    gate = sg.LayerGate(scan, sg.faulty_scans(sg.plain_split))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ss.ops, "ssd_scan", gate)
+        loss, _ = train_loss(params, cfg, {k: torch.from_numpy(v) for k, v in held.items()})
+    assert np.isfinite(float(loss))
+    assert [rec["chunks"] for rec in gate.layers] == [4] * GATE_LAYERS
+    return gate
+
+
+def test_layer_gate_holds_the_plain_split_version_and_rejects_both_faulty_scans():
+    """chip_smoke.py's scoring gate: each layer's scan against the plain
+    version with split operands on that layer's inputs at SPLIT_TOL, each
+    faulty scan on the same inputs outside it on every layer of more than one
+    chunk (measured here: at least 107x the tolerance)."""
+    from repro_torch.kernels.ssd_scan import gate as sg
+
+    gate = gated_pass(sg.plain_split)
+    gate.check()
+    assert all(rec["scan"] == 0 and rec["max_abs_err"] == 0 for rec in gate.layers)
+    ratio, layer, name = gate.margin()
+    assert ratio > 10 and 0 <= layer < GATE_LAYERS and name in gate.faults
+
+
+@pytest.mark.parametrize("fault", ["no inter-chunk state", "A of the next head"])
+def test_layer_gate_fails_a_faulty_scan_in_the_kernels_place(fault):
+    from repro_torch.kernels.ssd_scan import gate as sg
+
+    gate = gated_pass(sg.faulty_scans(sg.plain_split)[fault])
+    assert all(rec["scan"] > 1 for rec in gate.layers)
+    with pytest.raises(AssertionError, match="the scan is"):
+        gate.check()
+
+
+def test_gate_excess_is_at_most_one_where_assert_close_passes():
+    from repro_torch.kernels.ssd_scan.gate import SPLIT_TOL, excess
+
+    want = torch.tensor([0.0, 1.0, -100.0, 3.0])
+    inside = want + torch.tensor([2e-3, 2e-3 + 8e-3, -(2e-3 + 0.8), 0.0]) * 0.999
+    outside = want + torch.tensor([0.0, 0.0, 2e-3 + 0.8, 0.0]) * 1.01
+    torch.testing.assert_close(inside, want, **SPLIT_TOL)
+    assert 0.99 < excess(inside, want) <= 1 and excess(want, want) == 0
+    assert excess(outside, want) == pytest.approx(1.01, rel=1e-5)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(outside, want, **SPLIT_TOL)
+    assert excess(torch.tensor([float("nan")]), torch.tensor([0.0])) == float("inf")
+
+
 def test_library_is_built_from_the_source_in_the_repo():
     lib = sk.LIBRARY
     assert lib.source.name == "ssd_scan.cu" and lib.source.exists()

@@ -42,11 +42,12 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import torch  # noqa: E402
 
-from chip_smoke import SCORE_TOL, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, device_ms, faulty_scans  # noqa: E402
+from chip_smoke import SCORE_TOL, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, device_ms  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as sops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as sr  # noqa: E402
+from repro_torch.kernels.ssd_scan.gate import faulty_scans  # noqa: E402
 
 # name -> [(text of the source, its replacement)]
 VARIANTS = {
