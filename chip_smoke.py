@@ -6,7 +6,8 @@ Phases, each fatal on failure:
 
 1. card: the card's name and power limit, the torch and CUDA versions, and
    the nvcc build of every kernel of the path (from the sources in this
-   checkout);
+   checkout), with ptxas's registers, spills and shared memory of the SSD
+   scan's wgmma launch;
 2. kernels: 32 float32 fields on the 1801x3600 0.1-degree lat-lon grid,
    made on the card from a numpy seed; for nbits 8, 16 and 24 the CUDA
    pack/unpack kernels must equal their plain PyTorch versions bit for bit,
@@ -52,15 +53,18 @@ Phases, each fatal on failure:
    to the bf16 terms it feeds them as (one bf16 ulp of the output), and each
    of its three launches against its own plain function.  Kernel, plain and
    ssd_chunked times at the full-width shape beside the bound, and the time
-   of each of the split instance's three launches.
+   of each of the split instance's three launches beside the bytes and
+   operations it must move and do, and the C_i . B_j^T tiles the last one
+   makes (once for each group of heads).
    Then mamba2-370m at full width (48 layers, bf16, random weights from
    --seed made on the card) trains through Trainer with async checkpoints
    to the emulated DAOS FDB: 6 steps of 8 x 2048 tokens, a checkpoint every
    3, one injected failure at step 4 and a resume from step 3, whose
    restored state must equal the saved one leaf by leaf.  The trained
    weights then score a held-out batch through the kernel (one launch per
-   layer) and through ssd_chunked, and the two losses must agree; the same
-   pass with a faulty scan in the kernel's place must disagree, each
+   layer) and through ssd_chunked, and both losses are printed; the same
+   pass with a faulty scan in the kernel's place must lie more than 3e-4
+   from ssd_chunked's, each
    layer's launch must agree with the plain version on that layer's inputs,
    and every launch must have run the split instance.  The per-layer gate
    (repro_torch.kernels.ssd_scan.gate) holds each layer's launch against the
@@ -234,9 +238,11 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CKPT_EVERY, FAIL_AT = 8, 2048, 6, 3, 4
 # the split instance, 8.08e-4 for a variant of it that only rounds otherwise
 # (each product from a zero accumulator), and 1.04e-3 and 1.83e-3 for the
 # faulty scans of faulty_scans() (tools/ssd_scan_precision.py): the loss cannot
-# tell a new summation order from a fault.  Each faulty scan's loss must still
-# lie farther than this from ssd_chunked's; the kernel itself is held layer by
-# layer (gate.LayerGate, at SPLIT_TOL on each layer's own inputs).
+# tell a new summation order from a fault, so the kernel's loss is printed, not
+# held.  Each faulty scan's loss must still lie farther than this from
+# ssd_chunked's; the kernel itself is held layer by layer (gate.LayerGate, at
+# SPLIT_TOL on each layer's own inputs), where the faulty scans fail by
+# hundreds of times the tolerance.
 SCORE_TOL = 3e-4
 # phase 9 scores the restored weights through the same kernel on the same
 # batch as phase 6: the same bits in, the same loss out
@@ -783,6 +789,39 @@ def ssd_bound(bh: int, s: int, p: int, n: int, q: int, bg: int, itemsize: int) -
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def split_launch_work(bh: int, s: int, p: int, n: int, q: int, bg: int) -> dict[str, tuple[int, int, float]]:
+    """Per launch of the split instance: the bytes it must move (each input read
+    once, each output written once), the operations the function needs (two per
+    multiply-add, as :func:`ssd_ops` counts them) and the peak rate they run
+    at: the tensor cores' bf16 rate for the products, float32 for the pass."""
+    nc, pairs = s // q, q * (q + 1) // 2
+    x, rows, bc = 2 * bh * s * p, 4 * bh * s, 2 * bg * s * n
+    states, h = 4 * bh * (nc - 1) * n * p, 4 * bh * nc * n * p
+    return {
+        # x, dt, A, B in; cum and the chunk states out
+        "ssd_chunk_state": (x + rows + 4 * bh + bc + rows + states, 2 * q * n * p * bh * (nc - 1), BF16_PEAK),
+        # the chunk states and each chunk's total in; the state entering each chunk out
+        "ssd_state_pass": (states + 4 * bh * nc + h, 2 * n * p * bh * (nc - 1), F32_PEAK),
+        # x, dt, cum, h, B, C, D in; y out
+        "ssd_chunk_scan": (x + 2 * rows + h + 2 * bc + 4 * bh + x,
+                           2 * (pairs * n * bg * nc + pairs * p * bh * nc + q * n * p * bh * (nc - 1)),
+                           BF16_PEAK),
+    }
+
+
+def ptxas_lines(log: str, kernel: str) -> dict[str, str]:
+    """What ``ptxas -v`` said in ``log`` of each instance of ``kernel``, by its
+    mangled name: its registers, stack, spills and static shared memory."""
+    out: dict[str, list[str]] = {}
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+        elif name is not None and ("spill" in line or "Used" in line):
+            out.setdefault(name, []).append(line.replace("ptxas info    :", "").strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
 def split_launch_errors(scan, flat, heads: int, chunk: int) -> dict[str, float]:
     """Each launch of the split instance ``scan`` (a kernel.SplitScan that has
     run) against its plain function on the same inputs; the largest
@@ -876,6 +915,21 @@ def ssd_phase(dev, seed: int) -> dict:
     bound, by = ssd_bound(b * h, s, p, n, chunk, b, 2)
     flops, nbytes = ssd_ops(b * h, s, p, n, chunk, b), ssd_bytes(b * h, s, p, n, b, 2)
     scratch = sum(t.numel() * t.element_size() for t in (scan.cum, scan.states, scan.h))
+    work = split_launch_work(b * h, s, p, n, chunk, b)
+    launch_bound = {k: max(nb / HBM_RATE, ops / peak) * 1e3 for k, (nb, ops, peak) in work.items()}
+    for k, (nb, ops, peak) in work.items():
+        by_k = "bytes" if nb / HBM_RATE >= ops / peak else "operations"
+        say(f"[ssm] {k} at full width: {launch_ms[k]:.4f} ms; it must move {nb / 1e6:.1f} MB "
+            f"({nb / HBM_RATE * 1e3:.4f} ms at {HBM_RATE / 1e12:.2f} TB/s) and do {ops / 1e9:.2f} GFLOP "
+            f"({ops / peak * 1e3:.4f} ms at {peak / 1e12:.0f} TFLOP/s): bound {launch_bound[k]:.4f} ms by "
+            f"{by_k}, {100 * launch_bound[k] / launch_ms[k]:.2f} % of it")
+    # ssd_chunk_scan makes each C_i . B_j^T (a 64 x 64 x N tile, j <= i) once for a group of heads
+    tiles = (s // chunk) * sum(i + 1 for i in range(-(-chunk // 64)))
+    group = sk.scan_head_group(chunk)
+    made = b * tiles * -(-h // group)
+    say(f"[ssm] ssd_chunk_scan's C_i . B_j^T tiles (64 x 64 x {n}): {made} made, once for each group "
+        f"of {group} heads ({2 * made * 64 * 64 * n / 1e9:.2f} GFLOP); once per head would be "
+        f"{b * h * tiles} ({2 * b * h * tiles * 64 * 64 * n / 1e9:.2f} GFLOP)")
     say(f"[ssm] ssd_scan full width x ({b * h}, {s}, {p}) B ({b}, {s}, {n}) bf16 chunk {chunk}, "
         f"instance {instance}: kernel {timing['ms']:.4f} ms ({t_kernel[0]:.4f} and {t_kernel[1]:.4f} "
         f"around ssd_chunked; {100 * bound / timing['ms']:.2f} % of the bound; "
@@ -894,7 +948,8 @@ def ssd_phase(dev, seed: int) -> dict:
         f"the kernel's time; library_ms of ssd_scan: none, no single PyTorch call computes the SSD scan")
     assert timing["ms"] < timing["chunked_ms"], (timing, "the split instance is slower than ssd_chunked")
     return {**timing, "max_abs_err": max(worst.values()), "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "instance": instance, "launch_ms": launch_ms}
+            "library_ms": None, "instance": instance, "launch_ms": launch_ms,
+            "launch_bound_ms": launch_bound}
 
 
 def checksums(state) -> dict[str, float]:
@@ -1033,7 +1088,8 @@ def train_phase(dev, seed: int) -> dict:
             lg = float(train_loss(params, kernel_cfg, batch)[0])
     say(f"[score] held-out batch {TRAIN_BATCH} x {TRAIN_SEQ}, trained weights: loss through the "
         f"kernel {lk:.6f} ({kernel_s:.3f} s), through ssd_chunked {ln:.6f} ({naive_s:.3f} s); "
-        f"|diff| {abs(lk - ln):.3g} (tolerance {SCORE_TOL}); ssd_scan launches {launches} = "
+        f"|diff| {abs(lk - ln):.3g} (printed; the per-layer gate below holds the kernel); "
+        f"ssd_scan launches {launches} = "
         f"{cfg.n_layers} layers x 1 pass, by instance {by_instance}")
     say("[score] faulty scans in the kernel's place, |loss - ssd_chunked's| (each must exceed "
         f"{SCORE_TOL}): " + "; ".join(f"{k} {v:.6f}, {abs(v - ln):.3g}" for k, v in faults.items()))
@@ -1058,8 +1114,7 @@ def train_phase(dev, seed: int) -> dict:
     assert by_instance == {"split": launches, "fwd": 0}, by_instance
     assert len(layer_err) == cfg.n_layers, len(layer_err)
     assert len(gate.layers) == cfg.n_layers and lg == lk, (len(gate.layers), lg, lk)
-    gate.check()
-    assert abs(lk - ln) <= SCORE_TOL, (lk, ln)
+    gate.check()  # the check on the kernel's output: each layer at SPLIT_TOL
     assert all(abs(v - ln) > SCORE_TOL for v in faults.values()), faults
     restore_s = [rec["restore_s"] for rec in trainer.ckpt.timings if rec["op"] == "restore"]
     return {"launches": launches, "step_s": step_med, "losses": losses, "peak": peak,
@@ -1984,8 +2039,16 @@ def main() -> int:
     libs = _build.build_all(libraries)  # one nvcc per source, all at once
     say(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libraries:  # ptxas's spill and local-memory warnings, among the rest
-        if lib.build_log:
-            say(f"[build] {lib.name}: nvcc said\n{lib.build_log}")
+        said = "\n".join(line for line in lib.build_log.splitlines()
+                         if "ptxas info" not in line or "(C75" in line)
+        if said:
+            say(f"[build] {lib.name}: nvcc said\n{said}")
+    smem = sk.LIBRARY.load().ssd_chunk_scan_smem
+    scan_ptxas = ptxas_lines(sk.LIBRARY.build_log, "ssd_chunk_scan")
+    assert len(scan_ptxas) == 2, scan_ptxas.keys()
+    for mangled, said in scan_ptxas.items():
+        n = 128 if "ILi128E" in mangled else 64
+        say(f"[build] ssd_chunk_scan<{n}> (ptxas -v): {said}; {smem(n)} bytes of dynamic shared memory")
 
     # ------------------------------------------------------------- 2. kernels
     t0 = time.perf_counter()
@@ -2187,7 +2250,7 @@ def main() -> int:
         "max_abs_err": max(ssd["max_abs_err"], train["layer_err"],
                            dist9["harness"]["ssd_scan"]["max_abs_err"]),
         **{k: ssd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "instance",
-                               "launch_ms", "chunked_ms")},
+                               "launch_ms", "launch_bound_ms", "chunked_ms")},
     })
     say(json.dumps({"kernels": kernels}))
     say(smi)

@@ -67,7 +67,8 @@ class CudaLibrary:
     """One CUDA source, its shared library and its ctypes binding.
 
     ``bind`` declares ``argtypes``/``restype`` of every entry point on the
-    freshly loaded library.  The source must export
+    freshly loaded library; ``extra_flags`` follow :data:`NVCC_FLAGS` on its
+    nvcc line.  The source must export
     ``const char* <error_fn>(int)``, which names a CUDA error code.
     :attr:`build_log` holds what nvcc printed when this process built the
     library (ptxas's warnings among it), and stays empty when it was built
@@ -75,9 +76,10 @@ class CudaLibrary:
     """
 
     def __init__(self, name: str, source: Path, bind: Callable[[ctypes.CDLL], None],
-                 *, error_fn: str):
+                 *, error_fn: str, extra_flags: Sequence[str] = ()):
         self.name = name
         self.source = source
+        self.flags = (*NVCC_FLAGS, *extra_flags)
         self.build_dir = BUILD_DIR
         self._bind = bind
         self._error_fn = error_fn
@@ -90,7 +92,7 @@ class CudaLibrary:
         h = hashlib.sha256(self.source.read_bytes())
         for header in local_headers(self.source):
             h.update(header.name.encode() + b"\0" + header.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(self.flags).encode())
         return self.build_dir / f"lib{self.name}_{h.hexdigest()[:16]}.so"
 
     def _start(self) -> tuple[Path, Path, subprocess.Popen] | None:
@@ -100,7 +102,7 @@ class CudaLibrary:
             return None
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)]
         try:
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         except FileNotFoundError:

@@ -162,6 +162,12 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
         : "memory");
 }
 
+// Asks for `bytes` (a multiple of 16) from `src` (16-byte aligned) to be
+// brought into L2, without waiting for them.
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
+
 // warpgroups -----------------------------------------------------------------
 
 template <uint32_t N>
@@ -214,12 +220,27 @@ __device__ __forceinline__ void wgmma_wait() {
     asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Makes this thread's writes to shared memory visible to the async proxy
+// (wgmma, TMA) that reads them next; call before the barrier that hands
+// the tile over.
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Keeps the compiler from moving reads or writes of an accumulator across a
 // wgmma fence, commit or wait: the instructions write it asynchronously.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The same for the A words of a wgmma with A in registers, which it reads
+// asynchronously: they stay put until the wait that follows.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // D (64 x 128, float32) = A (64 x 16) . B (128 x 16)^T (+ D unless scale_d is 0),
@@ -255,6 +276,31 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t des
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 64, float32) = A (64 x 16) . B (+ D unless scale_d is 0), A and B bf16
+// in shared memory, A K-major.  B is K-major (stored as 64 x 16, N x K) with
+// TransB 0, MN-major (stored as 16 x 64, K x N) with TransB 1.
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                   int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
 }
 
 // D (64 x 64, float32) = A (64 x 16) . B (16 x 64) (+ D unless scale_d is 0), A bf16
@@ -385,6 +431,25 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool val
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                  "l"(src), "r"(valid ? 16 : 0)
                  : "memory");
+}
+
+// Copies 4 bytes from global to shared memory through L1; with `valid`
+// false it reads nothing and writes zeros.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+                 "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+// Closes this thread's cp.async issued so far into one group.
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Waits until every cp.async of this thread has landed.

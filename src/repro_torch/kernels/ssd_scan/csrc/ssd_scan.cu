@@ -6,7 +6,8 @@
 //      float32 on the CUDA cores.
 //   2. the split instance: bf16 x, B and C at P = 64, N = 64 or 128 (the
 //      heads of mamba2-370m and zamba2-7b), in three launches on the tensor
-//      cores (mma.sync), with float32 operands split into bf16 terms.
+//      cores (mma.sync, and wgmma fed by TMA in the last), with float32
+//      operands split into bf16 terms.
 //
 // Both replace the Pallas TPU kernel `ssd_scan_kernel` of
 // src/repro/kernels/ssd_scan/kernel.py.  Per chunk of Q rows of one
@@ -52,46 +53,76 @@
 //   ssd_state_pass   one thread per four (bh, n, p) walks the chunks in order:
 //                    h_0 = 0, h_{c+1} = exp(total_c) h_c + S_c, written to a
 //                    (BH, chunks, N, P) float32 scratch;
-//   ssd_chunk_scan   grid BH x chunks x 64-row tiles: for its 64 rows i, each
-//                    64-row tile j <= i gives C_i . B_j^T, the masked decay
-//                    exp(cum_i - cum_j) dt_j in float32, and scores . x_j;
+//   ssd_chunk_scan   grid BG x chunks x head groups x 64-row tiles: for its
+//                    64 rows i, G_ij = C_i . B_j^T for each 64-row tile j <= i,
+//                    once for the group's heads; then per head the masked
+//                    decay exp(cum_i - cum_j) dt_j in float32 and scores . x_j,
 //                    then exp(cum_i) (C_i . h_c^T) and D x_i.
-// Every product runs on the tensor cores as mma.sync.m16n8k16 (bf16 in,
+// The first two run on the tensor cores as mma.sync.m16n8k16 (bf16 in,
 // float32 accumulators), four warps a block, operands staged by cp.async into
 // padded shared tiles (rows of N + 8 or P + 8 elements: 16 bytes past a
 // multiple of 128, so ldmatrix reads without bank conflicts) and read by
-// ldmatrix, with .trans for the operands stored K-major the other way (B^T,
-// w x, x_j and h).  The scores go from the accumulators of C . B^T straight
-// into the A words of scores . x, in registers.
+// ldmatrix, with .trans for the operands stored K-major the other way (B^T and
+// w x).  The third, which holds three quarters of the instance's time, is
+// built for Hopper, as below.
 //
 // Precision.  x, B and C are bf16 inputs and enter once.  Each operand the
 // kernel derives in float32 -- the scores, w x and h -- enters as three bf16
 // terms, v = t0 + t1 + t2 + r with t0 = bf16(v), t1 = bf16(v - t0), t2 =
 // bf16(v - t0 - t1) and |r| <= 2^-26 |v| (each difference is exact), three
-// products into the same float32 accumulator: float32 operands in all but
-// name, so the instance keeps the float32 semantics of ssd_scan_fwd.  Two
-// terms (hi + lo, 2^-18) were not enough: the plain version with its operands
-// rounded to hi + lo moved chip_smoke.py's held-out loss of trained
-// mamba2-370m by 1.7e-3 from the float32 one, past the 3e-4 that tells a
-// sound scan from a faulty one.  The plain version with split_bf16=True
-// rounds the same operands to t0 + t1 + t2.
+// products into the same float32 accumulator, the smallest first: float32
+// operands in all but name, so the instance keeps the float32 semantics of
+// ssd_scan_fwd.  Two terms (hi + lo, 2^-18) were not enough: the plain version
+// with its operands rounded to hi + lo moved chip_smoke.py's held-out loss of
+// trained mamba2-370m by 1.7e-3 from the float32 one.  The plain version with
+// split_bf16=True rounds the same operands to t0 + t1 + t2.
 //
-// What bounds it.  The scan needs 24 GFLOP and 145 MB at the full-width
-// scoring shape (x 256 x 2048 x 64, B and C 8 x 2048 x 128, chunk 256): 0.043
-// ms of HBM time at 3.35 TB/s, 0.025 ms of bf16 tensor-core time.  This
-// design spends about 90 GFLOP (C . B^T once per head, the split operands
-// three times, the diagonal tiles cut to their causal 16-column groups) and
-// moves about 260 MB of float32 scratch beside the inputs, so its own floor
-// is about 0.12 ms by bytes; simple mma.sync code (one stage, a barrier pair
-// per 64-row tile) runs far below the card's wgmma peak, so the products
-// bound it.  wgmma with TMA for the largest launch, one C . B^T per (batch,
-// chunk) for the heads, and fewer terms where the margin allows are for later
-// versions.
+// ---- ssd_chunk_scan on wgmma and TMA
+// What bounds it.  At the full-width scoring shape (x 256 x 2048 x 64, B and C
+// 8 x 2048 x 128, chunk 256, 32 heads a batch entry) the launch must read x
+// (67 MB), the float32 states h (67 MB), B, C, cum and dt (13 MB) and write y
+// (67 MB): 214 MB, 0.064 ms at 3.35 TB/s.  With whole 64 x 64 tiles and three
+// terms its products are about 60 GFLOP, 0.061 ms at the bf16 dense peak:
+// scores . x 32, C . h^T 23 and C . B^T 5.4 (43 if made for every head, as the
+// mma.sync version did).  Beside them the CUDA cores make 84 M scores (an exp,
+// two multiplies and three bf16 terms each) and split 59 M elements of h into
+// terms.  Both bounds are near and the CUDA-core work is of the same order,
+// so the design keeps the three kinds of work apart and in flight together:
+//   - one block of three warpgroups per (batch entry, chunk, group of
+//     HEAD_GROUP heads, 64-row tile i), the heaviest tiles first.  G_ij = C_i .
+//     B_j^T is made once for the group's heads on wgmma m64n64k16 (both
+//     operands K-major from TMA tiles) and kept in float32 in shared memory,
+//     up to GC = 4 tiles (a chunk of 256 rows).  A longer chunk runs in windows
+//     of GC tiles with one head for each consumer, G made again per window;
+//   - warpgroup 0 gives its registers up (setmaxnreg) and two of its lanes
+//     issue TMA loads, one for each consumer warpgroup: C_i once, B_j for the
+//     consumer's share of G, then x_hj for each of its heads and j through a
+//     ring of XS stages, and an L2 prefetch of each head's h;
+//   - each consumer walks its heads (k, k + 2, ...).  Per j it applies the
+//     head's decay to G on the accumulator's layout (cum and dt staged in
+//     shared memory by cp.async a head ahead; exp on one MUFU.EX2), splits the
+//     scores into three A-register words per k-step, and runs wgmma m64n64k16
+//     with x_j as the MN-major B operand (the P . V pattern of
+//     flash_attention.cu), making tile j + 1's scores while tile j's products
+//     run.  Then it splits h_c 64 rows at a time into three swizzled bf16
+//     blocks and runs C_i . h^T on wgmma with both operands in shared memory.
+//     The two consumers work on different heads;
+//   - no branch or register copy sits between a wgmma fence and its products,
+//     and the warpgroup index passes through a shuffle: ptxas otherwise
+//     serialises every wgmma of the kernel (C7513, C7520), which cost a third
+//     of its time;
+//   - rows past the end of a chunk that is not a multiple of 64 are masked in
+//     the scores and zeroed in x_j: a TMA box fills zeros only past the end of
+//     the sequence and would read the next chunk's rows;
+//   - no atomics: every sum runs in a fixed order of j tiles, terms and heads,
+//     so two runs give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdio.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "../../csrc/hopper.cuh"
 
@@ -376,7 +407,6 @@ namespace sp {
 using bf16 = __nv_bfloat16;
 using hopper::cp_async_16;
 using hopper::cp_async_wait_all;
-using hopper::ldmatrix_x4;
 using hopper::ldmatrix_x4_trans;
 using hopper::mma_bf16_m16n8k16;
 using hopper::pack_bf16;
@@ -391,14 +421,6 @@ constexpr int TERMS = 3;       // bf16 terms of a float32 operand
 // v rounded to bf16, as a float32
 __device__ __forceinline__ float bf16_round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Term t of float32 v fed as bf16 terms: term 0 = bf16(v), term t = bf16 of
-// what terms 0..t-1 leave (each difference is exact in float32).
-__device__ __forceinline__ float term(float v, int t) {
-    float r = v;
-    for (int i = 0; i < t; ++i) r = __fsub_rn(r, bf16_round(r));
-    return bf16_round(r);
 }
 
 // Stages rows [0, rows) of a (., W) bf16 matrix starting at `src` into a
@@ -590,227 +612,459 @@ ssd_state_pass(const float4* __restrict__ states, const float* __restrict__ cum,
     }
 }
 
-template <int N>
-constexpr size_t chunk_scan_smem() {
-    // C_i [TILE][N + 8]; then B_j [TILE][N + 8] and x_j [TILE][LDP] during the
-    // j loop, two terms of h, 2 x [N][LDP], at a time after it, in the same
-    // space; cum_i, cum_j and dt_j [TILE] float32
-    constexpr size_t loop = (size_t)(TILE * (N + 8) + TILE * LDP);
-    constexpr size_t pair = (size_t)(2 * N * LDP);
-    return (size_t)(TILE * (N + 8) + (loop > pair ? loop : pair)) * sizeof(bf16) +
-           3 * TILE * sizeof(float);
+// Launch 3 (the wgmma instance of the header note): grid BG x chunks x head
+// groups x tiles, flattened with the tile fastest (the tiles of one chunk
+// share its B, C and h in L2) and the heaviest tile first.  Warpgroup 0 is
+// the producer: lane 0 of its warp k issues every TMA load of consumer k
+// (C_i by warp 0 for both).  Warpgroups 1 and 2 are the consumers k = 0, 1:
+// each computes the G tiles j = k mod 2 of a window, then walks the heads
+// k, k + 2, ... of the group over all of the window's j tiles.
+constexpr int XS = 3;                 // stages of a consumer's x ring
+constexpr int GC = 4;                 // j tiles of G a window keeps (a chunk of 256 rows)
+constexpr int HEAD_GROUP = 8;         // heads of a block when the chunk fits one window
+constexpr int SCAN_THREADS = 384;     // producer + two consumer warpgroups
+constexpr int ROW_BYTES = 128;        // a row of a 64-column bf16 block
+constexpr int BLOCK = TILE * ROW_BYTES;  // a 64 x 64 bf16 block, 8 KB
+constexpr int GTILE = TILE * TILE;    // floats of a G tile
+// A consumer's unit of work is one head over one window of j tiles; a unit's
+// cum and dt are staged in shared memory: cum and dt of the window's rows, then
+// cum of the i tile's rows
+constexpr int UNIT = 2 * GC * TILE + TILE;
+
+struct ScanBars {
+    uint64_t c_full;
+    uint64_t b_full[2], b_empty[2];
+    uint64_t x_full[2][XS], x_empty[2][XS];
+};
+
+// Byte offsets in shared memory, each 1024-aligned (the swizzle's atoms).
+template <int N> struct ScanSmem {
+    static constexpr int NB = N / 64;                          // 64-column blocks of B and C
+    static constexpr size_t C = 0;                             // C_i: NB blocks
+    static constexpr size_t B = C + NB * BLOCK;                // B_j: one stage per consumer
+    static constexpr size_t X = B + 2 * NB * BLOCK;            // x_j: XS stages per consumer
+    static constexpr size_t H = X + 2 * XS * BLOCK;            // terms of 64 rows of h, per consumer
+    static constexpr size_t G = H + 2 * TERMS * BLOCK;         // G: GC float32 tiles
+    static constexpr size_t U = G + (size_t)GC * GTILE * sizeof(float);  // cum, dt: 2 units per consumer
+    static constexpr size_t BARS = U + 2 * 2 * UNIT * sizeof(float);
+    static constexpr size_t BYTES = BARS + sizeof(ScanBars) + 1024;  // + room to align
+};
+
+// exp(x) in float32 to a few ulp, for x <= 0: 2^t e^c with t = x log2 e
+// rounded and c = x - t ln 2 carried past float32 (t alone would cost up to 60
+// ulp at the exponents of a chunk), on one MUFU.EX2 and four FMA-pipe
+// instructions, about a third of expf's.  Results below 2^-126 flush to zero:
+// such a decay adds less than 1e-35 to an output.
+__device__ __forceinline__ float exp_f32(float x) {
+    constexpr float L2E = 1.44269502162933349609375f;     // log2 e rounded to float32
+    constexpr float LN2_HI = 0.693147182464599609375f;    // ln 2 rounded to float32
+    constexpr float LN2_LO = -1.9046542121259336e-09f;    // ln 2 - LN2_HI
+    const float t = x * L2E;
+    const float c = fmaf(-t, LN2_LO, fmaf(-t, LN2_HI, x));  // x - t ln 2
+    float r;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(t));
+    return fmaf(r, c, r);  // 2^t (1 + c)
 }
 
-// Launch 3: grid BH x chunks x tiles, flattened with the tile fastest (the
-// tiles of one chunk share its h in L2) and the heaviest tile first.  Warp w
-// owns rows [16 w, 16 w + 16) of the i tile and all P columns.
-template <int N>
-__global__ void __launch_bounds__(THREADS)
-ssd_chunk_scan(const bf16* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ cum, const float* __restrict__ h,
-               const bf16* __restrict__ bmat, const bf16* __restrict__ cmat,
-               const float* __restrict__ dskip, bf16* __restrict__ y, int s, int q, int heads) {
-    constexpr int LDN = N + 8;
-    constexpr size_t loop = (size_t)(TILE * LDN + TILE * LDP);
-    constexpr size_t pair = (size_t)(2 * N * LDP);
-    extern __shared__ float4 smem4[];
-    bf16* cs = reinterpret_cast<bf16*>(smem4);  // [TILE][LDN] C_i
-    bf16* bs = cs + TILE * LDN;                 // [TILE][LDN] B_j   (j loop)
-    bf16* xs = bs + TILE * LDN;                 // [TILE][LDP] x_j   (j loop)
-    bf16* ht = bs;                              // 2 x [N][LDP] terms of h (after it)
-    float* cum_i = reinterpret_cast<float*>(bs + (loop > pair ? loop : pair));  // [TILE]
-    float* cum_j = cum_i + TILE;                // [TILE]
-    float* dt_j = cum_j + TILE;                 // [TILE]
+// Two float32 values a, b as TERMS bf16 words, the largest first: word t holds
+// the bf16 of what terms 0..t-1 leave of each (a in the low half), the same
+// terms as bf16_round takes one value at a time.
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t (&w)[TERMS]) {
+#pragma unroll
+    for (int tm = 0; tm < TERMS; ++tm) {
+        w[tm] = pack_bf16(a, b);
+        if (tm + 1 < TERMS) {
+            a = __fsub_rn(a, __uint_as_float(w[tm] << 16));
+            b = __fsub_rn(b, __uint_as_float(w[tm] & 0xffff0000u));
+        }
+    }
+}
 
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int g = lane >> 2, t4 = lane & 3;
+// One term's product into the accumulator, d += A . B: the scores (A, in
+// registers) against x_j, and C_i against a term of h (both in shared memory).
+__device__ __forceinline__ void term_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    hopper::wgmma_rs_m64n64k16(d, a, db, 1);
+}
+
+__device__ __forceinline__ void term_ss(float (&d)[32], uint64_t da, uint64_t db) {
+    hopper::wgmma_ss_m64n64k16<1>(d, da, db, 1);
+}
+
+template <int N>
+__global__ void __launch_bounds__(SCAN_THREADS, 1)
+ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_b,
+               const __grid_constant__ CUtensorMap tm_c, const bf16* __restrict__ x,
+               const float* __restrict__ dt, const float* __restrict__ cum,
+               const float* __restrict__ h, const float* __restrict__ dskip, bf16* __restrict__ y,
+               int s, int q, int heads, int group) {
+    using namespace hopper;
+    using L = ScanSmem<N>;
+    constexpr int NB = L::NB;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t pad = (1024 - (smem_addr(smem_raw) & 1023)) & 1023;
+    uint8_t* sm = smem_raw + pad;
+    ScanBars& bar = *reinterpret_cast<ScanBars*>(sm + L::BARS);
+
     const int nc = s / q;
     const int ntiles = (q + TILE - 1) / TILE;
+    const int ngroups = (heads + group - 1) / group;
     const int ib = ntiles - 1 - (int)(blockIdx.x % ntiles);
-    const int rest = (int)(blockIdx.x / ntiles);
-    const int c = rest % nc, bh = rest / nc;
+    int rest = (int)(blockIdx.x / ntiles);
+    const int g = rest % ngroups;
+    rest /= ngroups;
+    const int c = rest % nc, bg = rest / nc;
+    const int h0 = g * group, nh = min(group, heads - h0);  // this block's heads
     const int i0 = ib * TILE;
-    const int irows = min(TILE, q - i0);
-    const size_t row0 = (size_t)bh * s + (size_t)c * q;
-    const size_t brow0 = (size_t)(bh / heads) * s + (size_t)c * q;
-    const int wrow = warp * 16;  // the warp's first row in the tile
-    const bool rows_live = wrow < irows;  // else every row of the warp is past the chunk
+    const int nj = ib + 1;                                   // j tiles: 0..ib
+    const int nwin = (nj + GC - 1) / GC;
+    const int crow = c * q;                                  // the chunk's first row
 
-    stage_rows<N, LDN>(cs, cmat + (brow0 + i0) * N, irows);
-    for (int t = tid; t < TILE; t += THREADS) cum_i[t] = t < irows ? cum[row0 + i0 + t] : 0.f;
-
-    float acc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-    for (int jb = 0; jb <= ib; ++jb) {
-        const int j0 = jb * TILE;
-        const int jrows = min(TILE, q - j0);
-        __syncthreads();  // the previous j tile's readers are done
-        stage_rows<N, LDN>(bs, bmat + (brow0 + j0) * N, jrows);
-        stage_rows<P, LDP>(xs, x + (row0 + j0) * P, jrows);
-        for (int t = tid; t < TILE; t += THREADS) {
-            cum_j[t] = t < jrows ? cum[row0 + j0 + t] : 0.f;
-            dt_j[t] = t < jrows ? dt[row0 + j0 + t] : 0.f;
+    if (threadIdx.x == 0) {
+        mbar_init(&bar.c_full, 1);
+        for (int k = 0; k < 2; ++k) {
+            mbar_init(&bar.b_full[k], 1);
+            mbar_init(&bar.b_empty[k], 128);
+            for (int st = 0; st < XS; ++st) {
+                mbar_init(&bar.x_full[k][st], 1);
+                mbar_init(&bar.x_empty[k][st], 128);
+            }
         }
-        cp_async_wait_all();
-        __syncthreads();
-        if (!rows_live) continue;
+        mbar_fence_init();
+    }
+    __syncthreads();
 
-        // 16-column groups of j that can hold a pair j <= i of this warp's rows
-        const int jmax = min(jb == ib ? warp : TILE / 16 - 1, (jrows - 1) / 16);
-
-        // C_i . B_j^T: A = C_i [i][n]; B operand = B_j^T, stored [j][n]
-        float sc[8][4];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
-        for (int k = 0; k < N / 16; ++k) {
-            uint32_t af[4];
-            ldmatrix_x4(af, cs + (wrow + (lane & 15)) * LDN + k * 16 + (lane >> 4) * 8);
-#pragma unroll
-            for (int np = 0; np < TILE / 16; ++np) {
-                if (np <= jmax) {
-                    uint32_t bf[4];
-                    ldmatrix_x4(bf, bs + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDN + k * 16 +
-                                        ((lane >> 3) & 1) * 8);
-                    mma_bf16_m16n8k16(sc[2 * np], af, bf[0], bf[1]);
-                    mma_bf16_m16n8k16(sc[2 * np + 1], af, bf[2], bf[3]);
+    // the warpgroup, through a shuffle so that the compiler knows it is the same
+    // in every lane: a branch it thinks divergent serialises every wgmma (C7520)
+    const int wgi = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+    if (wgi == 0) {
+        // ------------------------------------------------------- producer
+        setmaxnreg_dec<40>();
+        const int k = threadIdx.x / 32;  // the consumer this warp feeds
+        if (k < 2 && (threadIdx.x & 31) == 0) {
+            if (k == 0) {
+                tma_prefetch(&tm_x);
+                tma_prefetch(&tm_b);
+                tma_prefetch(&tm_c);
+                mbar_arrive_expect_tx(&bar.c_full, NB * BLOCK);
+                for (int b = 0; b < NB; ++b) {
+                    tma_load_3d(sm + L::C + b * BLOCK, &tm_c, &bar.c_full, 64 * b, crow + i0, bg);
                 }
             }
-        }
-
-        // the decay, in float32; the exponent above the diagonal is never taken
-        const int ia = i0 + wrow + g, ib8 = ia + 8;
-        const float ca = cum_i[wrow + g], cb = cum_i[wrow + g + 8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const int jj = j * 8 + 2 * t4 + e;
-                const int jg = j0 + jj;
-                const float cj = cum_j[jj], dj = dt_j[jj];
-                sc[j][e] = (jg <= ia && ia < q)
-                               ? __fmul_rn(__fmul_rn(sc[j][e], expf(__fsub_rn(ca, cj))), dj)
-                               : 0.f;
-                sc[j][2 + e] = (jg <= ib8 && ib8 < q)
-                                   ? __fmul_rn(__fmul_rn(sc[j][2 + e], expf(__fsub_rn(cb, cj))), dj)
-                                   : 0.f;
-            }
-        }
-
-        // scores . x_j: the scores as TERMS bf16 A words each; B operand = x_j,
-        // stored [j][p]: .trans
-#pragma unroll
-        for (int kk = 0; kk < TILE / 16; ++kk) {
-            if (kk <= jmax) {
-                // word w: tile 2 kk + w / 2, values 2 (w % 2) and 2 (w % 2) + 1
-                uint32_t at[TERMS][4];
-#pragma unroll
-                for (int w = 0; w < 4; ++w) {
-                    float v0 = sc[2 * kk + w / 2][2 * (w % 2)];
-                    float v1 = sc[2 * kk + w / 2][2 * (w % 2) + 1];
-#pragma unroll
-                    for (int t = 0; t < TERMS; ++t) {
-                        const float a0 = bf16_round(v0), a1 = bf16_round(v1);
-                        at[t][w] = pack_bf16(a0, a1);
-                        v0 = __fsub_rn(v0, a0);
-                        v1 = __fsub_rn(v1, a1);
+            int nb = 0, nx = 0;  // B and x tiles loaded for consumer k
+            for (int w = 0; w < nwin; ++w) {
+                const int ja = w * GC, jz = min(nj, ja + GC);
+                for (int j = ja + k; j < jz; j += 2, ++nb) {
+                    mbar_wait(&bar.b_empty[k], (nb & 1) ^ 1);  // the first round passes
+                    mbar_arrive_expect_tx(&bar.b_full[k], NB * BLOCK);
+                    for (int b = 0; b < NB; ++b) {
+                        tma_load_3d(sm + L::B + (k * NB + b) * BLOCK, &tm_b, &bar.b_full[k], 64 * b,
+                                    crow + j * TILE, bg);
                     }
                 }
-#pragma unroll
-                for (int np = 0; np < P / 16; ++np) {
-                    uint32_t bx[4];
-                    ldmatrix_x4_trans(bx, xs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDP +
-                                              np * 16 + (lane >> 4) * 8);
-#pragma unroll
-                    for (int t = TERMS - 1; t >= 0; --t) {  // the smallest term first
-                        mma_bf16_m16n8k16(acc[2 * np], at[t], bx[0], bx[1]);
-                        mma_bf16_m16n8k16(acc[2 * np + 1], at[t], bx[2], bx[3]);
+                for (int hh = k; hh < nh; hh += 2) {
+                    const int bh = bg * heads + h0 + hh;
+                    if (c > 0 && w == nwin - 1) {  // the state entering the chunk, for C_i . h^T
+                        prefetch_l2(h + ((size_t)bh * nc + c) * N * P, N * P * sizeof(float));
+                    }
+                    for (int j = ja; j < jz; ++j, ++nx) {
+                        const int st = nx % XS;
+                        mbar_wait(&bar.x_empty[k][st], ((nx / XS) & 1) ^ 1);
+                        mbar_arrive_expect_tx(&bar.x_full[k][st], BLOCK);
+                        tma_load_3d(sm + L::X + (k * XS + st) * BLOCK, &tm_x, &bar.x_full[k][st], 0,
+                                    crow + j * TILE, bh);
                     }
                 }
             }
         }
+        return;
     }
 
-    // inter-chunk term C_i . h_c^T; h_0 is zero
-    float inter[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) inter[j][e] = 0.f;
-    if (c > 0) {
-        const float4* hc = reinterpret_cast<const float4*>(h + ((size_t)bh * nc + c) * N * P);
-        // the terms of h, two at a time in the space of B_j and x_j, the smallest first
-#pragma unroll
-        for (int t1 = TERMS - 1; t1 >= 0; t1 -= 2) {
-            const int t0 = t1 - 1;  // the pass holds terms t1 and t0 (none if t0 < 0)
-            __syncthreads();  // the j loop (or the previous pass) is done with this space
-            for (int e = tid; e < N * P / 4; e += THREADS) {
-                const float4 v = hc[e];
-                const int r = (e * 4) / P, k = (e * 4) - r * P;
-                const float f[4] = {v.x, v.y, v.z, v.w};
-                float a[4], b[4];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    a[i] = term(f[i], t1);
-                    b[i] = t0 >= 0 ? term(f[i], t0) : 0.f;
-                }
-                *reinterpret_cast<uint2*>(ht + r * LDP + k) =
-                    make_uint2(pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]));
-                *reinterpret_cast<uint2*>(ht + N * LDP + r * LDP + k) =
-                    make_uint2(pack_bf16(b[0], b[1]), pack_bf16(b[2], b[3]));
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int k = wgi - 1;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int r0 = 16 * warp + lane / 4;  // the accumulator rows r0 and r0 + 8 of the tile
+    const int col0 = 2 * (lane % 4);      // and its columns 8 jj + col0 + {0, 1}
+    const int ia = i0 + r0, ib8 = ia + 8; // those rows in the chunk
+    const uint32_t c_base = smem_addr(sm + L::C);
+    const uint32_t b_base = smem_addr(sm + L::B + k * NB * BLOCK);
+    uint8_t* hbuf = sm + L::H + k * TERMS * BLOCK;
+    const uint32_t h_base = smem_addr(hbuf);
+    // G tile jw as float4s: accumulator values 4 jj .. 4 jj + 3 of thread t at
+    // gs4[jw GTILE / 4 + jj 128 + t], so a warp's reads and writes are contiguous
+    float4* gs4 = reinterpret_cast<float4*>(sm + L::G);
+    float* ubuf = reinterpret_cast<float*>(sm + L::U) + k * 2 * UNIT;
+
+    // This consumer's units: window w = u / mine, head k + 2 (u % mine).  Unit
+    // u's cum and dt go to ubuf + (u % 2) UNIT by cp.async while unit u - 1
+    // computes; rows past the chunk read as zeros.
+    const int mine = nh > k ? (nh - k + 1) / 2 : 0;
+    const int units = mine * nwin;
+    auto stage_unit = [&](int u) {
+        if (u < units) {
+            const int w = u / mine, hh = k + 2 * (u % mine);
+            const size_t row0 = (size_t)(bg * heads + h0 + hh) * s + crow;
+            const int r0w = w * GC * TILE, rows = (min(nj, (w + 1) * GC) - w * GC) * TILE;
+            float* dst = ubuf + (u % 2) * UNIT;
+            for (int e = t; e < rows; e += 128) {
+                const int jc = r0w + e;
+                const bool in = jc < q;
+                cp_async_4(dst + e, cum + row0 + (in ? jc : 0), in);
+                cp_async_4(dst + GC * TILE + e, dt + row0 + (in ? jc : 0), in);
             }
-            __syncthreads();
-            if (rows_live) {
+            if (t < TILE) {
+                const bool in = i0 + t < q;
+                cp_async_4(dst + 2 * GC * TILE + t, cum + row0 + (in ? i0 + t : 0), in);
+            }
+        }
+        cp_async_commit();  // an empty group past the last unit keeps the count
+    };
+    stage_unit(0);
+    int u = 0;
+
+    mbar_wait(&bar.c_full, 0);
+    float acc[32];
+    int nb = 0, nx = 0;
+    for (int w = 0; w < nwin; ++w) {
+        const int ja = w * GC, jz = min(nj, ja + GC);
+        if (w > 0) named_barrier(1, 256);  // both consumers are done with the last window's G
+
+        // G_ij = C_i . B_j^T, both K-major, once for every head of the block
+        for (int j = ja + k; j < jz; j += 2, ++nb) {
+            mbar_wait(&bar.b_full[k], nb & 1);
+            float gacc[32];
 #pragma unroll
-                for (int k = 0; k < N / 16; ++k) {
-                    uint32_t af[4];
-                    ldmatrix_x4(af, cs + (wrow + (lane & 15)) * LDN + k * 16 + (lane >> 4) * 8);
+            for (int e = 0; e < 32; ++e) gacc[e] = 0.f;
+            fence_regs(gacc);
+            wgmma_fence();
 #pragma unroll
-                    for (int np = 0; np < P / 16; ++np) {
-                        // B operand = h (n x p), stored [n][p]: .trans
-                        const int off = (k * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDP +
-                                        np * 16 + (lane >> 4) * 8;
-                        uint32_t b1[4];
-                        ldmatrix_x4_trans(b1, ht + off);
-                        mma_bf16_m16n8k16(inter[2 * np], af, b1[0], b1[1]);
-                        mma_bf16_m16n8k16(inter[2 * np + 1], af, b1[2], b1[3]);
-                        if (t0 >= 0) {
-                            uint32_t b0[4];
-                            ldmatrix_x4_trans(b0, ht + N * LDP + off);
-                            mma_bf16_m16n8k16(inter[2 * np], af, b0[0], b0[1]);
-                            mma_bf16_m16n8k16(inter[2 * np + 1], af, b0[2], b0[3]);
+            for (int kk = 0; kk < N / 16; ++kk) {
+                const uint32_t off = (kk / 4) * BLOCK + (kk % 4) * 32;
+                wgmma_ss_m64n64k16<0>(gacc, make_desc_sw128(c_base + off, 0, 1024),
+                                      make_desc_sw128(b_base + off, 0, 1024), 1);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(gacc);
+            mbar_arrive(&bar.b_empty[k]);
+            float4* gt = gs4 + (j - ja) * (GTILE / 4);
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+                gt[jj * 128 + t] =
+                    make_float4(gacc[4 * jj], gacc[4 * jj + 1], gacc[4 * jj + 2], gacc[4 * jj + 3]);
+            }
+        }
+        named_barrier(1, 256);  // every G tile of the window is written
+
+        for (int hh = k; hh < nh; hh += 2, ++u) {
+            const int bh = bg * heads + h0 + hh;
+            const size_t row0 = (size_t)bh * s + crow;  // the chunk's first row in x and y
+            const bool last = w == nwin - 1;             // the head's sums end in this window
+            named_barrier(2 + k, 128);  // every thread is done with unit u - 1's buffer
+            stage_unit(u + 1);
+            cp_async_wait_group<1>();   // unit u has landed
+            named_barrier(2 + k, 128);  // for every thread
+            const float* cw = ubuf + (u % 2) * UNIT;  // cum of the window's rows
+            const float* dw = cw + GC * TILE;          // dt of the window's rows
+            const float* cwi = dw + GC * TILE;         // cum of the i tile's rows
+            const float4* hc = reinterpret_cast<const float4*>(h + ((size_t)bh * nc + c) * N * P);
+            // 16-byte pieces of 64 rows of h: idx = t + 128 pc is row idx / 8,
+            // piece pair idx % 8 (the producer has asked for h in L2)
+            float4 hv[8];
+            auto load_h = [&](int half) {
+#pragma unroll
+                for (int pc = 0; pc < 4; ++pc) {
+                    const int idx = t + 128 * pc;
+                    hv[2 * pc] = hc[half * 64 * (P / 4) + 2 * idx];
+                    hv[2 * pc + 1] = hc[half * 64 * (P / 4) + 2 * idx + 1];
+                }
+            };
+            const float ca = cwi[r0], cb = cwi[r0 + 8];
+            if (w == 0) {
+#pragma unroll
+                for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+            }
+
+            // The scores of j tile j in float32 on G's accumulator layout, split
+            // into TERMS bf16 A words of each k-step: at[k-step][term][word].
+            // `masked` (std::true_type or std::false_type) says whether the tile
+            // holds a pair above the diagonal or a row or column past the chunk.
+            auto scores = [&](int j, uint32_t (&at)[4][TERMS][4], auto masked) {
+                constexpr bool MASKED = decltype(masked)::value;
+                const int j0 = j * TILE;
+                const float4* gt = gs4 + (j - ja) * (GTILE / 4);
+#pragma unroll
+                for (int jj = 0; jj < 8; ++jj) {
+                    const int jc = j0 + 8 * jj + col0;
+                    const int jw = (j - ja) * TILE + 8 * jj + col0;  // the column in the window
+                    const float2 cjv = *reinterpret_cast<const float2*>(cw + jw);
+                    const float2 djv = *reinterpret_cast<const float2*>(dw + jw);
+                    const float cj[2] = {cjv.x, cjv.y}, dj[2] = {djv.x, djv.y};
+                    const float4 g4 = gt[jj * 128 + t];
+                    const float g[4] = {g4.x, g4.y, g4.z, g4.w};
+                    // the decay, in float32; the exponent above the diagonal is never taken
+                    float v[4] = {0.f, 0.f, 0.f, 0.f};
+                    // in a masked tile, skip a column group above every row of the warp
+                    if (!MASKED || j0 + 8 * jj <= i0 + 16 * warp + 15) {
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const int i = e < 2 ? ia : ib8;
+                            const float ci = e < 2 ? ca : cb;
+                            // a pair above the diagonal or past the chunk takes exp(0), then 0
+                            const bool in = !MASKED || (jc + (e & 1) <= i && i < q);
+                            const float d = in ? __fsub_rn(ci, cj[e & 1]) : 0.f;
+                            const float sv = __fmul_rn(__fmul_rn(g[e], exp_f32(d)),
+                                                       dj[e & 1]);
+                            v[e] = in ? sv : 0.f;
                         }
                     }
+                    // words 2 (jj % 2) and 2 (jj % 2) + 1 of k-step jj / 2: rows r0 and r0 + 8
+                    uint32_t w0[TERMS], w1[TERMS];
+                    split_pair(v[0], v[1], w0);
+                    split_pair(v[2], v[3], w1);
+#pragma unroll
+                    for (int tm = 0; tm < TERMS; ++tm) {
+                        at[jj / 2][tm][2 * (jj % 2)] = w0[tm];
+                        at[jj / 2][tm][2 * (jj % 2) + 1] = w1[tm];
+                    }
+                }
+            };
+            // a tile wholly on or below the diagonal, inside the chunk, needs no mask
+            auto make_scores = [&](int j, uint32_t (&at)[4][TERMS][4]) {
+                if (j < ib && i0 + TILE <= q) {
+                    scores(j, at, std::false_type{});
+                } else {
+                    scores(j, at, std::true_type{});
+                }
+            };
+
+            // intra-chunk term, scores . x_j: tile j's products run on the
+            // tensor cores while the CUDA cores make tile j + 1's scores.  Every
+            // k-step is issued, with no branch and no register copy between a
+            // wgmma fence and its products: either would make ptxas serialise
+            // every wgmma of the kernel (C7513, C7520).  So the two A buffers
+            // take turns by an unrolled pair of steps, and the rows of a ragged
+            // tile past the chunk are zeroed in x_j (a TMA box reads on into the
+            // next chunk) rather than skipped.
+            auto step = [&](int j, uint32_t (&cur)[4][TERMS][4], uint32_t (&nxt)[4][TERMS][4]) {
+                const int st = nx % XS;
+                mbar_wait(&bar.x_full[k][st], (nx / XS) & 1);
+                uint8_t* xt = sm + L::X + (k * XS + st) * BLOCK;
+                const int jrows = min(TILE, q - j * TILE);
+                if (jrows < TILE) {  // a uniform branch: the chunk ends inside this tile
+                    for (int e = jrows * (ROW_BYTES / 16) + t; e < TILE * (ROW_BYTES / 16); e += 128) {
+                        reinterpret_cast<uint4*>(xt)[e] = make_uint4(0u, 0u, 0u, 0u);
+                    }
+                    fence_proxy_async();
+                    named_barrier(2 + k, 128);
+                }
+                const uint32_t x_base = smem_addr(xt);
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+                    for (int tm = 0; tm < TERMS; ++tm) fence_regs(cur[kk][tm]);
+                }
+                fence_regs(acc);
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+                    // B = x_j, (j, p) as stored: MN-major
+                    const uint64_t db = make_desc_sw128(x_base + kk * 16 * ROW_BYTES, BLOCK, 1024);
+#pragma unroll
+                    for (int tm = TERMS - 1; tm >= 0; --tm) {  // the smallest term first
+                        term_rs(acc, cur[kk][tm], db);
+                    }
+                }
+                wgmma_commit();
+                if (j + 1 < jz) {
+                    make_scores(j + 1, nxt);
+                } else if (last && c > 0) {
+                    load_h(0);  // the first 64 rows of h, for C_i . h^T next
+                }
+                wgmma_wait<0>();
+                fence_regs(acc);
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+                    for (int tm = 0; tm < TERMS; ++tm) fence_regs(cur[kk][tm]);
+                }
+                mbar_arrive(&bar.x_empty[k][st]);
+                ++nx;
+            };
+            uint32_t at[4][TERMS][4], an[4][TERMS][4];
+            make_scores(ja, at);
+            for (int j = ja; j < jz; j += 2) {
+                step(j, at, an);
+                if (j + 1 < jz) step(j + 1, an, at);
+            }
+            if (!last) continue;  // the head's later windows follow
+
+            // inter-chunk term C_i . h_c^T; h_0 is zero.  64 rows of h at a
+            // time, split into TERMS bf16 blocks laid out as TMA would
+            // (MN-major B operands), the smallest term first
+            float inter[32];
+#pragma unroll
+            for (int e = 0; e < 32; ++e) inter[e] = 0.f;
+            if (c > 0) {
+#pragma unroll 1
+                for (int half = 0; half < NB; ++half) {
+                    named_barrier(2 + k, 128);  // the last products are done with hbuf
+#pragma unroll
+                    for (int pc = 0; pc < 4; ++pc) {
+                        const int idx = t + 128 * pc, r = idx / 8, ch = idx % 8;
+                        uint32_t w[4][TERMS];
+                        split_pair(hv[2 * pc].x, hv[2 * pc].y, w[0]);
+                        split_pair(hv[2 * pc].z, hv[2 * pc].w, w[1]);
+                        split_pair(hv[2 * pc + 1].x, hv[2 * pc + 1].y, w[2]);
+                        split_pair(hv[2 * pc + 1].z, hv[2 * pc + 1].w, w[3]);
+                        const int off = r * ROW_BYTES + ((ch ^ (r & 7)) << 4);
+#pragma unroll
+                        for (int tm = 0; tm < TERMS; ++tm) {
+                            *reinterpret_cast<uint4*>(hbuf + tm * BLOCK + off) =
+                                make_uint4(w[0][tm], w[1][tm], w[2][tm], w[3][tm]);
+                        }
+                    }
+                    if (half + 1 < NB) load_h(half + 1);  // under this half's products
+                    fence_proxy_async();        // the terms are visible to wgmma
+                    named_barrier(2 + k, 128);  // and every thread's are written
+                    fence_regs(inter);
+                    wgmma_fence();
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk) {
+                        // A = C_i, columns [64 half + 16 kk, + 16): K-major
+                        const uint64_t da = make_desc_sw128(c_base + half * BLOCK + kk * 32, 0, 1024);
+#pragma unroll
+                        for (int tm = TERMS - 1; tm >= 0; --tm) {
+                            term_ss(inter, da,
+                                    make_desc_sw128(h_base + tm * BLOCK + kk * 16 * ROW_BYTES, BLOCK, 1024));
+                        }
+                    }
+                    wgmma_commit();
+                    wgmma_wait<0>();
+                    fence_regs(inter);
                 }
             }
-        }
-    }
 
-    // out = (intra + exp(cum) inter) + D x, cast once
-    const float dv = dskip[bh];
+            // out = (intra + exp(cum) inter) + D x, cast once
+            const float dv = dskip[bh];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-        const int r = wrow + g + 8 * half;
-        const int i = i0 + r;
-        if (i >= q) continue;
-        const float ec = expf(cum_i[r]);
-        const size_t at = (row0 + i) * P;
+            for (int half = 0; half < 2; ++half) {
+                const int i = half ? ib8 : ia;
+                if (i >= q) continue;
+                const float ec = expf(half ? cb : ca);
+                const size_t at_row = (row0 + i) * P;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int p = j * 8 + 2 * t4;
-            const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + at + p);
-            const float y0 = __fadd_rn(__fadd_rn(acc[j][2 * half], __fmul_rn(ec, inter[j][2 * half])),
-                                       __fmul_rn(dv, __bfloat162float(xv.x)));
-            const float y1 =
-                __fadd_rn(__fadd_rn(acc[j][2 * half + 1], __fmul_rn(ec, inter[j][2 * half + 1])),
-                          __fmul_rn(dv, __bfloat162float(xv.y)));
-            *reinterpret_cast<__nv_bfloat162*>(y + at + p) = __floats2bfloat162_rn(y0, y1);
+                for (int jj = 0; jj < 8; ++jj) {
+                    const int p = 8 * jj + col0;
+                    const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + at_row + p);
+                    const int e = 4 * jj + 2 * half;
+                    const float y0 = __fadd_rn(__fadd_rn(acc[e], __fmul_rn(ec, inter[e])),
+                                               __fmul_rn(dv, __bfloat162float(xv.x)));
+                    const float y1 = __fadd_rn(__fadd_rn(acc[e + 1], __fmul_rn(ec, inter[e + 1])),
+                                               __fmul_rn(dv, __bfloat162float(xv.y)));
+                    *reinterpret_cast<__nv_bfloat162*>(y + at_row + p) = __floats2bfloat162_rn(y0, y1);
+                }
+            }
         }
     }
 }
@@ -834,20 +1088,40 @@ cudaError_t chunk_state(const void* x, const void* dt, const void* a, const void
     return cudaGetLastError();
 }
 
+// Heads of a launch-3 block: a group of HEAD_GROUP when the chunk's G tiles
+// fit one window, else one head for each consumer (G is made again for each
+// window, and a head's sum runs over every window).
+int scan_group(int q) { return (q + TILE - 1) / TILE <= GC ? HEAD_GROUP : 2; }
+
+long long scan_blocks(int bh, int s, int q, int heads) {
+    const int group = scan_group(q);
+    return (long long)(bh / heads) * (s / q) * ((heads + group - 1) / group) * ((q + TILE - 1) / TILE);
+}
+
 template <int N>
 cudaError_t chunk_scan(const void* x, const void* dt, const void* cum, const void* h,
                        const void* b, const void* c, const void* d, void* y, int bh, int s, int q,
-                       int heads, cudaStream_t stream) {
+                       int heads, cudaStream_t stream, int* encode_err) {
+    const int bg = bh / heads;
+    CUtensorMap tm_x, tm_b, tm_c;
+    int err = hopper::encode_bf16_3d(&tm_x, x, P, s, bh, TILE);
+    if (err == 0) err = hopper::encode_bf16_3d(&tm_b, b, N, s, bg, TILE);
+    if (err == 0) err = hopper::encode_bf16_3d(&tm_c, c, N, s, bg, TILE);
+    if (err != 0) {
+        *encode_err = err;
+        return cudaErrorInvalidValue;
+    }
     auto kernel = ssd_chunk_scan<N>;
-    constexpr size_t smem = chunk_scan_smem<N>();
+    constexpr size_t smem = ScanSmem<N>::BYTES;
     static std::atomic<unsigned long long> smem_devices{0};
-    cudaError_t err = hopper::allow_smem(kernel, smem, smem_devices);
-    if (err != cudaSuccess) return err;
-    const unsigned blocks = (unsigned)bh * (unsigned)(s / q) * (unsigned)((q + TILE - 1) / TILE);
-    kernel<<<blocks, THREADS, smem, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(cum),
-        static_cast<const float*>(h), static_cast<const bf16*>(b), static_cast<const bf16*>(c),
-        static_cast<const float*>(d), static_cast<bf16*>(y), s, q, heads);
+    cudaError_t cerr = hopper::allow_smem(kernel, smem, smem_devices);
+    if (cerr != cudaSuccess) return cerr;
+    const int group = scan_group(q);
+    const unsigned blocks = (unsigned)scan_blocks(bh, s, q, heads);
+    kernel<<<blocks, SCAN_THREADS, smem, stream>>>(
+        tm_x, tm_b, tm_c, static_cast<const bf16*>(x), static_cast<const float*>(dt),
+        static_cast<const float*>(cum), static_cast<const float*>(h), static_cast<const float*>(d),
+        static_cast<bf16*>(y), s, q, heads, group);
     return cudaGetLastError();
 }
 
@@ -905,20 +1179,36 @@ int ssd_state_pass_launch(int n, const void* states, const void* cum, void* h, i
     return cudaGetLastError();
 }
 
-// Launch 3: out (BH, S, P) bf16.
+// Launch 3: out (BH, S, P) bf16.  x, B and C are read through TMA maps: their
+// bases 16-byte aligned (rows of P = 64 and N = 64 or 128 bf16 keep every
+// stride a multiple of 16 bytes).  Returns 0, a cudaError_t, or
+// hopper::ENCODE_ERROR_BASE + the CUresult of a tensor-map encode that failed.
 int ssd_chunk_scan_launch(int n, const void* x, const void* dt, const void* cum, const void* h,
                           const void* b, const void* c, const void* d, void* y, int bh, int s,
                           int q, int heads, void* stream) {
-    if (!sp::takes(n, q, s, bh, heads) ||
-        (long long)bh * (s / q) * ((q + sp::TILE - 1) / sp::TILE) >= (1ll << 31)) {
+    if (!sp::takes(n, q, s, bh, heads) || sp::scan_blocks(bh, s, q, heads) >= (1ll << 31)) {
         return cudaErrorInvalidValue;
     }
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return n == 64 ? sp::chunk_scan<64>(x, dt, cum, h, b, c, d, y, bh, s, q, heads, st)
-                   : sp::chunk_scan<128>(x, dt, cum, h, b, c, d, y, bh, s, q, heads, st);
+    int encode_err = 0;
+    const cudaError_t err =
+        n == 64 ? sp::chunk_scan<64>(x, dt, cum, h, b, c, d, y, bh, s, q, heads, st, &encode_err)
+                : sp::chunk_scan<128>(x, dt, cum, h, b, c, d, y, bh, s, q, heads, st, &encode_err);
+    return encode_err != 0 ? encode_err : (int)err;
+}
+
+// The dynamic shared memory of one launch-3 block at state size n, bytes.
+int ssd_chunk_scan_smem(int n) {
+    return n == 64 ? (int)sp::ScanSmem<64>::BYTES : n == 128 ? (int)sp::ScanSmem<128>::BYTES : 0;
 }
 
 const char* ssd_scan_error_string(int err) {
+    if (err >= hopper::ENCODE_ERROR_BASE) {
+        static thread_local char msg[96];
+        snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
+                 err - hopper::ENCODE_ERROR_BASE);
+        return msg;
+    }
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -433,6 +433,33 @@ def test_split_instance_equals_plain_version(cuda, n, s, chunk):
                                **ssd_tol(torch.bfloat16))
 
 
+# ssd_chunk_scan makes each C_i . B_j^T once for a group of
+# kernel.SCAN_HEAD_GROUP heads of a batch entry: head counts the group does
+# not divide (3 and 9), mamba2-370m's 32 heads at S 512, and chunks of 512
+# rows, whose G tiles take two windows with a group of 2 heads.  Each against
+# its plain function, the whole instance against the plain version, and a
+# second launch of ssd_chunk_scan bit-equal to the first.
+GROUP_SHAPES = [(512, 256, 9, 128), (512, 256, 9, 64), (512, 256, 3, 128), (512, 256, 32, 128),
+                (1024, 512, 3, 128), (1024, 512, 3, 64)]
+
+
+@pytest.mark.parametrize("s,chunk,heads,n", GROUP_SHAPES)
+def test_chunk_scan_shares_c_b_across_head_groups(cuda, s, chunk, heads, n):
+    args = ssd_inputs(cuda, s + chunk + heads + n, 2, s, heads, 64, n, torch.bfloat16)
+    x, dt, a, bb, cc, d = args
+    scan = sk.SplitScan(*args, heads=heads, chunk=chunk)
+    out = scan.run().clone()
+    torch.cuda.synchronize()
+    want = sr.ssd_chunk_scan_ref(x, dt, scan.cum, scan.h, cc, bb, d, heads=heads, chunk=chunk,
+                                 split_bf16=True)
+    torch.testing.assert_close(out.float(), want.float(), **SPLIT_TOL)
+    torch.testing.assert_close(out.float(), ssd_scan_ref(*args, heads=heads, chunk=chunk).float(),
+                               **ssd_tol(torch.bfloat16))
+    scan.chunk_scan()
+    torch.cuda.synchronize()
+    assert torch.equal(scan.out, out), "two launches of ssd_chunk_scan differ"
+
+
 def test_split_instance_reads_unaligned_views(cuda):
     # cp.async reads 16-byte pieces: a view 1 element into its storage is copied
     x, dt, a, bb, cc, d = ssd_inputs(cuda, 4, 1, 128, 2, 64, 64, torch.bfloat16)

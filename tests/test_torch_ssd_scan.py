@@ -434,6 +434,48 @@ def test_gate_excess_is_at_most_one_where_assert_close_passes():
     assert excess(torch.tensor([float("nan")]), torch.tensor([0.0])) == float("inf")
 
 
+def test_chunk_scan_head_group_matches_the_source():
+    # the wrapper's account of ssd_chunk_scan's head groups and windows (used
+    # by chip_smoke.py to count the C . B^T tiles it makes) and the source's
+    source = sk.LIBRARY.source.read_text()
+    consts = dict(re.findall(r"constexpr int (HEAD_GROUP|GC) = (\d+);", source))
+    assert (int(consts["HEAD_GROUP"]), int(consts["GC"])) == (sk.SCAN_HEAD_GROUP, sk.SCAN_WINDOW_TILES)
+    assert [sk.scan_head_group(q) for q in (16, 20, 64, 96, 256, 257, 512, 2048)] == [8] * 5 + [2] * 3
+
+
+def test_library_is_keyed_by_its_extra_flags(tmp_path):
+    # the SSD-scan library asks ptxas for -v; another flag set is another library
+    plain = _build.CudaLibrary("keyed", sk.LIBRARY.source, lambda lib: None, error_fn="e")
+    verbose = _build.CudaLibrary("keyed", sk.LIBRARY.source, lambda lib: None, error_fn="e",
+                                 extra_flags=("-Xptxas", "-v"))
+    assert plain.flags == _build.NVCC_FLAGS and verbose.flags[-2:] == ("-Xptxas", "-v")
+    assert plain.path() != verbose.path()
+    assert sk.LIBRARY.flags == verbose.flags
+
+
+def test_chip_smoke_counts_each_split_launchs_work():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    bh, s, p, n, q, bg = 256, 2048, 64, 128, 256, 8  # the full-width scoring shape
+    work = chip_smoke.split_launch_work(bh, s, p, n, q, bg)
+    # the scan's products split between the first and the last launch
+    assert work["ssd_chunk_state"][1] + work["ssd_chunk_scan"][1] == chip_smoke.ssd_ops(bh, s, p, n, q, bg)
+    # ssd_chunk_scan: x, dt, cum, h, B, C, D in and y out, about 214 MB
+    assert work["ssd_chunk_scan"][0] == 213_910_528
+    assert work["ssd_chunk_scan"][2] == chip_smoke.BF16_PEAK and work["ssd_state_pass"][2] == chip_smoke.F32_PEAK
+    log = ("ptxas info    : Compiling entry function '_ZN2sp14ssd_chunk_scanILi64EEEv' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _ZN2sp14ssd_chunk_scanILi64EEEv\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 16 barriers\n"
+           "ptxas info    : Compiling entry function '_ZN2sp15ssd_chunk_stateILi64EEEv' for 'sm_90a'\n"
+           "ptxas info    : Used 128 registers, used 1 barriers\n")
+    assert chip_smoke.ptxas_lines(log, "ssd_chunk_scan") == {
+        "_ZN2sp14ssd_chunk_scanILi64EEEv":
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; Used 168 registers, used 16 barriers"}
+
+
 def test_library_is_built_from_the_source_in_the_repo():
     lib = sk.LIBRARY
     assert lib.source.name == "ssd_scan.cu" and lib.source.exists()

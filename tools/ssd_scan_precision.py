@@ -14,12 +14,18 @@ are the weights chip_smoke.py scores) and scores its held-out batch through:
   split instance derives rounded to two and to three bf16 terms;
 - copies of ``src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu`` with the
   split instance changed by the textual edits of ``VARIANTS`` (each must match
-  the source exactly once), built into ``src/repro_torch/build/precision/``,
-  one nvcc per copy, all started together;
+  the source exactly once): two bf16 terms, and each product of a launch
+  (``ssd_chunk_state``'s mma.sync, ``ssd_chunk_scan``'s wgmma) made from a
+  zero accumulator and added in float32, which rounds otherwise but is not a
+  fault; built into ``src/repro_torch/build/precision/``, one nvcc per copy,
+  all started together;
 - chip_smoke.py's two faulty scans around the shipped kernel.
 
 For each it prints the loss and its difference from ``ssd_chunked``'s (the
-gate allows 3e-4; the faulty scans must fall outside).  For each kernel copy
+faulty scans must lie more than 3e-4 from it), and the range over the
+multi-chunk layers of chip_smoke.py's per-layer gate: each layer's call
+against the plain version with split operands, in multiples of ``SPLIT_TOL``
+(at most 1 passes).  For each kernel copy
 it also prints the share of bf16 outputs that differ from ``ssd_scan_fwd``'s
 on the first four layers' inputs, and its time at full width (CUDA events
 around 20 back-to-back calls).  Prints one line per measurement and, last, a
@@ -47,14 +53,14 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as sops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as sr  # noqa: E402
-from repro_torch.kernels.ssd_scan.gate import faulty_scans  # noqa: E402
+from repro_torch.kernels.ssd_scan.gate import SPLIT_TOL, LayerGate, faulty_scans  # noqa: E402
 
 # name -> [(text of the source, its replacement)]
 VARIANTS = {
     "as shipped (three bf16 terms)": [],
     "two bf16 terms (hi + lo)": [
         ("constexpr int TERMS = 3;", "constexpr int TERMS = 2;")],
-    "three terms, each mma from a zero accumulator, added in float32": [
+    "three terms, each mma.sync of ssd_chunk_state from a zero accumulator, added in float32": [
         ("using hopper::mma_bf16_m16n8k16;",
          "__device__ __forceinline__ void mma_bf16_m16n8k16(float (&d)[4], const uint32_t (&a)[4],"
          " uint32_t b0, uint32_t b1) {\n"
@@ -62,6 +68,20 @@ VARIANTS = {
          "    hopper::mma_bf16_m16n8k16(t, a, b0, b1);\n"
          "    for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], t[i]);\n"
          "}")],
+    # the same for ssd_chunk_scan's products on wgmma: each term's product is
+    # waited for and added, so the copy is slow (every wgmma serialised)
+    "three terms, each wgmma of ssd_chunk_scan from a zero accumulator, added in float32": [
+        (f"    hopper::{call}(d, {ops}, 1);",
+         "    float z[32];\n"
+         "    for (int i = 0; i < 32; ++i) z[i] = 0.f;\n"
+         "    hopper::fence_regs(z);\n"
+         "    hopper::wgmma_fence();\n"
+         f"    hopper::{call}(z, {ops}, 0);\n"
+         "    hopper::wgmma_commit();\n"
+         "    hopper::wgmma_wait<0>();\n"
+         "    hopper::fence_regs(z);\n"
+         "    for (int i = 0; i < 32; ++i) d[i] = __fadd_rn(d[i], z[i]);")
+        for call, ops in (("wgmma_rs_m64n64k16", "a, db"), ("wgmma_ss_m64n64k16<1>", "da, db"))],
 }
 LAYERS_COMPARED = 4
 
@@ -146,10 +166,15 @@ def main() -> int:
     result: dict[str, dict] = {}
 
     def score(name: str, **patches) -> float:
+        """The loss through the scan that ``patches`` put in place, every layer's
+        call held by chip_smoke.py's per-layer gate."""
         patched = mock.patch.multiple(sops, **patches) if patches else contextlib.nullcontext()
         with torch.no_grad(), patched:
-            loss = float(train_loss(params, kernel_cfg, batch)[0])
-        result.setdefault(name, {})["loss"] = loss
+            gate = LayerGate(sops.ssd_scan, {})
+            with mock.patch.object(sops, "ssd_scan", gate):
+                loss = float(train_loss(params, kernel_cfg, batch)[0])
+        excess = [rec["scan"] for rec in gate.layers if rec["chunks"] > 1]
+        result.setdefault(name, {}).update(loss=loss, gate_max=max(excess), gate_min=min(excess))
         return loss
 
     with torch.no_grad():
@@ -180,12 +205,17 @@ def main() -> int:
 
     for name, r in result.items():
         line = f"[precision] {name}: loss {r['loss']:.6f}, - ssd_chunked's {r['loss'] - chunked:+.3g}"
+        if "gate_max" in r:
+            line += (f"; per-layer gate: {r['gate_min']:.3g} to {r['gate_max']:.3g} of SPLIT_TOL "
+                     f"({'passes' if r['gate_max'] <= 1 else 'fails'})")
         if "ms" in r:
             line += (f"; bf16 outputs differing from ssd_scan_fwd's at layers 0-{LAYERS_COMPARED - 1} "
                      + ", ".join(f"{v:.3g}" for v in r["outputs_differing_from_fwd"])
                      + f"; {r['ms']:.4f} ms at full width")
         print(line, flush=True)
-    print(f"[precision] gate: |loss - ssd_chunked's| <= {SCORE_TOL}")
+    print(f"[precision] the faulty scans' losses must lie more than {SCORE_TOL} from ssd_chunked's; "
+          f"the per-layer gate passes a scan within {SPLIT_TOL} of the plain version with split "
+          "operands on every layer")
     print(json.dumps({"card": smi.splitlines()[0], "chunked": chunked, "results": result}))
     return 0
 
