@@ -107,10 +107,9 @@
 //     run.  Then it splits h_c 64 rows at a time into three swizzled bf16
 //     blocks and runs C_i . h^T on wgmma with both operands in shared memory.
 //     The two consumers work on different heads;
-//   - no branch or register copy sits between a wgmma fence and its products,
-//     and the warpgroup index passes through a shuffle: ptxas otherwise
-//     serialises every wgmma of the kernel (C7513, C7520), which cost a third
-//     of its time;
+//   - no branch or register copy sits between a wgmma fence and its
+//     products: ptxas otherwise serialises every wgmma of the kernel (C7513,
+//     C7520), each then waited for before the next is issued;
 //   - rows past the end of a chunk that is not a multiple of 64 are masked in
 //     the scores and zeroed in x_j: a TMA box fills zeros only past the end of
 //     the sequence and would read the next chunk's rows;
@@ -734,7 +733,7 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
     __syncthreads();
 
     // the warpgroup, through a shuffle so that the compiler knows it is the same
-    // in every lane: a branch it thinks divergent serialises every wgmma (C7520)
+    // in every lane of a warp
     const int wgi = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
     if (wgi == 0) {
         // ------------------------------------------------------- producer

@@ -476,6 +476,20 @@ def test_chip_smoke_counts_each_split_launchs_work():
             "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; Used 168 registers, used 16 barriers"}
 
 
+def test_ablation_tool_edits_match_the_source_once():
+    # tools/ssd_scan_ablation.py takes parts of ssd_chunk_scan out by textual
+    # edits; each must still find its one place in the source
+    spec = importlib.util.spec_from_file_location(
+        "ssd_scan_ablation", Path(__file__).resolve().parents[1] / "tools" / "ssd_scan_ablation.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    source = sk.LIBRARY.source.read_text()
+    assert tool.ABLATIONS["as shipped"] == [] and set(tool.EXACT) <= set(tool.ABLATIONS)
+    for name, edits in tool.ABLATIONS.items():
+        for old, new in edits:
+            assert source.count(old) == 1 and old != new, name
+
+
 def test_library_is_built_from_the_source_in_the_repo():
     lib = sk.LIBRARY
     assert lib.source.name == "ssd_scan.cu" and lib.source.exists()
