@@ -925,7 +925,7 @@ def ssd_phase(dev, seed: int) -> dict:
             f"{by_k}, {100 * launch_bound[k] / launch_ms[k]:.2f} % of it")
     # ssd_chunk_scan makes each C_i . B_j^T (a 64 x 64 x N tile, j <= i) once for a group of heads
     tiles = (s // chunk) * sum(i + 1 for i in range(-(-chunk // 64)))
-    group = sk.scan_head_group(chunk)
+    group = sk.LIBRARY.load().ssd_chunk_scan_group(chunk)
     made = b * tiles * -(-h // group)
     say(f"[ssm] ssd_chunk_scan's C_i . B_j^T tiles (64 x 64 x {n}): {made} made, once for each group "
         f"of {group} heads ({2 * made * 64 * 64 * n / 1e9:.2f} GFLOP); once per head would be "

@@ -1196,6 +1196,10 @@ int ssd_chunk_scan_launch(int n, const void* x, const void* dt, const void* cum,
     return encode_err != 0 ? encode_err : (int)err;
 }
 
+// Heads of one launch-3 block at chunk length q: the heads that share each
+// C_i . B_j^T it makes.
+int ssd_chunk_scan_group(int q) { return sp::scan_group(q); }
+
 // The dynamic shared memory of one launch-3 block at state size n, bytes.
 int ssd_chunk_scan_smem(int n) {
     return n == 64 ? (int)sp::ScanSmem<64>::BYTES : n == 128 ? (int)sp::ScanSmem<128>::BYTES : 0;

@@ -20,9 +20,8 @@ import torch
 
 from .._build import CudaLibrary
 
-__all__ = ["HEAD_DIMS", "INSTANCES", "LIBRARY", "MAX_CHUNK", "SCAN_HEAD_GROUP", "SCAN_WINDOW_TILES",
-           "SPLIT_HEAD_DIM", "SPLIT_STATE_DIMS", "STATE_DIMS", "SplitScan", "instance_for",
-           "scan_head_group", "ssd_scan_call"]
+__all__ = ["HEAD_DIMS", "INSTANCES", "LIBRARY", "MAX_CHUNK", "SPLIT_HEAD_DIM", "SPLIT_STATE_DIMS",
+           "STATE_DIMS", "SplitScan", "instance_for", "ssd_scan_call"]
 
 #: head dims (P) the source instantiates: tests/test_kernels.py's 8, 16 and
 #: 64, which is also mamba2-370m's and zamba2-7b's, and benchmarks/run.py's 32
@@ -35,12 +34,6 @@ SPLIT_HEAD_DIM = 64
 SPLIT_STATE_DIMS = (64, 128)
 #: the longest chunk: its cumsum and decays stay in shared memory
 MAX_CHUNK = 2048
-#: the split instance's last launch (ssd_chunk_scan) makes C_i . B_j^T once
-#: for a group of SCAN_HEAD_GROUP heads when a chunk has at most
-#: SCAN_WINDOW_TILES 64-row tiles, else in windows of that many tiles for
-#: groups of 2 heads (the source's HEAD_GROUP and GC)
-SCAN_HEAD_GROUP = 8
-SCAN_WINDOW_TILES = 4
 INSTANCES = ("split", "fwd")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -49,12 +42,6 @@ def instance_for(dtype: torch.dtype, p: int, n: int) -> str:
     """The kernel instance that scans x, B and C of this dtype, head dim and state size."""
     split = dtype == torch.bfloat16 and p == SPLIT_HEAD_DIM and n in SPLIT_STATE_DIMS
     return "split" if split else "fwd"
-
-
-def scan_head_group(chunk: int) -> int:
-    """Heads of one block of ssd_chunk_scan at this chunk length: the heads
-    that share each C_i . B_j^T it makes."""
-    return SCAN_HEAD_GROUP if -(-chunk // 64) <= SCAN_WINDOW_TILES else 2
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -69,9 +56,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ssd_chunk_scan_launch.argtypes = [
         c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, ptr,
     ]
+    lib.ssd_chunk_scan_group.argtypes = [c_int]
     lib.ssd_chunk_scan_smem.argtypes = [c_int]
     for fn in (lib.ssd_scan_fwd_launch, lib.ssd_chunk_state_launch, lib.ssd_state_pass_launch,
-               lib.ssd_chunk_scan_launch, lib.ssd_chunk_scan_smem):
+               lib.ssd_chunk_scan_launch, lib.ssd_chunk_scan_group, lib.ssd_chunk_scan_smem):
         fn.restype = c_int
 
 

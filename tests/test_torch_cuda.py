@@ -433,10 +433,10 @@ def test_split_instance_equals_plain_version(cuda, n, s, chunk):
                                **ssd_tol(torch.bfloat16))
 
 
-# ssd_chunk_scan makes each C_i . B_j^T once for a group of
-# kernel.SCAN_HEAD_GROUP heads of a batch entry: head counts the group does
-# not divide (3 and 9), mamba2-370m's 32 heads at S 512, and chunks of 512
-# rows, whose G tiles take two windows with a group of 2 heads.  Each against
+# ssd_chunk_scan makes each C_i . B_j^T once for a group of 8 heads of a
+# batch entry: head counts the group does not divide (3 and 9), mamba2-370m's
+# 32 heads at S 512, and chunks of 512 rows, whose G tiles take two windows
+# with a group of 2 heads.  Each against
 # its plain function, the whole instance against the plain version, and a
 # second launch of ssd_chunk_scan bit-equal to the first.
 GROUP_SHAPES = [(512, 256, 9, 128), (512, 256, 9, 64), (512, 256, 3, 128), (512, 256, 32, 128),
@@ -445,6 +445,7 @@ GROUP_SHAPES = [(512, 256, 9, 128), (512, 256, 9, 64), (512, 256, 3, 128), (512,
 
 @pytest.mark.parametrize("s,chunk,heads,n", GROUP_SHAPES)
 def test_chunk_scan_shares_c_b_across_head_groups(cuda, s, chunk, heads, n):
+    assert sk.LIBRARY.load().ssd_chunk_scan_group(chunk) == (8 if chunk <= 256 else 2)
     args = ssd_inputs(cuda, s + chunk + heads + n, 2, s, heads, 64, n, torch.bfloat16)
     x, dt, a, bb, cc, d = args
     scan = sk.SplitScan(*args, heads=heads, chunk=chunk)

@@ -434,15 +434,6 @@ def test_gate_excess_is_at_most_one_where_assert_close_passes():
     assert excess(torch.tensor([float("nan")]), torch.tensor([0.0])) == float("inf")
 
 
-def test_chunk_scan_head_group_matches_the_source():
-    # the wrapper's account of ssd_chunk_scan's head groups and windows (used
-    # by chip_smoke.py to count the C . B^T tiles it makes) and the source's
-    source = sk.LIBRARY.source.read_text()
-    consts = dict(re.findall(r"constexpr int (HEAD_GROUP|GC) = (\d+);", source))
-    assert (int(consts["HEAD_GROUP"]), int(consts["GC"])) == (sk.SCAN_HEAD_GROUP, sk.SCAN_WINDOW_TILES)
-    assert [sk.scan_head_group(q) for q in (16, 20, 64, 96, 256, 257, 512, 2048)] == [8] * 5 + [2] * 3
-
-
 def test_library_is_keyed_by_its_extra_flags(tmp_path):
     # the SSD-scan library asks ptxas for -v; another flag set is another library
     plain = _build.CudaLibrary("keyed", sk.LIBRARY.source, lambda lib: None, error_fn="e")
