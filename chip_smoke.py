@@ -2038,9 +2038,9 @@ def main() -> int:
     libraries = [gk.LIBRARY, fk.LIBRARY, sk.LIBRARY]
     libs = _build.build_all(libraries)  # one nvcc per source, all at once
     say(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
-    for lib in libraries:  # ptxas's spill and local-memory warnings, among the rest
+    for lib in libraries:  # ptxas's warnings and performance notes, not its -v lines
         said = "\n".join(line for line in lib.build_log.splitlines()
-                         if "ptxas info" not in line or "(C75" in line)
+                         if "(C75" in line or ("ptxas info" not in line and "bytes stack frame" not in line))
         if said:
             say(f"[build] {lib.name}: nvcc said\n{said}")
     smem = sk.LIBRARY.load().ssd_chunk_scan_smem
