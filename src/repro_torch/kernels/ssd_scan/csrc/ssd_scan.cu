@@ -108,8 +108,9 @@
 //     blocks and runs C_i . h^T on wgmma with both operands in shared memory.
 //     The two consumers work on different heads;
 //   - no branch or register copy sits between a wgmma fence and its
-//     products: ptxas otherwise serialises every wgmma of the kernel (C7513,
-//     C7520), each then waited for before the next is issued;
+//     products: ptxas can then serialise every wgmma of the kernel, each
+//     waited for before the next is issued (C7513, C7520), or add fences
+//     (C7519);
 //   - rows past the end of a chunk that is not a multiple of 64 are masked in
 //     the scores and zeroed in x_j: a TMA box fills zeros only past the end of
 //     the sequence and would read the next chunk's rows;
@@ -940,7 +941,7 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
             // intra-chunk term, scores . x_j: tile j's products run on the
             // tensor cores while the CUDA cores make tile j + 1's scores.  Every
             // k-step is issued, with no branch and no register copy between a
-            // wgmma fence and its products: either would make ptxas serialise
+            // wgmma fence and its products: either can make ptxas serialise
             // every wgmma of the kernel (C7513, C7520).  So the two A buffers
             // take turns by an unrolled pair of steps, and the rows of a ragged
             // tile past the chunk are zeroed in x_j (a TMA box reads on into the
