@@ -653,8 +653,8 @@ template <int N> struct ScanSmem {
 // exp(x) in float32 to a few ulp, for x <= 0: 2^t e^c with t = x log2 e
 // rounded and c = x - t ln 2 carried past float32 (t alone would cost up to 60
 // ulp at the exponents of a chunk), on one MUFU.EX2 and four FMA-pipe
-// instructions, about a third of expf's.  Results below 2^-126 flush to zero:
-// such a decay adds less than 1e-35 to an output.
+// instructions.  Results below 2^-126 flush to zero: such a decay adds less
+// than 1e-35 to an output.
 __device__ __forceinline__ float exp_f32(float x) {
     constexpr float L2E = 1.44269502162933349609375f;     // log2 e rounded to float32
     constexpr float LN2_HI = 0.693147182464599609375f;    // ln 2 rounded to float32
