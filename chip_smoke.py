@@ -51,11 +51,13 @@ Phases, each fatal on failure:
    5e-2 in bf16).  The split instance (bf16, head dim 64, state 64 or 128)
    is also held against the plain version that rounds its float32 operands
    to the bf16 terms it feeds them as (one bf16 ulp of the output), and each
-   of its three launches against its own plain function.  Kernel, plain and
-   ssd_chunked times at the full-width shape beside the bound, and the time
-   of each of the split instance's three launches beside the bytes and
-   operations it must move and do, and the C_i . B_j^T tiles the last one
-   makes (once for each group of heads).
+   of its two launches against its own plain functions: the first's cumsum
+   and chunk states (through its check output) and the states entering each
+   chunk, the second's output.  Kernel, plain and ssd_chunked times at the
+   full-width shape beside the bound, and the time of each of the split
+   instance's two launches beside the bytes and operations it must move and
+   do, and the C_i . B_j^T tiles the last one makes (once for each group of
+   heads).
    Then mamba2-370m at full width (48 layers, bf16, random weights from
    --seed made on the card) trains through Trainer with async checkpoints
    to the emulated DAOS FDB: 6 steps of 8 x 2048 tokens, a checkpoint every
@@ -213,9 +215,10 @@ SSD_CARRY_TOL = dict(atol=1e-4, rtol=1e-4)  # tests/test_kernels.py:112
 # the plain version that rounds the scores, w*x and h to the bf16 terms it
 # feeds them as: one bf16 ulp of the output, plus float32 sums in another
 # order near zero
-# the split instance's float32 scratch (cumsum, chunk states, states entering
-# each chunk) against the plain functions of its launches: float32 sums of up
-# to a chunk of products in another order
+# the split instance's float32 scratch (cumsum, chunk states through the
+# first launch's check output, states entering each chunk) against the plain
+# functions of its launches: float32 sums of up to a chunk of products in
+# another order
 SCRATCH_TOL = dict(atol=1e-4, rtol=1e-5)
 SSD_CASES = [  # (batch, seq, heads, head dim, state, chunk), float32 and bf16
     (1, 64, 1, 8, 4, 16), (2, 128, 3, 16, 8, 32),  # tests/test_kernels.py:76-83
@@ -789,24 +792,32 @@ def ssd_bound(bh: int, s: int, p: int, n: int, q: int, bg: int, itemsize: int) -
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def split_launch_work(bh: int, s: int, p: int, n: int, q: int, bg: int) -> dict[str, tuple[int, int, float]]:
+def split_launch_work(bh: int, s: int, p: int, n: int, q: int,
+                      bg: int) -> dict[str, tuple[int, tuple[tuple[int, float], ...]]]:
     """Per launch of the split instance: the bytes it must move (each input read
-    once, each output written once), the operations the function needs (two per
-    multiply-add, as :func:`ssd_ops` counts them) and the peak rate they run
-    at: the tensor cores' bf16 rate for the products, float32 for the pass."""
+    once, each output written once), and the operations the function needs (two
+    per multiply-add, as :func:`ssd_ops` counts them), each kind beside the peak
+    rate it runs at: the tensor cores' bf16 rate for the products, float32 for
+    the state pass."""
     nc, pairs = s // q, q * (q + 1) // 2
-    x, rows, bc = 2 * bh * s * p, 4 * bh * s, 2 * bg * s * n
-    states, h = 4 * bh * (nc - 1) * n * p, 4 * bh * nc * n * p
+    x, rows, bc, h = 2 * bh * s * p, 4 * bh * s, 2 * bg * s * n, 4 * bh * nc * n * p
     return {
-        # x, dt, A, B in; cum and the chunk states out
-        "ssd_chunk_state": (x + rows + 4 * bh + bc + rows + states, 2 * q * n * p * bh * (nc - 1), BF16_PEAK),
-        # the chunk states and each chunk's total in; the state entering each chunk out
-        "ssd_state_pass": (states + 4 * bh * nc + h, 2 * n * p * bh * (nc - 1), F32_PEAK),
+        # x, dt, A, B in; cum and the state entering each chunk out.  The chunk
+        # states' products, then h_{c+1} = exp(total_c) h_c + S_c
+        "ssd_chunk_state": (x + rows + 4 * bh + bc + rows + h,
+                            ((2 * q * n * p * bh * (nc - 1), BF16_PEAK), (2 * n * p * bh * (nc - 1), F32_PEAK))),
         # x, dt, cum, h, B, C, D in; y out
         "ssd_chunk_scan": (x + 2 * rows + h + 2 * bc + 4 * bh + x,
-                           2 * (pairs * n * bg * nc + pairs * p * bh * nc + q * n * p * bh * (nc - 1)),
-                           BF16_PEAK),
+                           ((2 * (pairs * n * bg * nc + pairs * p * bh * nc + q * n * p * bh * (nc - 1)),
+                             BF16_PEAK),)),
     }
+
+
+def launch_bound(nbytes: int, work: tuple[tuple[int, float], ...]) -> tuple[float, str]:
+    """Least time in ms of a launch of :func:`split_launch_work`: its bytes over
+    HBM, or each kind of its operations at its peak rate, whichever is longest."""
+    t_bytes, t_ops = nbytes / HBM_RATE, max(ops / peak for ops, peak in work)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def ptxas_lines(log: str, kernel: str) -> dict[str, str]:
@@ -824,19 +835,28 @@ def ptxas_lines(log: str, kernel: str) -> dict[str, str]:
 
 def split_launch_errors(scan, flat, heads: int, chunk: int) -> dict[str, float]:
     """Each launch of the split instance ``scan`` (a kernel.SplitScan that has
-    run) against its plain function on the same inputs; the largest
-    differences by launch."""
+    run) against its plain functions on the same inputs: the first launch run
+    again with its check output, its cumsum and chunk states S_c against
+    ssd_chunk_state_ref and its h against ssd_state_pass_ref of its own S_c
+    (and bit-equal to the main path's h), the second's output against
+    ssd_chunk_scan_ref; the largest differences by part."""
     from repro_torch.kernels.ssd_scan import ref as sr
 
     x, dt, A, B, C, D = flat
-    cum, states = sr.ssd_chunk_state_ref(x, dt, A, B, heads=heads, chunk=chunk, split_bf16=True)
-    h = sr.ssd_state_pass_ref(scan.states, scan.cum, chunk=chunk)
+    h_main = scan.h.clone()  # the main path's, written without the check output
+    states = torch.empty((scan.bh, scan.s // scan.q - 1, scan.n, x.shape[-1]), dtype=torch.float32,
+                         device=x.device)
+    scan.chunk_state(states)
+    torch.cuda.synchronize()
+    assert torch.equal(scan.h, h_main), "ssd_chunk_state's h moved with the check output"
+    cum, want_states = sr.ssd_chunk_state_ref(x, dt, A, B, heads=heads, chunk=chunk, split_bf16=True)
+    h = sr.ssd_state_pass_ref(states, scan.cum, chunk=chunk)
     out = sr.ssd_chunk_scan_ref(x, dt, scan.cum, scan.h, C, B, D, heads=heads, chunk=chunk,
                                 split_bf16=True)
     errs = {}
     for name, got, want, tol in (("ssd_chunk_state cum", scan.cum, cum, SCRATCH_TOL),
-                                 ("ssd_chunk_state states", scan.states, states, SCRATCH_TOL),
-                                 ("ssd_state_pass", scan.h, h, SCRATCH_TOL),
+                                 ("ssd_chunk_state S_c", states, want_states, SCRATCH_TOL),
+                                 ("ssd_chunk_state h", scan.h, h, SCRATCH_TOL),
                                  ("ssd_chunk_scan", scan.out, out, SPLIT_TOL)):
         torch.testing.assert_close(got.float(), want.float(), **tol)
         errs[name] = float((got.float() - want.float()).abs().max()) if want.numel() else 0.0
@@ -903,7 +923,6 @@ def ssd_phase(dev, seed: int) -> dict:
     scan = sk.SplitScan(*flat, heads=h, chunk=chunk)
     scan.run()
     launch_ms = {"ssd_chunk_state": device_ms(scan.chunk_state),
-                 "ssd_state_pass": device_ms(scan.state_pass),
                  "ssd_chunk_scan": device_ms(scan.chunk_scan)}
     # the kernel, then the yardstick, then the kernel again: a single pair
     # could straddle a change of clocks
@@ -914,18 +933,26 @@ def ssd_phase(dev, seed: int) -> dict:
               "plain_ms": device_ms(plain, launches=5), "chunked_ms": t_chunked}
     bound, by = ssd_bound(b * h, s, p, n, chunk, b, 2)
     flops, nbytes = ssd_ops(b * h, s, p, n, chunk, b), ssd_bytes(b * h, s, p, n, b, 2)
-    scratch = sum(t.numel() * t.element_size() for t in (scan.cum, scan.states, scan.h))
+    scratch = sum(t.numel() * t.element_size() for t in (scan.cum, scan.h))
     work = split_launch_work(b * h, s, p, n, chunk, b)
-    launch_bound = {k: max(nb / HBM_RATE, ops / peak) * 1e3 for k, (nb, ops, peak) in work.items()}
-    for k, (nb, ops, peak) in work.items():
-        by_k = "bytes" if nb / HBM_RATE >= ops / peak else "operations"
+    launch_bounds = {k: launch_bound(nb, ops) for k, (nb, ops) in work.items()}
+    for k, (nb, ops) in work.items():
+        bound_k, by_k = launch_bounds[k]
         say(f"[ssm] {k} at full width: {launch_ms[k]:.4f} ms; it must move {nb / 1e6:.1f} MB "
-            f"({nb / HBM_RATE * 1e3:.4f} ms at {HBM_RATE / 1e12:.2f} TB/s) and do {ops / 1e9:.2f} GFLOP "
-            f"({ops / peak * 1e3:.4f} ms at {peak / 1e12:.0f} TFLOP/s): bound {launch_bound[k]:.4f} ms by "
-            f"{by_k}, {100 * launch_bound[k] / launch_ms[k]:.2f} % of it")
+            f"({nb / HBM_RATE * 1e3:.4f} ms at {HBM_RATE / 1e12:.2f} TB/s) and do "
+            + " and ".join(f"{o / 1e9:.2f} GFLOP ({o / pk * 1e3:.4f} ms at {pk / 1e12:.0f} TFLOP/s)"
+                           for o, pk in ops)
+            + f": bound {bound_k:.4f} ms by {by_k}, {100 * bound_k / launch_ms[k]:.2f} % of it")
+    lib = sk.LIBRARY.load()
+    per_sm = lib.ssd_chunk_state_blocks_per_sm(n)
+    assert per_sm >= 1, per_sm
+    say(f"[ssm] ssd_chunk_state makes each chunk's state on wgmma and chains the recurrence across "
+        f"its {b * (s // chunk) * -(-h // lib.ssd_chunk_state_group(chunk))} blocks (groups of "
+        f"{lib.ssd_chunk_state_group(chunk)} heads, {per_sm} an SM, {lib.ssd_chunk_state_smem(n)} "
+        f"bytes of shared memory each); the chunk states never go to memory")
     # ssd_chunk_scan makes each C_i . B_j^T (a 64 x 64 x N tile, j <= i) once for a group of heads
     tiles = (s // chunk) * sum(i + 1 for i in range(-(-chunk // 64)))
-    group = sk.LIBRARY.load().ssd_chunk_scan_group(chunk)
+    group = lib.ssd_chunk_scan_group(chunk)
     made = b * tiles * -(-h // group)
     say(f"[ssm] ssd_chunk_scan's C_i . B_j^T tiles (64 x 64 x {n}): {made} made, once for each group "
         f"of {group} heads ({2 * made * 64 * 64 * n / 1e9:.2f} GFLOP); once per head would be "
@@ -949,7 +976,7 @@ def ssd_phase(dev, seed: int) -> dict:
     assert timing["ms"] < timing["chunked_ms"], (timing, "the split instance is slower than ssd_chunked")
     return {**timing, "max_abs_err": max(worst.values()), "bound_ms": bound, "bound_by": by,
             "library_ms": None, "instance": instance, "launch_ms": launch_ms,
-            "launch_bound_ms": launch_bound}
+            "launch_bound_ms": {k: v[0] for k, v in launch_bounds.items()}}
 
 
 def checksums(state) -> dict[str, float]:
@@ -2043,12 +2070,13 @@ def main() -> int:
                          if "(C75" in line or ("ptxas info" not in line and "bytes stack frame" not in line))
         if said:
             say(f"[build] {lib.name}: nvcc said\n{said}")
-    smem = sk.LIBRARY.load().ssd_chunk_scan_smem
-    scan_ptxas = ptxas_lines(sk.LIBRARY.build_log, "ssd_chunk_scan")
-    assert len(scan_ptxas) == 2, scan_ptxas.keys()
-    for mangled, said in scan_ptxas.items():
-        n = 128 if "ILi128E" in mangled else 64
-        say(f"[build] ssd_chunk_scan<{n}> (ptxas -v): {said}; {smem(n)} bytes of dynamic shared memory")
+    k4 = sk.LIBRARY.load()
+    for kname, smem in (("ssd_chunk_state", k4.ssd_chunk_state_smem), ("ssd_chunk_scan", k4.ssd_chunk_scan_smem)):
+        k4_ptxas = ptxas_lines(sk.LIBRARY.build_log, kname)
+        assert len(k4_ptxas) == 2, (kname, k4_ptxas.keys())
+        for mangled, said in k4_ptxas.items():
+            n = 128 if "ILi128E" in mangled else 64
+            say(f"[build] {kname}<{n}> (ptxas -v): {said}; {smem(n)} bytes of dynamic shared memory")
 
     # ------------------------------------------------------------- 2. kernels
     t0 = time.perf_counter()

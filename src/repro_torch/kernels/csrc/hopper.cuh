@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared-memory
 // addresses, mbarriers, TMA tensor maps and loads, warpgroup matrix multiply
 // (wgmma) descriptors and instructions, register hand-over between
-// warpgroups (setmaxnreg), named barriers, and the warp-level tensor-core
-// product (mma.sync) with its ldmatrix and cp.async feeds.  Raw PTX, no CuTe:
+// warpgroups (setmaxnreg), named barriers, and the ldmatrix and cp.async
+// feeds of register operands and small staged rows.  Raw PTX, no CuTe:
 // the header costs nvcc nothing beyond its own lines.
 //
 // Layout convention.  A bf16 tile of R rows is kept in shared memory as
@@ -413,25 +413,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
     wgmma_rs_m64n128k16(d, a, desc_b, scale_d);
 }
 
-// warp-level products --------------------------------------------------------
+// register operands and cp.async --------------------------------------------
 //
-// mma.sync.m16n8k16: one warp multiplies a 16 x 16 bf16 tile A by a 16 x 8
-// bf16 tile B into a 16 x 8 float32 tile.  With g = lane / 4 and t = lane % 4
-// a lane holds (row, column):
-//   A, four words:  (g, 2t..2t+1), (g+8, 2t..2t+1), (g, 2t+8..2t+9), (g+8, 2t+8..2t+9)
-//   B, two words:   (2t..2t+1, g), (2t+8..2t+9, g)
-//   C, four floats: (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)
-// A word holds two bf16 values, the lower column (or row) in its low half, so
-// C tiles of columns [k, k+8) and [k+8, k+16) are, packed in pairs, the A
-// words of a product over those 16 columns.
-
-// Copies 16 bytes from global to shared memory past L1; with `valid` false
-// it reads nothing and writes zeros.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-}
+// A wgmma with A in registers: warp w of the warpgroup holds rows [16w, 16w +
+// 16) of the 64 x 16 tile, four words a lane; with g = lane / 4 and t = lane
+// % 4 they hold (row, column) (g, 2t..2t+1), (g+8, 2t..2t+1), (g, 2t+8..2t+9),
+// (g+8, 2t+8..2t+9) of the warp's 16 rows.  A word holds two bf16 values, the
+// lower column in its low half.
 
 // Copies 4 bytes from global to shared memory through L1; with `valid`
 // false it reads nothing and writes zeros.
@@ -452,36 +440,14 @@ __device__ __forceinline__ void cp_async_wait_group() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Waits until every cp.async of this thread has landed.
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Four 8 x 8 bf16 matrices from shared memory: lane 8i + r gives the address
-// (16-byte aligned) of row r of matrix i, and word i of lane l is the pair
-// (row l / 4, columns 2 (l % 4), 2 (l % 4) + 1) of matrix i.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(row)));
-}
-
-// The same of the transposed matrices: word i of lane l is the pair (rows
-// 2 (l % 4), 2 (l % 4) + 1; column l / 4) of matrix i.
+// Four transposed 8 x 8 bf16 matrices from shared memory: lane 8i + r gives
+// the address (16-byte aligned) of stored row r of matrix i, and word i of
+// lane l is the pair (stored rows 2 (l % 4), 2 (l % 4) + 1; stored column
+// l / 4) of matrix i, the lower row in the low half.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                  : "r"(smem_addr(row)));
-}
-
-// d += A . B, bf16 operands, float32 accumulator.
-__device__ __forceinline__ void mma_bf16_m16n8k16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                                  uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two float32 values as a bf16 word (round to nearest even), `lo` in the low half.

@@ -5,9 +5,8 @@
 //      (and at 64 with state sizes other than 64 and 128); everything in
 //      float32 on the CUDA cores.
 //   2. the split instance: bf16 x, B and C at P = 64, N = 64 or 128 (the
-//      heads of mamba2-370m and zamba2-7b), in three launches on the tensor
-//      cores (mma.sync, and wgmma fed by TMA in the last), with float32
-//      operands split into bf16 terms.
+//      heads of mamba2-370m and zamba2-7b), in two launches on the tensor
+//      cores (wgmma fed by TMA), with float32 operands split into bf16 terms.
 //
 // Both replace the Pallas TPU kernel `ssd_scan_kernel` of
 // src/repro/kernels/ssd_scan/kernel.py.  Per chunk of Q rows of one
@@ -42,29 +41,23 @@
 // chunk) against 0.1 MB moved, runs in float32 on the CUDA cores (67 TFLOP/s
 // peak), each operand read from shared memory for every multiply-add.
 //
-// ---- 2. the split instance (ssd_chunk_state, ssd_state_pass, ssd_chunk_scan)
+// ---- 2. the split instance (ssd_chunk_state, ssd_chunk_scan)
 // Only the C . state^T term and the state recurrence depend on earlier
 // chunks (the SSD split of arXiv:2405.21060 section 6), so the scan runs as
-//   ssd_chunk_state  grid BH x chunks: the chunk's cumsum (written to a
-//                    (BH, S) float32 scratch) and its own state contribution
-//                    S_c = B^T (w x), w_j = exp(total - cum_j) dt_j, into a
-//                    (BH, chunks - 1, N, P) float32 scratch (nothing reads the
-//                    state after the last chunk);
-//   ssd_state_pass   one thread per four (bh, n, p) walks the chunks in order:
-//                    h_0 = 0, h_{c+1} = exp(total_c) h_c + S_c, written to a
-//                    (BH, chunks, N, P) float32 scratch;
+//   ssd_chunk_state  grid BG x chunks x head groups: each chunk's cumsum
+//                    (written to a (BH, S) float32 scratch) and its own state
+//                    contribution S_c = B^T (w x), w_j = exp(total - cum_j)
+//                    dt_j, for every chunk at once; then, chained from block
+//                    to block in chunk order, the state entering each chunk,
+//                    h_0 = 0, h_{c+1} = exp(total_c) h_c + S_c, into a (BH,
+//                    chunks, N, P) float32 scratch.  S_c itself never goes to
+//                    memory (but for a check output);
 //   ssd_chunk_scan   grid BG x chunks x head groups x 64-row tiles: for its
 //                    64 rows i, G_ij = C_i . B_j^T for each 64-row tile j <= i,
 //                    once for the group's heads; then per head the masked
 //                    decay exp(cum_i - cum_j) dt_j in float32 and scores . x_j,
 //                    then exp(cum_i) (C_i . h_c^T) and D x_i.
-// The first two run on the tensor cores as mma.sync.m16n8k16 (bf16 in,
-// float32 accumulators), four warps a block, operands staged by cp.async into
-// padded shared tiles (rows of N + 8 or P + 8 elements: 16 bytes past a
-// multiple of 128, so ldmatrix reads without bank conflicts) and read by
-// ldmatrix, with .trans for the operands stored K-major the other way (B^T and
-// w x).  The third, which holds three quarters of the instance's time, is
-// built for Hopper, as below.
+// Both are built for Hopper, as below.
 //
 // Precision.  x, B and C are bf16 inputs and enter once.  Each operand the
 // kernel derives in float32 -- the scores, w x and h -- enters as three bf16
@@ -116,7 +109,61 @@
 //     the sequence and would read the next chunk's rows;
 //   - no atomics: every sum runs in a fixed order of j tiles, terms and heads,
 //     so two runs give the same bits.
-
+//
+// ---- ssd_chunk_state on wgmma and TMA, the state pass chained across its blocks
+// What bounds it.  At the full-width scoring shape the launch must read x
+// (67.1 MB), B (4.2 MB) and dt (2.1 MB) and write cum (2.1 MB) and h (67.1
+// MB): 142.6 MB, 0.0426 ms at 3.35 TB/s.  Its products, S_c^T = (w x)^T B for
+// every chunk but the last, are 7.5 GFLOP, 22.5 with three terms: 0.023 ms
+// at the bf16 dense peak.  So bytes bound it.  The two launches it replaces
+// (mma.sync chunk states, then a pass over them) also wrote the chunk states
+// S_c (58.7 MB) and read them back, and staged each tile on one cp.async
+// stage, its loads never beside its products.  The design:
+//   - one block of a consumer warpgroup and a producer warp per (batch entry,
+//     chunk, group of STATE_GROUP = 2 heads): 8 x 8 x 16 = 1024 blocks at
+//     full width, of which the 128 of the last chunk only write cum.  A block
+//     takes 107.7 KB of shared memory at N 128 (a ring of GC B tiles, 64 KB,
+//     loaded once for its heads; an x ring of STATE_XS tiles, 24 KB; w and a
+//     cum scratch, 16 KB), so two blocks run on an SM and 264 at once: the
+//     896 that make states take 3.4 rounds, and with tickets chunk outermost
+//     a block's predecessor chunk has mostly finished before it waits.  Ten
+//     warps an SM leave 168 registers a thread (three warps share one of the
+//     SM's four register files).  On an H100 this beat one block an SM of two
+//     consumer warpgroups and 8 heads (whose consumers reached their
+//     epilogues in step), and 1, 4 and 8 heads a block here (the ablation
+//     tool times each);
+//   - lane 0 of the producer warp issues the TMA loads: each B tile once,
+//     then every head's x tiles through the ring;
+//   - the consumer walks its heads.  A = (w x)^T comes from the x tile by
+//     ldmatrix.trans (the scores . x pattern of ssd_chunk_scan, with x in
+//     place of the scores), is scaled by w_j in float32 and split into three
+//     bf16 words, the smallest term first into wgmma m64n128k16 (m64n64k16 at
+//     N 64) with B_j as the MN-major B operand.  The next step's words are
+//     made while a step's products run: a step is a tile at N 64 and half a
+//     tile at N 128, where the 64 accumulator registers leave room for two
+//     buffers of two k-steps' words, not of four (with four, ptxas spilled
+//     and serialised every wgmma, C7512).  No branch or register copy sits
+//     between a wgmma fence and its products.  Rows past the end of a chunk
+//     that does not fill its last tile are zeroed in A (a TMA box reads on
+//     into the next chunk);
+//   - the cumsum keeps its float64 sums, each prefix rounded once, so cum is
+//     what the plain version and ssd_scan_fwd compute;
+//   - the recurrence is a chained scan.  Every block makes its S_c without
+//     waiting, then, per head, waits for chunk c - 1's block to flag h_c
+//     written, reads all of its h_c from L2 at once (the stores of h_{c+1}
+//     would otherwise hold each load back), writes h_{c+1} = exp(total_c) h_c
+//     + S_c (expf, __fmul_rn, then __fadd_rn) and flags it.  Blocks take
+//     their place from an atomic ticket, chunk outermost, so a block that
+//     waits has a predecessor that has started: progress does not hang on
+//     the order in which blocks are run;
+//   - the ticket and the flags belong to the caller's instance and are zeroed
+//     on the launch's stream before it; no atomic takes part in a sum, so two
+//     runs give the same bits.
+// Where its time goes (H100, copies of this source with parts taken out):
+// the A words, the x loads and the cumsum alone take about 0.04 ms, the
+// products add about 0.025 and the chained epilogue about 0.03: the three
+// run one after another more than beside each other, which is what a later
+// design has to change.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdio.h>
@@ -405,214 +452,14 @@ cudaError_t dispatch(int p, const void* x, const void* dt, const void* a, const 
 namespace sp {
 
 using bf16 = __nv_bfloat16;
-using hopper::cp_async_16;
-using hopper::cp_async_wait_all;
 using hopper::ldmatrix_x4_trans;
-using hopper::mma_bf16_m16n8k16;
 using hopper::pack_bf16;
 
 constexpr int P = 64;          // head dim
 constexpr int TILE = 64;       // rows of a chunk tile
-constexpr int THREADS = 128;   // four warps
-constexpr int LDP = P + 8;     // padded row of a P-wide bf16 tile (144 bytes)
-constexpr int PASS_THREADS = 256;
 constexpr int TERMS = 3;       // bf16 terms of a float32 operand
 
-// v rounded to bf16, as a float32
-__device__ __forceinline__ float bf16_round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Stages rows [0, rows) of a (., W) bf16 matrix starting at `src` into a
-// padded [TILE][LD] tile by cp.async; rows at or past `rows` are zeros.
-template <int W, int LD>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int rows) {
-    constexpr int PIECES = W / 8;  // 16-byte pieces a row
-    for (int e = threadIdx.x; e < TILE * PIECES; e += THREADS) {
-        const int r = e / PIECES, k = (e - r * PIECES) * 8;
-        const bool ok = r < rows;
-        cp_async_16(dst + r * LD + k, src + (size_t)(ok ? r : 0) * W + k, ok);
-    }
-}
-
-template <int N>
-constexpr size_t chunk_state_smem(int q) {
-    // B_j [TILE][N + 8] + the terms of w x, TERMS x [TILE][LDP] bf16, cum and w [q] float32
-    return (size_t)(TILE * (N + 8) + TERMS * TILE * LDP) * sizeof(bf16) + 2 * (size_t)q * sizeof(float);
-}
-
-// Launch 1: grid BH x chunks, block (bh, c) = blockIdx.x / chunks, % chunks.
-// Warp w owns state rows n in [w N/4, (w + 1) N/4) and all P columns.
-template <int N>
-__global__ void __launch_bounds__(THREADS)
-ssd_chunk_state(const bf16* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ a, const bf16* __restrict__ bmat,
-                float* __restrict__ cum_out, float* __restrict__ states, int s, int q,
-                int heads) {
-    constexpr int LDN = N + 8;
-    constexpr int MT = N / 64;  // 16-row m tiles of a warp
-    extern __shared__ float4 smem4[];
-    bf16* bs = reinterpret_cast<bf16*>(smem4);              // [TILE][LDN] B_j
-    bf16* wt = bs + TILE * LDN;                             // TERMS x [TILE][LDP]: terms of w x_j
-    float* cum = reinterpret_cast<float*>(wt + TERMS * TILE * LDP);  // [q]
-    float* ws = cum + q;                                    // [q] dt, then w
-
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int nc = s / q;
-    const int c = blockIdx.x % nc;
-    const int bh = blockIdx.x / nc;
-    const size_t row0 = (size_t)bh * s + (size_t)c * q;                // first row of x and dt
-    const size_t brow0 = (size_t)(bh / heads) * s + (size_t)c * q;    // first row of B
-    const float av = a[bh];
-
-    for (int t = tid; t < q; t += THREADS) {
-        const float d = dt[row0 + t];
-        ws[t] = d;
-        cum[t] = __fmul_rn(d, av);
-    }
-    __syncthreads();
-    if (warp == 0) {
-        // inclusive cumsum by warp 0 in float64, each prefix rounded once, as
-        // ssd_scan_fwd and the plain version do
-        const int seg = (q + 31) / 32;
-        const int lo = min(lane * seg, q), hi = min(lo + seg, q);
-        double run = 0.0;
-        for (int t = lo; t < hi; ++t) run += (double)cum[t];
-        double incl = run;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-            const double v = __shfl_up_sync(0xffffffffu, incl, o);
-            if (lane >= o) incl += v;
-        }
-        double pre = __shfl_up_sync(0xffffffffu, incl, 1);
-        if (lane == 0) pre = 0.0;
-        for (int t = lo; t < hi; ++t) {
-            pre += (double)cum[t];
-            cum[t] = __double2float_rn(pre);
-        }
-    }
-    __syncthreads();
-    for (int t = tid; t < q; t += THREADS) cum_out[row0 + t] = cum[t];
-    if (c == nc - 1) return;  // nothing reads the state after the last chunk
-    const float total = cum[q - 1];
-    for (int t = tid; t < q; t += THREADS) {
-        ws[t] = __fmul_rn(expf(__fsub_rn(total, cum[t])), ws[t]);
-    }
-
-    float acc[MT][8][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
-
-    for (int j0 = 0; j0 < q; j0 += TILE) {
-        const int rows = min(TILE, q - j0);
-        __syncthreads();  // w is written; the previous tile's readers are done
-        stage_rows<N, LDN>(bs, bmat + (brow0 + j0) * N, rows);
-        for (int e = tid; e < TILE * (P / 8); e += THREADS) {
-            const int r = e / (P / 8), k = (e - r * (P / 8)) * 8;
-            float v[8];
-#pragma unroll
-            for (int i = 0; i < 8; ++i) v[i] = 0.f;
-            if (r < rows) {
-                const uint4 raw = *reinterpret_cast<const uint4*>(x + (row0 + j0 + r) * P + k);
-                const bf16* xv = reinterpret_cast<const bf16*>(&raw);
-                const float w = ws[j0 + r];
-#pragma unroll
-                for (int i = 0; i < 8; ++i) v[i] = __fmul_rn(__bfloat162float(xv[i]), w);
-            }
-#pragma unroll
-            for (int t = 0; t < TERMS; ++t) {
-                uint4 tv;
-                uint32_t* w4 = reinterpret_cast<uint32_t*>(&tv);
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const float a0 = bf16_round(v[2 * i]), a1 = bf16_round(v[2 * i + 1]);
-                    w4[i] = pack_bf16(a0, a1);
-                    v[2 * i] = __fsub_rn(v[2 * i], a0);
-                    v[2 * i + 1] = __fsub_rn(v[2 * i + 1], a1);
-                }
-                *reinterpret_cast<uint4*>(wt + t * TILE * LDP + r * LDP + k) = tv;
-            }
-        }
-        cp_async_wait_all();
-        __syncthreads();
-
-        const int ksteps = (rows + 15) / 16;  // the zero rows past the chunk add nothing
-#pragma unroll
-        for (int kk = 0; kk < TILE / 16; ++kk) {
-            if (kk < ksteps) {
-                // A = B_j^T (n x j): the B tile is [j][n], so .trans
-                uint32_t af[MT][4];
-#pragma unroll
-                for (int m = 0; m < MT; ++m) {
-                    ldmatrix_x4_trans(af[m], bs + (kk * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDN +
-                                                 warp * (N / 4) + m * 16 + ((lane >> 3) & 1) * 8);
-                }
-#pragma unroll
-                for (int np = 0; np < P / 16; ++np) {
-                    // B = w x_j (j x p), stored [j][p]: .trans
-                    const int off = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDP + np * 16 +
-                                    (lane >> 4) * 8;
-#pragma unroll
-                    for (int t = TERMS - 1; t >= 0; --t) {  // the smallest term first
-                        uint32_t bt[4];
-                        ldmatrix_x4_trans(bt, wt + t * TILE * LDP + off);
-#pragma unroll
-                        for (int m = 0; m < MT; ++m) {
-                            mma_bf16_m16n8k16(acc[m][2 * np], af[m], bt[0], bt[1]);
-                            mma_bf16_m16n8k16(acc[m][2 * np + 1], af[m], bt[2], bt[3]);
-                        }
-                    }
-                }
-            }
-        }
-    }
-
-    float* out = states + ((size_t)bh * (nc - 1) + c) * N * P;
-    const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-        const int n = warp * (N / 4) + m * 16 + g;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int p = j * 8 + 2 * t4;
-            *reinterpret_cast<float2*>(out + (size_t)n * P + p) = make_float2(acc[m][j][0], acc[m][j][1]);
-            *reinterpret_cast<float2*>(out + (size_t)(n + 8) * P + p) =
-                make_float2(acc[m][j][2], acc[m][j][3]);
-        }
-    }
-}
-
-// Launch 2: thread i owns four consecutive (n, p) of one bh and walks the
-// chunks in order.  `states` is (BH, chunks - 1, N P), `h` (BH, chunks, N P).
-__global__ void __launch_bounds__(PASS_THREADS)
-ssd_state_pass(const float4* __restrict__ states, const float* __restrict__ cum,
-               float4* __restrict__ h, int bh_count, int s, int q, int np4) {
-    const size_t i = (size_t)blockIdx.x * PASS_THREADS + threadIdx.x;
-    if (i >= (size_t)bh_count * np4) return;
-    const int bh = (int)(i / np4), e = (int)(i - (size_t)bh * np4);
-    const int nc = s / q;
-    const float4* sv = states + (size_t)bh * (nc - 1) * np4 + e;
-    float4* hv = h + (size_t)bh * nc * np4 + e;
-    const float* tot = cum + (size_t)bh * s + q - 1;  // chunk c's total at tot[c q]
-    float4 run = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int c = 0; c < nc; ++c) {
-        hv[(size_t)c * np4] = run;
-        if (c + 1 < nc) {
-            const float et = expf(tot[(size_t)c * q]);
-            const float4 v = sv[(size_t)c * np4];
-            run.x = __fadd_rn(__fmul_rn(et, run.x), v.x);
-            run.y = __fadd_rn(__fmul_rn(et, run.y), v.y);
-            run.z = __fadd_rn(__fmul_rn(et, run.z), v.z);
-            run.w = __fadd_rn(__fmul_rn(et, run.w), v.w);
-        }
-    }
-}
-
-// Launch 3 (the wgmma instance of the header note): grid BG x chunks x head
+// Launch 2 (the wgmma instance of the header note): grid BG x chunks x head
 // groups x tiles, flattened with the tile fastest (the tiles of one chunk
 // share its B, C and h in L2) and the heaviest tile first.  Warpgroup 0 is
 // the producer: lane 0 of its warp k issues every TMA load of consumer k
@@ -1069,26 +916,413 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
     }
 }
 
+// Launch 1 (see the header note): one block per (batch entry, chunk, group
+// of heads), each taking its place from a ticket, chunk outermost; two blocks
+// an SM.  Warps 0-3 are the consumer warpgroup: they first scan dt a of one
+// head each (cum, w and the chunk's total), then walk the group's heads:
+// S_c^T = (w x)^T B over the chunk's tiles on wgmma, then the recurrence onto
+// h.  Lane 0 of warp 4, the producer, loads the chunk's B tiles into a ring
+// of GC stages (once for the group's heads) and each head's x tiles into a
+// ring of STATE_XS stages.
+constexpr int STATE_XS = 3;            // stages of the x ring
+constexpr int STATE_GROUP = 2;         // heads of a block when the chunk fits the B ring
+constexpr int STATE_THREADS = 160;     // a consumer warpgroup and a producer warp
+// floats of w (and of the cum scratch) a block keeps: its heads' rows, each
+// head's rounded up to whole tiles
+constexpr int STATE_W = STATE_GROUP * GC * TILE > MAX_CHUNK ? STATE_GROUP * GC * TILE : MAX_CHUNK;
+
+// A step of the consumer: KS k-steps of a tile, SPT steps a tile.  At N 128
+// the accumulator (64 registers) leaves room for two buffers of two k-steps'
+// A words, not of four (with four, at 168 registers a thread, ptxas spilled
+// and serialised every wgmma, C7512).
+template <int N> struct StateStep {
+    static constexpr int KS = N == 128 ? 2 : 4;
+    static constexpr int SPT = 4 / KS;
+};
+
+struct StateBars {
+    uint64_t b_full[GC], b_empty[GC];
+    uint64_t x_full[STATE_XS], x_empty[STATE_XS];
+    int ticket;
+};
+
+// Byte offsets in shared memory; the tiles 1024-aligned (the swizzle's atoms).
+// 107.7 KB at N 128: two blocks fit an SM's 228 KB.
+template <int N> struct StateSmem {
+    static constexpr int NB = N / 64;                              // 64-column blocks of B
+    static constexpr size_t B = 0;                                 // B_j: GC stages
+    static constexpr size_t X = B + (size_t)GC * NB * BLOCK;       // x_j: STATE_XS stages
+    static constexpr size_t W = X + STATE_XS * BLOCK;              // w of each head
+    static constexpr size_t CUM = W + STATE_W * sizeof(float);     // cum of each head, a scratch
+    static constexpr size_t TOT = CUM + STATE_W * sizeof(float);   // each head's total
+    static constexpr size_t BARS = TOT + (STATE_GROUP * sizeof(float) + 15) / 16 * 16;
+    static constexpr size_t BYTES = BARS + sizeof(StateBars) + 1024;  // + room to align
+};
+
+// The chained scan's flags (cutlass/barrier.h's pattern).  A waiter's thread
+// 0 spins on an acquire load, then a barrier hands the order on to its
+// warpgroup; a writer's warpgroup meets at a barrier, then its thread 0
+// fences at gpu scope (which also releases what the others wrote before the
+// barrier) and sets the flag.  A wait that lasts for billions of cycles is a
+// deadlock, not a slow predecessor: it traps, as mbar_wait does.
+__device__ __forceinline__ void flag_wait(const int* flag) {
+    long long start = clock64();
+    for (int spins = 1;; ++spins) {
+        int v;
+        asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n" : "=r"(v) : "l"(flag) : "memory");
+        if (v != 0) return;
+        if ((spins & 1023) == 0 && clock64() - start > (1ll << 34)) __trap();
+    }
+}
+
+__device__ __forceinline__ void flag_release(int* flag) {
+    asm volatile("fence.acq_rel.gpu;\nred.relaxed.gpu.global.add.s32 [%0], 1;\n" ::"l"(flag) : "memory");
+}
+
+// cum of one head's chunk by one warp: the float32 products dt a added in
+// float64, each prefix rounded once (as ssd_scan_fwd and the plain version
+// do), into cums; dts holds dt on entry and w_j = exp(total - cum_j) dt_j on
+// return.  Returns the chunk's total, cum[q - 1].
+__device__ __forceinline__ float chunk_cumsum(float* dts, float* cums, float av, int q, int lane) {
+    const int seg = (q + 31) / 32;
+    const int lo = min(lane * seg, q), hi = min(lo + seg, q);
+    double run = 0.0;
+    for (int t = lo; t < hi; ++t) run += (double)__fmul_rn(dts[t], av);
+    double incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const double v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+    }
+    double pre = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) pre = 0.0;
+    for (int t = lo; t < hi; ++t) {
+        pre += (double)__fmul_rn(dts[t], av);
+        cums[t] = __double2float_rn(pre);
+    }
+    __syncwarp();
+    const float total = cums[q - 1];
+    for (int t = lane; t < q; t += 32) dts[t] = __fmul_rn(expf(__fsub_rn(total, cums[t])), dts[t]);
+    __syncwarp();
+    return total;
+}
+
+// One term's product into the state, d += A . B: (w x)^T in registers
+// against B_j, MN-major in shared memory.
+template <int M>
+__device__ __forceinline__ void state_term(float (&d)[M], const uint32_t (&a)[4], uint64_t db) {
+    hopper::wgmma_rs(d, a, db, 1);
+}
+
+template <int N>
+__global__ void __launch_bounds__(STATE_THREADS, 2)
+ssd_chunk_state(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_b,
+                const float* __restrict__ dt, const float* __restrict__ a, float* __restrict__ cum,
+                float* __restrict__ h, float* __restrict__ states, int* __restrict__ sync, int s,
+                int q, int heads, int group) {
+    using namespace hopper;
+    using L = StateSmem<N>;
+    constexpr int NB = L::NB;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t pad = (1024 - (smem_addr(smem_raw) & 1023)) & 1023;
+    uint8_t* sm = smem_raw + pad;
+    StateBars& bar = *reinterpret_cast<StateBars*>(sm + L::BARS);
+
+    const int nc = s / q;
+    const int ntiles = (q + TILE - 1) / TILE;
+    const int ngroups = (heads + group - 1) / group;
+    const int bgs = (int)(gridDim.x / ((unsigned)nc * ngroups));  // batch entries
+    if (threadIdx.x == 0) {
+        // chunk outermost: every block that waits for chunk c - 1 finds that
+        // chunk's blocks already started, whatever order blocks are run in
+        bar.ticket = atomicAdd(sync, 1);
+        for (int st = 0; st < GC; ++st) {
+            mbar_init(&bar.b_full[st], 1);
+            mbar_init(&bar.b_empty[st], 128);
+        }
+        for (int st = 0; st < STATE_XS; ++st) {
+            mbar_init(&bar.x_full[st], 1);
+            mbar_init(&bar.x_empty[st], 128);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+    const int ticket = bar.ticket;
+    const int g = ticket % ngroups;
+    const int bg = (ticket / ngroups) % bgs;
+    const int c = ticket / (ngroups * bgs);
+    const int h0 = g * group, nh = min(group, heads - h0);  // this block's heads
+    const int crow = c * q;                                  // the chunk's first row
+    const int qp = ntiles * TILE;                            // a head's stride in w and cum
+
+    if (threadIdx.x >= 128) {
+        // ---------------------------------------------------------- producer
+        if (c == nc - 1 || threadIdx.x != 128) return;  // the last chunk needs no state
+        tma_prefetch(&tm_b);
+        tma_prefetch(&tm_x);
+        int nx = 0;
+        for (int hh = 0; hh < nh; ++hh) {
+            const int bh = bg * heads + h0 + hh;
+            for (int j = 0; j < ntiles; ++j, ++nx) {
+                if (hh == 0) {  // B_j, once for the group
+                    const int sb = j % GC;
+                    mbar_wait(&bar.b_empty[sb], ((j / GC) & 1) ^ 1);  // the first round passes
+                    mbar_arrive_expect_tx(&bar.b_full[sb], NB * BLOCK);
+                    for (int b = 0; b < NB; ++b) {
+                        tma_load_3d(sm + L::B + (sb * NB + b) * BLOCK, &tm_b, &bar.b_full[sb], 64 * b,
+                                    crow + j * TILE, bg);
+                    }
+                }
+                const int st = nx % STATE_XS;
+                mbar_wait(&bar.x_empty[st], ((nx / STATE_XS) & 1) ^ 1);
+                mbar_arrive_expect_tx(&bar.x_full[st], BLOCK);
+                tma_load_3d(sm + L::X + st * BLOCK, &tm_x, &bar.x_full[st], 0, crow + j * TILE, bh);
+            }
+        }
+        return;
+    }
+
+    // ------------------------------------------------------------ consumer
+    const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+    const int gq = lane / 4, tq = lane % 4;
+    float* wsm = reinterpret_cast<float*>(sm + L::W);
+    float* csm = reinterpret_cast<float*>(sm + L::CUM);
+    float* tots = reinterpret_cast<float*>(sm + L::TOT);
+
+    // cum of every head of the block, a warp a head at a time: cum to
+    // memory, w and the total to shared memory
+    for (int hh = warp; hh < nh; hh += 4) {
+        const int bh = bg * heads + h0 + hh;
+        const size_t row0 = (size_t)bh * s + crow;
+        float* dts = wsm + hh * qp;
+        float* cums = csm + hh * qp;
+        for (int e0 = 0; e0 < q; e0 += 32 * 8) {  // eight loads in flight a lane
+            float v[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const int e = e0 + lane + 32 * i;
+                v[i] = e < q ? dt[row0 + e] : 0.f;
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                if (e0 + lane + 32 * i < q) dts[e0 + lane + 32 * i] = v[i];
+            }
+        }
+        __syncwarp();
+        const float total = chunk_cumsum(dts, cums, a[bh], q, lane);
+        for (int e = lane; e < q; e += 32) cum[row0 + e] = cums[e];
+        if (lane == 0) tots[hh] = total;
+    }
+    named_barrier(1, 128);  // w and the totals of every head are written
+    if (c == 0) {  // h_0 = 0
+        for (int hh = 0; hh < nh; ++hh) {
+            float4* h0v = reinterpret_cast<float4*>(h + (size_t)(bg * heads + h0 + hh) * nc * N * P);
+            for (int e = t; e < N * P / 4; e += 128) h0v[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+    }
+    if (c == nc - 1) return;
+
+    // A of the product, (w x)^T: row p, column j of a k-step.  ldmatrix.trans
+    // of the x tile (rows j, columns p, as TMA laid it out) gives each lane
+    // its four words (rows p = 16 warp + gq and + 8, columns j = 2 tq, 2 tq +
+    // 1 and + 8); each value is scaled by w_j in float32 and split into
+    // TERMS bf16 words, KS k-steps at a time (StateStep).  `masked`: the tile
+    // runs past the chunk's last row, and x there (the next chunk's, read by
+    // the TMA box) becomes zero.
+    constexpr int KS = StateStep<N>::KS, SPT = StateStep<N>::SPT;
+    const int nsteps = ntiles * SPT;
+    int nx = 0;
+    const float* ws = wsm;
+    auto make_a = [&](int u, auto& at, auto masked) {
+        constexpr bool MASKED = decltype(masked)::value;
+        constexpr int KS = StateStep<N>::KS, SPT = StateStep<N>::SPT;
+        const int j = u / SPT, part = u % SPT;
+        const int st = nx % STATE_XS;
+        if (part == 0) mbar_wait(&bar.x_full[st], (nx / STATE_XS) & 1);
+        const uint8_t* xt = sm + L::X + st * BLOCK;
+        const int jrows = q - j * TILE;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+            const int kk = part * KS + ks;
+            uint32_t r[4];
+            const int row = kk * 16 + ((lane >> 4) << 3) + (lane & 7);
+            const int piece = 2 * warp + ((lane >> 3) & 1);
+            ldmatrix_x4_trans(r, xt + row * ROW_BYTES + ((piece ^ (row & 7)) << 4));
+            const float2 wlo = *reinterpret_cast<const float2*>(ws + j * TILE + kk * 16 + 2 * tq);
+            const float2 whi = *reinterpret_cast<const float2*>(ws + j * TILE + kk * 16 + 8 + 2 * tq);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const float2 wv = i < 2 ? wlo : whi;
+                float v0 = __fmul_rn(__uint_as_float(r[i] << 16), wv.x);
+                float v1 = __fmul_rn(__uint_as_float(r[i] & 0xffff0000u), wv.y);
+                if (MASKED) {
+                    const int jr = kk * 16 + (i >> 1) * 8 + 2 * tq;
+                    v0 = jr < jrows ? v0 : 0.f;
+                    v1 = jr + 1 < jrows ? v1 : 0.f;
+                }
+                uint32_t wd[TERMS];
+                split_pair(v0, v1, wd);
+#pragma unroll
+                for (int tm = 0; tm < TERMS; ++tm) at[ks][tm][i] = wd[tm];
+            }
+        }
+        if (part == SPT - 1) {
+            mbar_arrive(&bar.x_empty[st]);  // the tile is in registers
+            ++nx;
+        }
+    };
+    auto next_a = [&](int u, auto& at) {
+        if ((u / StateStep<N>::SPT + 1) * TILE <= q) {
+            make_a(u, at, std::false_type{});
+        } else {
+            make_a(u, at, std::true_type{});
+        }
+    };
+
+    float acc[N / 2];
+    // step u's products run on the tensor cores while the CUDA cores make
+    // step u + 1's A words; no branch or register copy between a wgmma fence
+    // and its products (ptxas would serialise every wgmma of the kernel), so
+    // the two A buffers take turns by an unrolled pair of steps
+    auto step = [&](int u, auto& cur, auto& nxt) {
+        constexpr int KS = StateStep<N>::KS, SPT = StateStep<N>::SPT;
+        const int j = u / SPT, part = u % SPT, sb = j % GC;
+        mbar_wait(&bar.b_full[sb], (j / GC) & 1);
+        const uint32_t b_base = smem_addr(sm + L::B + sb * NB * BLOCK) + part * KS * 16 * ROW_BYTES;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+            for (int tm = 0; tm < TERMS; ++tm) fence_regs(cur[ks][tm]);
+        }
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+            // B = B_j, (j, n) as stored: MN-major, its 64-column blocks BLOCK apart
+            const uint64_t db = make_desc_sw128(b_base + ks * 16 * ROW_BYTES, BLOCK, 1024);
+#pragma unroll
+            for (int tm = TERMS - 1; tm >= 0; --tm) {  // the smallest term first
+                state_term(acc, cur[ks][tm], db);
+            }
+        }
+        wgmma_commit();
+        if (u + 1 < nsteps) next_a(u + 1, nxt);
+        wgmma_wait<0>();
+        fence_regs(acc);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+            for (int tm = 0; tm < TERMS; ++tm) fence_regs(cur[ks][tm]);
+        }
+        // the ring turns only past GC tiles
+        if (ntiles > GC && part == SPT - 1) mbar_arrive(&bar.b_empty[sb]);
+    };
+
+    int* flags = sync + 1;  // flags[bh nc + c]: h_c of head bh is written
+    for (int hh = 0; hh < nh; ++hh) {
+        const int bh = bg * heads + h0 + hh;
+        ws = wsm + hh * qp;
+#pragma unroll
+        for (int e = 0; e < N / 2; ++e) acc[e] = 0.f;
+        uint32_t at[KS][TERMS][4], an[KS][TERMS][4];
+        next_a(0, at);
+        for (int u = 0; u < nsteps; u += 2) {
+            step(u, at, an);
+            if (u + 1 < nsteps) step(u + 1, an, at);
+        }
+
+        // acc[4 jj + e] is S_c^T at p = 16 warp + gq + 8 (e / 2), n = 8 jj +
+        // 2 tq + e % 2: S_c[n][p] at offset n P + p of a (N, P) state
+        auto at_np = [&](int e) {
+            return (8 * (e / 4) + 2 * tq + (e & 1)) * P + 16 * warp + gq + 8 * ((e & 3) >> 1);
+        };
+        if (states != nullptr) {  // the check output
+            float* sc = states + ((size_t)bh * (nc - 1) + c) * N * P;
+#pragma unroll
+            for (int e = 0; e < N / 2; ++e) sc[at_np(e)] = acc[e];
+        }
+        // h_{c+1} = exp(total_c) h_c + S_c, once chunk c - 1's block has
+        // written h_c; h_0 is zero
+        const bool chained = c > 0;
+        if (chained) {
+            if (t == 0) flag_wait(flags + (size_t)bh * nc + c);
+            named_barrier(2, 128);
+        }
+        const float et = expf(tots[hh]);
+        const float* hc = h + ((size_t)bh * nc + c) * N * P;
+        float* hn = h + ((size_t)bh * nc + c + 1) * N * P;
+        // every load of h_c in flight before the stores of h_{c+1}, which the
+        // compiler cannot move them past
+        float hv[N / 2];
+#pragma unroll
+        for (int e = 0; e < N / 2; ++e) hv[e] = chained ? __ldcg(hc + at_np(e)) : 0.f;  // from L2
+#pragma unroll
+        for (int e = 0; e < N / 2; ++e) hn[at_np(e)] = __fadd_rn(__fmul_rn(et, hv[e]), acc[e]);
+        named_barrier(2, 128);  // every thread's h_{c+1} is written
+        if (t == 0) flag_release(flags + (size_t)bh * nc + c + 1);
+    }
+}
+
 bool takes(int n, int q, int s, int bh, int heads) {
     return (n == 64 || n == 128) && q >= 1 && q <= MAX_CHUNK && s % q == 0 && heads >= 1 &&
            bh >= 1 && bh % heads == 0;
 }
 
+// Heads of a launch-1 block: a group of STATE_GROUP when the chunk's B tiles
+// fit the ring (they are loaded once for the group), else one (the ring
+// turns).
+int state_group(int q) { return (q + TILE - 1) / TILE <= GC ? STATE_GROUP : 1; }
+
+// Asks for the largest shared-memory carveout for `kernel`, once per device
+// (`devices`, as hopper::allow_smem): the default may leave room for one
+// block of launch 1 an SM where two fit.
+template <typename Kernel>
+cudaError_t max_shared_carveout(Kernel kernel, std::atomic<unsigned long long>& devices) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+    if (devices.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess) devices.fetch_or(bit, std::memory_order_relaxed);
+    return err;
+}
+
+long long state_blocks(int bh, int s, int q, int heads) {
+    const int group = state_group(q);
+    return (long long)(bh / heads) * (s / q) * ((heads + group - 1) / group);
+}
+
 template <int N>
 cudaError_t chunk_state(const void* x, const void* dt, const void* a, const void* b, void* cum,
-                        void* states, int bh, int s, int q, int heads, cudaStream_t stream) {
+                        void* h, void* states, void* sync, int bh, int s, int q, int heads,
+                        cudaStream_t stream, int* encode_err) {
+    const int bg = bh / heads;
+    CUtensorMap tm_x, tm_b;
+    int err = hopper::encode_bf16_3d(&tm_x, x, P, s, bh, TILE);
+    if (err == 0) err = hopper::encode_bf16_3d(&tm_b, b, N, s, bg, TILE);
+    if (err != 0) {
+        *encode_err = err;
+        return cudaErrorInvalidValue;
+    }
     auto kernel = ssd_chunk_state<N>;
-    static std::atomic<unsigned long long> smem_devices{0};
-    cudaError_t err = hopper::allow_smem(kernel, chunk_state_smem<N>(MAX_CHUNK), smem_devices);
-    if (err != cudaSuccess) return err;
-    kernel<<<(unsigned)(bh * (s / q)), THREADS, chunk_state_smem<N>(q), stream>>>(
-        static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(a),
-        static_cast<const bf16*>(b), static_cast<float*>(cum), static_cast<float*>(states), s, q,
-        heads);
+    constexpr size_t smem = StateSmem<N>::BYTES;
+    static std::atomic<unsigned long long> smem_devices{0}, carveout_devices{0};
+    cudaError_t cerr = hopper::allow_smem(kernel, smem, smem_devices);
+    if (cerr == cudaSuccess) cerr = max_shared_carveout(kernel, carveout_devices);  // two blocks an SM
+    if (cerr != cudaSuccess) return cerr;
+    // the ticket and the flags start at zero on every launch, in stream order
+    cerr = cudaMemsetAsync(sync, 0, (1 + (size_t)bh * (s / q)) * sizeof(int), stream);
+    if (cerr != cudaSuccess) return cerr;
+    kernel<<<(unsigned)state_blocks(bh, s, q, heads), STATE_THREADS, smem, stream>>>(
+        tm_x, tm_b, static_cast<const float*>(dt), static_cast<const float*>(a),
+        static_cast<float*>(cum), static_cast<float*>(h), static_cast<float*>(states),
+        static_cast<int*>(sync), s, q, heads, state_group(q));
     return cudaGetLastError();
 }
 
-// Heads of a launch-3 block: a group of HEAD_GROUP when the chunk's G tiles
+// Heads of a launch-2 block: a group of HEAD_GROUP when the chunk's G tiles
 // fit one window, else one head for each consumer (G is made again for each
 // window, and a head's sum runs over every window).
 int scan_group(int q) { return (q + TILE - 1) / TILE <= GC ? HEAD_GROUP : 2; }
@@ -1154,32 +1388,50 @@ int ssd_scan_fwd_launch(int dtype, int p, const void* x, const void* dt, const v
 // C 16-byte aligned.  Each returns a cudaError_t: 0 on success,
 // cudaErrorInvalidValue for a state size, chunk or layout it does not take.
 //
-// Launch 1: cum (BH, S) and states (BH, S/q - 1, N, P), float32.
+// Launch 1: cum (BH, S) and h (BH, S/q, N, P), float32, the state entering
+// each chunk.  states, when not null, also gets each chunk's own state S_c,
+// (BH, S/q - 1, N, P) float32: a check output.  sync holds 1 + BH S/q int32
+// (the ticket and the chunks' flags) for this launch alone; it is zeroed on
+// `stream` first, so two launches at once need two.  x and B are read
+// through TMA maps.  Returns 0, a cudaError_t, or hopper::ENCODE_ERROR_BASE +
+// the CUresult of a tensor-map encode that failed.
 int ssd_chunk_state_launch(int n, const void* x, const void* dt, const void* a, const void* b,
-                           void* cum, void* states, int bh, int s, int q, int heads,
-                           void* stream) {
-    if (!sp::takes(n, q, s, bh, heads) || (long long)bh * (s / q) >= (1ll << 31)) {
+                           void* cum, void* h, void* states, void* sync, int bh, int s, int q,
+                           int heads, void* stream) {
+    if (!sp::takes(n, q, s, bh, heads) || sp::state_blocks(bh, s, q, heads) >= (1ll << 31) ||
+        (long long)bh * (s / q) >= (1ll << 31) - 1) {
         return cudaErrorInvalidValue;
     }
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return n == 64 ? sp::chunk_state<64>(x, dt, a, b, cum, states, bh, s, q, heads, st)
-                   : sp::chunk_state<128>(x, dt, a, b, cum, states, bh, s, q, heads, st);
+    int encode_err = 0;
+    const cudaError_t err =
+        n == 64 ? sp::chunk_state<64>(x, dt, a, b, cum, h, states, sync, bh, s, q, heads, st, &encode_err)
+                : sp::chunk_state<128>(x, dt, a, b, cum, h, states, sync, bh, s, q, heads, st, &encode_err);
+    return encode_err != 0 ? encode_err : (int)err;
 }
 
-// Launch 2: from states and cum, h (BH, S/q, N, P) float32.
-int ssd_state_pass_launch(int n, const void* states, const void* cum, void* h, int bh, int s,
-                          int q, void* stream) {
-    if (!sp::takes(n, q, s, bh, 1)) return cudaErrorInvalidValue;
-    const long long threads = (long long)bh * n * sp::P / 4;
-    const long long blocks = (threads + sp::PASS_THREADS - 1) / sp::PASS_THREADS;
-    if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
-    sp::ssd_state_pass<<<(unsigned)blocks, sp::PASS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(states), static_cast<const float*>(cum),
-        static_cast<float4*>(h), bh, s, q, n * sp::P / 4);
-    return cudaGetLastError();
+// Heads of one launch-1 block at chunk length q: the heads that share each
+// B tile it loads.
+int ssd_chunk_state_group(int q) { return sp::state_group(q); }
+
+// The dynamic shared memory of one launch-1 block at state size n, bytes.
+int ssd_chunk_state_smem(int n) {
+    return n == 64 ? (int)sp::StateSmem<64>::BYTES : n == 128 ? (int)sp::StateSmem<128>::BYTES : 0;
 }
 
-// Launch 3: out (BH, S, P) bf16.  x, B and C are read through TMA maps: their
+// Launch-1 blocks that run at once on one SM of the current device at state
+// size n (after a launch has set the kernel's attributes), or -1 on an error.
+int ssd_chunk_state_blocks_per_sm(int n) {
+    int blocks = -1;
+    const cudaError_t err =
+        n == 64 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sp::ssd_chunk_state<64>, sp::STATE_THREADS,
+                                                                sp::StateSmem<64>::BYTES)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sp::ssd_chunk_state<128>, sp::STATE_THREADS,
+                                                                sp::StateSmem<128>::BYTES);
+    return err == cudaSuccess ? blocks : -1;
+}
+
+// Launch 2: out (BH, S, P) bf16.  x, B and C are read through TMA maps: their
 // bases 16-byte aligned (rows of P = 64 and N = 64 or 128 bf16 keep every
 // stride a multiple of 16 bytes).  Returns 0, a cudaError_t, or
 // hopper::ENCODE_ERROR_BASE + the CUresult of a tensor-map encode that failed.
@@ -1197,11 +1449,11 @@ int ssd_chunk_scan_launch(int n, const void* x, const void* dt, const void* cum,
     return encode_err != 0 ? encode_err : (int)err;
 }
 
-// Heads of one launch-3 block at chunk length q: the heads that share each
+// Heads of one launch-2 block at chunk length q: the heads that share each
 // C_i . B_j^T it makes.
 int ssd_chunk_scan_group(int q) { return sp::scan_group(q); }
 
-// The dynamic shared memory of one launch-3 block at state size n, bytes.
+// The dynamic shared memory of one launch-2 block at state size n, bytes.
 int ssd_chunk_scan_smem(int n) {
     return n == 64 ? (int)sp::ScanSmem<64>::BYTES : n == 128 ? (int)sp::ScanSmem<128>::BYTES : 0;
 }

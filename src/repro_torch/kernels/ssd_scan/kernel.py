@@ -3,8 +3,8 @@
 The CUDA source replaces the Pallas TPU kernel ``ssd_scan_kernel`` of
 ``repro.kernels.ssd_scan.kernel`` with two instances, picked from the dtype,
 head dim and state size alone (:func:`instance_for`): ``"split"``, bf16 on
-the tensor cores in three chunk-parallel launches, at the heads of the
-repo's models, and ``"fwd"``, float32 arithmetic on the CUDA cores, for
+the tensor cores in two launches, at the heads of the repo's models, and
+``"fwd"``, float32 arithmetic on the CUDA cores, for
 everything else.  The source's header says what bounds each on the card and
 what its design does about it.  The source and ``kernels/csrc/hopper.cuh``
 are built and loaded by :mod:`repro_torch.kernels._build` at the first
@@ -50,16 +50,19 @@ def _bind(lib: ctypes.CDLL) -> None:
         c_int, c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int, ptr,
     ]
     lib.ssd_chunk_state_launch.argtypes = [
-        c_int, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, ptr,
+        c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, ptr,
     ]
-    lib.ssd_state_pass_launch.argtypes = [c_int, ptr, ptr, ptr, c_int, c_int, c_int, ptr]
+    lib.ssd_chunk_state_group.argtypes = [c_int]
+    lib.ssd_chunk_state_smem.argtypes = [c_int]
+    lib.ssd_chunk_state_blocks_per_sm.argtypes = [c_int]
     lib.ssd_chunk_scan_launch.argtypes = [
         c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, ptr,
     ]
     lib.ssd_chunk_scan_group.argtypes = [c_int]
     lib.ssd_chunk_scan_smem.argtypes = [c_int]
-    for fn in (lib.ssd_scan_fwd_launch, lib.ssd_chunk_state_launch, lib.ssd_state_pass_launch,
-               lib.ssd_chunk_scan_launch, lib.ssd_chunk_scan_group, lib.ssd_chunk_scan_smem):
+    for fn in (lib.ssd_scan_fwd_launch, lib.ssd_chunk_state_launch, lib.ssd_chunk_state_group,
+               lib.ssd_chunk_state_smem, lib.ssd_chunk_state_blocks_per_sm, lib.ssd_chunk_scan_launch,
+               lib.ssd_chunk_scan_group, lib.ssd_chunk_scan_smem):
         fn.restype = c_int
 
 
@@ -113,13 +116,15 @@ def _check(x, dt, A, B_, C_, D_, heads: int, chunk: int) -> tuple[int, int, int,
 
 
 class SplitScan:
-    """The split instance's three launches over one set of inputs, with their
-    scratch: :meth:`chunk_state` fills :attr:`cum` (BH, S) and :attr:`states`
-    (BH, chunks - 1, N, P), :meth:`state_pass` fills :attr:`h` (BH, chunks, N,
-    P), all float32, and :meth:`chunk_scan` fills :attr:`out` (BH, S, P) bf16.
-    Each launches one kernel on the current stream and raises if it fails;
-    :meth:`run` launches the three in order.  The inputs are checked as
-    :func:`ssd_scan_call` checks them, and must be the split instance's."""
+    """The split instance's two launches over one set of inputs, with their
+    scratch: :meth:`chunk_state` fills :attr:`cum` (BH, S) and :attr:`h` (BH,
+    chunks, N, P), the state entering each chunk, both float32, and
+    :meth:`chunk_scan` fills :attr:`out` (BH, S, P) bf16.  Each launches one
+    kernel on the current stream and raises if it fails; :meth:`run` launches
+    the two in order.  :attr:`sync` holds the first launch's ticket and the
+    chunks' flags, zeroed by each launch on its stream: an instance runs on
+    one stream at a time.  The inputs are checked as :func:`ssd_scan_call`
+    checks them, and must be the split instance's."""
 
     def __init__(self, x, dt, A, B_, C_, D_, *, heads: int, chunk: int = 256):
         bh, s, p, n, q = _check(x, dt, A, B_, C_, D_, heads, chunk)
@@ -127,16 +132,15 @@ class SplitScan:
             raise ValueError(f"the split instance takes bf16 x, B and C at head dim "
                              f"{SPLIT_HEAD_DIM} and state sizes {SPLIT_STATE_DIMS}, got {x.dtype} "
                              f"at {p} and {n}")
-        # cp.async reads 16-byte pieces and a TMA map needs a 16-byte aligned
-        # base (its strides, rows of 64 or 128 bf16, are multiples of 16
-        # bytes); a view may start elsewhere
+        # a TMA map needs a 16-byte aligned base (its strides, rows of 64 or
+        # 128 bf16, are multiples of 16 bytes); a view may start elsewhere
         self.x, self.B, self.C = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, B_, C_))
         self.dt, self.A, self.D = dt, A, D_
         self.bh, self.s, self.n, self.q, self.heads = bh, s, n, q, heads
         nc = s // q
         self.cum = torch.empty((bh, s), dtype=torch.float32, device=x.device)
-        self.states = torch.empty((bh, nc - 1, n, p), dtype=torch.float32, device=x.device)
         self.h = torch.empty((bh, nc, n, p), dtype=torch.float32, device=x.device)
+        self.sync = torch.empty(1 + bh * nc, dtype=torch.int32, device=x.device)
         self.out = torch.empty_like(x)
         self._lib = LIBRARY.load()
 
@@ -146,14 +150,20 @@ class SplitScan:
             err = fn(self.n, *args, stream)
         LIBRARY.check(err, what)
 
-    def chunk_state(self) -> None:
+    def chunk_state(self, states: torch.Tensor | None = None) -> None:
+        """cum and h.  With ``states``, a float32 (BH, chunks - 1, N, P) tensor,
+        the same launch also writes each chunk's own state S_c there: a check
+        output, not a second path."""
+        if states is not None and (states.shape != (self.bh, self.s // self.q - 1, self.n, SPLIT_HEAD_DIM)
+                                   or states.dtype != torch.float32 or states.device != self.x.device
+                                   or not states.is_contiguous()):
+            raise ValueError(f"chunk_state writes states of shape ({self.bh}, {self.s // self.q - 1}, "
+                             f"{self.n}, {SPLIT_HEAD_DIM}) float32 on {self.x.device}, got "
+                             f"{tuple(states.shape)} {states.dtype} on {states.device}")
         self._launch("ssd_chunk_state", self._lib.ssd_chunk_state_launch, self.x.data_ptr(),
                      self.dt.data_ptr(), self.A.data_ptr(), self.B.data_ptr(), self.cum.data_ptr(),
-                     self.states.data_ptr(), self.bh, self.s, self.q, self.heads)
-
-    def state_pass(self) -> None:
-        self._launch("ssd_state_pass", self._lib.ssd_state_pass_launch, self.states.data_ptr(),
-                     self.cum.data_ptr(), self.h.data_ptr(), self.bh, self.s, self.q)
+                     self.h.data_ptr(), None if states is None else states.data_ptr(),
+                     self.sync.data_ptr(), self.bh, self.s, self.q, self.heads)
 
     def chunk_scan(self) -> None:
         self._launch("ssd_chunk_scan", self._lib.ssd_chunk_scan_launch, self.x.data_ptr(),
@@ -163,7 +173,6 @@ class SplitScan:
 
     def run(self) -> torch.Tensor:
         self.chunk_state()
-        self.state_pass()
         self.chunk_scan()
         return self.out
 

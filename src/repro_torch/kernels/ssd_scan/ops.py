@@ -7,7 +7,7 @@ and C stay (B, S, N), shared by the heads of a batch entry.  A CPU tensor
 goes to the plain version in :mod:`.ref`, a CUDA tensor to the hand-written
 kernel in :mod:`.kernel` (or the launch raises).  Neither has a backward:
 the reference kernel has no VJP.  :data:`KERNEL_LAUNCHES` counts calls of
-the CUDA kernel only (the split instance's call is three launches), and
+the CUDA kernel only (the split instance's call is two launches), and
 :data:`INSTANCE_LAUNCHES` the same calls by the instance that ran them.
 """
 

@@ -29,21 +29,24 @@ kernel's ``round_p``.  Three terms keep about 2^-26 of each operand, below
 float32's own rounding; two (hi + lo, 2^-18) moved the held-out loss of
 trained mamba2-370m in ``chip_smoke.py`` by 1.7e-3, past its 3e-4 gate.
 
-The split instance computes the same scan in three launches, and each has a
-plain version here with its operation order: :func:`ssd_chunk_state_ref`
-(the cumsum and every chunk's own state contribution, all chunks at once),
-:func:`ssd_state_pass_ref` (the only serial part: the state entering each
-chunk) and :func:`ssd_chunk_scan_ref` (every chunk's outputs, all chunks at
-once).  Their layouts are the kernels': chunk states are (BH, chunks, N, P),
-the transpose of the carried (P, N) state above.
+The split instance computes the same scan in two launches, and each has a
+plain version here with its operation order: :func:`ssd_chunk_state_pass_ref`
+(the cumsum and the state entering each chunk) and :func:`ssd_chunk_scan_ref`
+(every chunk's outputs, all chunks at once).  The first launch's two parts
+have their own plain functions, which its check output is held against:
+:func:`ssd_chunk_state_ref` (the cumsum and every chunk's own state
+contribution, all chunks at once) and :func:`ssd_state_pass_ref` (the only
+serial part: the state entering each chunk).  Their layouts are the
+kernels': chunk states are (BH, chunks, N, P), the transpose of the carried
+(P, N) state above.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["SPLIT_TERMS", "split_bf16_round", "ssd_chunk_scan_ref", "ssd_chunk_state_ref", "ssd_scan_ref",
-           "ssd_sequential_ref", "ssd_state_pass_ref"]
+__all__ = ["SPLIT_TERMS", "split_bf16_round", "ssd_chunk_scan_ref", "ssd_chunk_state_pass_ref",
+           "ssd_chunk_state_ref", "ssd_scan_ref", "ssd_sequential_ref", "ssd_state_pass_ref"]
 
 
 #: bf16 terms the split instance feeds each float32 operand it derives as
@@ -138,10 +141,10 @@ def ssd_chunk_state_ref(
     chunk: int,
     split_bf16: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The first launch: cum (BH, S) float32, each chunk's inclusive cumsum of
-    ``dt*a`` (float64 sums, each prefix rounded once), and the state that each
-    chunk but the last adds on its own, ``B^T (w * x)`` with ``w = exp(total -
-    cum) dt``, as (BH, chunks - 1, N, P) float32."""
+    """The first launch's first part: cum (BH, S) float32, each chunk's
+    inclusive cumsum of ``dt*a`` (float64 sums, each prefix rounded once), and
+    the state that each chunk but the last adds on its own, ``B^T (w * x)``
+    with ``w = exp(total - cum) dt``, as (BH, chunks - 1, N, P) float32."""
     bh, s, p = x.shape
     n = B_.shape[-1]
     q = min(chunk, s)
@@ -158,9 +161,9 @@ def ssd_chunk_state_ref(
 
 
 def ssd_state_pass_ref(states: torch.Tensor, cum: torch.Tensor, *, chunk: int) -> torch.Tensor:
-    """The second launch: from the chunk states (BH, chunks - 1, N, P) and the
-    cumsum (BH, S), the state entering each chunk, (BH, chunks, N, P) float32:
-    h_0 = 0, h_{c+1} = exp(total_c) h_c + states_c, in order."""
+    """The first launch's second part: from the chunk states (BH, chunks - 1,
+    N, P) and the cumsum (BH, S), the state entering each chunk, (BH, chunks,
+    N, P) float32: h_0 = 0, h_{c+1} = exp(total_c) h_c + states_c, in order."""
     bh, s = cum.shape
     q = min(chunk, s)
     nc = s // q
@@ -173,11 +176,28 @@ def ssd_state_pass_ref(states: torch.Tensor, cum: torch.Tensor, *, chunk: int) -
     return torch.stack(out, dim=1)
 
 
+def ssd_chunk_state_pass_ref(
+    x: torch.Tensor,   # (BH, S, P)
+    dt: torch.Tensor,  # (BH, S)
+    A: torch.Tensor,   # (BH, 1)
+    B_: torch.Tensor,  # (BG, S, N)
+    *,
+    heads: int,
+    chunk: int,
+    split_bf16: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first launch: cum (BH, S) and the state entering each chunk, h
+    (BH, chunks, N, P), both float32; :func:`ssd_chunk_state_ref`, then
+    :func:`ssd_state_pass_ref` over its chunk states."""
+    cum, states = ssd_chunk_state_ref(x, dt, A, B_, heads=heads, chunk=chunk, split_bf16=split_bf16)
+    return cum, ssd_state_pass_ref(states, cum, chunk=chunk)
+
+
 def ssd_chunk_scan_ref(
     x: torch.Tensor,    # (BH, S, P)
     dt: torch.Tensor,   # (BH, S)
-    cum: torch.Tensor,  # (BH, S) float32, from ssd_chunk_state_ref
-    h: torch.Tensor,    # (BH, chunks, N, P) float32, from ssd_state_pass_ref
+    cum: torch.Tensor,  # (BH, S) float32, from ssd_chunk_state_pass_ref
+    h: torch.Tensor,    # (BH, chunks, N, P) float32, from ssd_chunk_state_pass_ref
     C_: torch.Tensor,   # (BG, S, N)
     B_: torch.Tensor,   # (BG, S, N)
     D_: torch.Tensor,   # (BH, 1)
@@ -186,7 +206,7 @@ def ssd_chunk_scan_ref(
     chunk: int,
     split_bf16: bool = False,
 ) -> torch.Tensor:
-    """The third launch: every chunk's outputs, (BH, S, P) in x's dtype:
+    """The second launch: every chunk's outputs, (BH, S, P) in x's dtype:
     ``(scores x + exp(cum) (C h^T)) + D x`` with ``scores = (C B^T)
     exp(cum_i - cum_j) dt_j`` on and below the diagonal, 0 above it (the
     exponent there is never taken)."""

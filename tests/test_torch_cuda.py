@@ -378,7 +378,7 @@ def test_ssd_wrapper_counts_each_launch(cuda):
     cpu = ss.ssd_scan(*(t.cpu() for t in (x4, dt4, a[:3, 0], bb, cc, d[:3, 0])), chunk=32)
     assert ss.KERNEL_LAUNCHES == {"ssd_scan": 1}
     torch.testing.assert_close(out.cpu(), cpu, atol=2e-4, rtol=2e-4)
-    # bf16 at head dim 64, state 128: the split instance, one call of three launches
+    # bf16 at head dim 64, state 128: the split instance, one call of two launches
     x, dt, a, bb, cc, d = ssd_inputs(cuda, 0, 2, 64, 3, 64, 128, torch.bfloat16)
     x4 = x.reshape(2, 3, 64, 64).permute(0, 2, 1, 3)
     ss.ssd_scan(x4, dt4, a[:3, 0], bb, cc, d[:3, 0], chunk=32)
@@ -399,24 +399,85 @@ SCRATCH_TOL = dict(atol=1e-4, rtol=1e-5)
 SPLIT_SHAPES = [(128, 64), (96, 96), (64, 16), (192, 96), (100, 20), (512, 256)]
 
 
+def check_split_launches(scan, args, heads, chunk):
+    """The first launch run with its check output: its cumsum and chunk states
+    against ssd_chunk_state_ref, its h against ssd_state_pass_ref of its own
+    chunk states; then the main path's launch (no check output), whose h must
+    be the same bits, and the second launch's output against its plain
+    function."""
+    x, dt, a, bb, cc, d = args
+    nc = x.shape[1] // chunk
+    states = torch.empty((x.shape[0], nc - 1, bb.shape[-1], 64), dtype=torch.float32, device=x.device)
+    scan.chunk_state(states)
+    cum, want_states = sr.ssd_chunk_state_ref(x, dt, a, bb, heads=heads, chunk=chunk, split_bf16=True)
+    checked = scan.h.clone()
+    scan.chunk_state()
+    scan.chunk_scan()
+    torch.cuda.synchronize()
+    assert scan.h.shape == (x.shape[0], nc, bb.shape[-1], 64)
+    torch.testing.assert_close(scan.cum, cum, **SCRATCH_TOL)
+    torch.testing.assert_close(states, want_states, **SCRATCH_TOL)
+    torch.testing.assert_close(checked, sr.ssd_state_pass_ref(states, scan.cum, chunk=chunk), **SCRATCH_TOL)
+    assert torch.equal(scan.h, checked), "the check output moved h"
+    want = sr.ssd_chunk_scan_ref(x, dt, scan.cum, scan.h, cc, bb, d, heads=heads, chunk=chunk,
+                                 split_bf16=True)
+    torch.testing.assert_close(scan.out.float(), want.float(), **SPLIT_TOL)
+
+
 @pytest.mark.parametrize("n", sk.SPLIT_STATE_DIMS)
 @pytest.mark.parametrize("s,chunk", SPLIT_SHAPES)
 def test_split_launches_equal_their_plain_versions(cuda, n, s, chunk):
-    x, dt, a, bb, cc, d = ssd_inputs(cuda, n + s + chunk, 2, s, 3, 64, n, torch.bfloat16)
-    scan = sk.SplitScan(x, dt, a, bb, cc, d, heads=3, chunk=chunk)
-    scan.chunk_state()
-    cum, states = sr.ssd_chunk_state_ref(x, dt, a, bb, heads=3, chunk=chunk, split_bf16=True)
-    scan.state_pass()
-    scan.chunk_scan()
+    args = ssd_inputs(cuda, n + s + chunk, 2, s, 3, 64, n, torch.bfloat16)
+    check_split_launches(sk.SplitScan(*args, heads=3, chunk=chunk), args, 3, chunk)
+
+
+# ssd_chunk_state chains the state pass across its blocks: 8 x 64 chunks x 16
+# head groups are 8192 blocks, many more than the card holds at once, so
+# blocks wait for predecessors that ran in an earlier round
+@pytest.mark.parametrize("n", sk.SPLIT_STATE_DIMS)
+def test_chunk_state_chains_more_blocks_than_the_card_holds(cuda, n):
+    args = ssd_inputs(cuda, n + 7, 8, 1024, 32, 64, n, torch.bfloat16)
+    scan = sk.SplitScan(*args, heads=32, chunk=16)
+    check_split_launches(scan, args, 32, 16)
+    torch.testing.assert_close(scan.out.float(), ssd_scan_ref(*args, heads=32, chunk=16,
+                                                              split_bf16=True).float(), **SPLIT_TOL)
+
+
+def test_chunk_state_gives_the_same_bits_back_to_back(cuda):
+    # each launch zeroes its ticket and flags on its stream before it runs
+    args = ssd_inputs(cuda, 11, 2, 2048, 32, 64, 128, torch.bfloat16)
+    scan = sk.SplitScan(*args, heads=32, chunk=256)
+    runs = []
+    for _ in range(20):
+        scan.chunk_state()
+        runs.append((scan.cum.clone(), scan.h.clone()))
     torch.cuda.synchronize()
-    assert states.shape == scan.states.shape and scan.h.shape == (6, s // chunk, n, 64)
-    torch.testing.assert_close(scan.cum, cum, **SCRATCH_TOL)
-    torch.testing.assert_close(scan.states, states, **SCRATCH_TOL)
-    torch.testing.assert_close(scan.h, sr.ssd_state_pass_ref(scan.states, scan.cum, chunk=chunk),
-                               **SCRATCH_TOL)
-    want = sr.ssd_chunk_scan_ref(x, dt, scan.cum, scan.h, cc, bb, d, heads=3, chunk=chunk,
-                                 split_bf16=True)
-    torch.testing.assert_close(scan.out.float(), want.float(), **SPLIT_TOL)
+    for cum, h in runs[1:]:
+        assert torch.equal(cum, runs[0][0]) and torch.equal(h, runs[0][1])
+    cum, h = sr.ssd_chunk_state_pass_ref(*args[:4], heads=32, chunk=256, split_bf16=True)
+    torch.testing.assert_close(runs[0][0], cum, **SCRATCH_TOL)
+    torch.testing.assert_close(runs[0][1], h, **SCRATCH_TOL)
+
+
+def test_two_split_scans_on_two_streams_at_once(cuda):
+    # each instance has its own ticket and flags: the two launches' blocks
+    # share the card and wait only for their own predecessors
+    cases = [ssd_inputs(cuda, 12 + i, 4, 2048, 32, 64, n, torch.bfloat16) for i, n in enumerate((128, 64))]
+    scans = [sk.SplitScan(*args, heads=32, chunk=256) for args in cases]
+    streams = [torch.cuda.Stream() for _ in scans]
+    for stream, scan in zip(streams, scans):
+        stream.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):
+        for stream, scan in zip(streams, scans):
+            with torch.cuda.stream(stream):
+                scan.run()
+    torch.cuda.synchronize()
+    for args, scan in zip(cases, scans):
+        torch.testing.assert_close(scan.out.float(), ssd_scan_ref(*args, heads=32, chunk=256,
+                                                                  split_bf16=True).float(), **SPLIT_TOL)
+        cum, h = sr.ssd_chunk_state_pass_ref(*args[:4], heads=32, chunk=256, split_bf16=True)
+        torch.testing.assert_close(scan.cum, cum, **SCRATCH_TOL)
+        torch.testing.assert_close(scan.h, h, **SCRATCH_TOL)
 
 
 @pytest.mark.parametrize("n", sk.SPLIT_STATE_DIMS)
@@ -462,7 +523,7 @@ def test_chunk_scan_shares_c_b_across_head_groups(cuda, s, chunk, heads, n):
 
 
 def test_split_instance_reads_unaligned_views(cuda):
-    # cp.async reads 16-byte pieces: a view 1 element into its storage is copied
+    # a TMA map needs a 16-byte aligned base: a view 1 element into its storage is copied
     x, dt, a, bb, cc, d = ssd_inputs(cuda, 4, 1, 128, 2, 64, 64, torch.bfloat16)
     buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
     xv = buf[1:].view(x.shape)

@@ -4,7 +4,7 @@ The plain version of the hand-written kernel (``ssd_scan_ref``, on the
 kernel's flattened shapes) is held against the reference's Pallas kernel in
 interpret mode, its O(S) recurrence and its ``ssd_chunked``, at the shapes
 and tolerances of ``tests/test_kernels.py:74-112``; so are the plain versions
-of the split instance's three launches, composed.  The port's own
+of the split instance's two launches, composed.  The port's own
 ``ssd_chunked`` and ``causal_conv1d`` are held against the reference's at
 1e-5 in float32, and ``mamba_mixer`` at 1e-4.  Inputs come from a numpy seed.
 """
@@ -35,7 +35,8 @@ from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
-    ssd_chunk_scan_ref, ssd_chunk_state_ref, ssd_scan_ref, ssd_sequential_ref, ssd_state_pass_ref,
+    ssd_chunk_scan_ref, ssd_chunk_state_pass_ref, ssd_chunk_state_ref, ssd_scan_ref, ssd_sequential_ref,
+    ssd_state_pass_ref,
 )
 from repro_torch.models import params_from_numpy  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
@@ -235,7 +236,7 @@ def test_kernel_call_takes_cuda_tensors_only():
 
 
 # ---------------------------------------------------------------------------
-# the split instance's three launches, plainly
+# the split instance's two launches, plainly
 # ---------------------------------------------------------------------------
 
 # the full-size heads at chunk 256, and chunks that end inside a 64-row tile
@@ -243,34 +244,50 @@ SPLIT_SHAPES = SHAPES + [(1, 512, 2, 64, 64, 256), (1, 512, 2, 64, 128, 256),
                          (2, 192, 2, 64, 64, 96), (1, 100, 2, 64, 128, 20)]
 
 
-def three_launches(x, dt, A, B, C, D, *, heads, chunk, split_bf16=False):
-    """ssd_chunk_state_ref, ssd_state_pass_ref and ssd_chunk_scan_ref in turn."""
-    cum, states = ssd_chunk_state_ref(x, dt, A, B, heads=heads, chunk=chunk, split_bf16=split_bf16)
-    h = ssd_state_pass_ref(states, cum, chunk=chunk)
+def two_launches(x, dt, A, B, C, D, *, heads, chunk, split_bf16=False):
+    """ssd_chunk_state_pass_ref and ssd_chunk_scan_ref in turn."""
+    cum, h = ssd_chunk_state_pass_ref(x, dt, A, B, heads=heads, chunk=chunk, split_bf16=split_bf16)
     return ssd_chunk_scan_ref(x, dt, cum, h, C, B, D, heads=heads, chunk=chunk,
                               split_bf16=split_bf16)
 
 
 @pytest.mark.parametrize("split_bf16", [False, True])
 @pytest.mark.parametrize("b,s,h,p,n,chunk", SPLIT_SHAPES)
-def test_three_launches_compose_to_the_plain_version(b, s, h, p, n, chunk, split_bf16):
-    """Only the state recurrence is serial: the chunk states, the pass over
-    them and the chunk outputs give what the one-pass plain version gives."""
+def test_two_launches_compose_to_the_plain_version(b, s, h, p, n, chunk, split_bf16):
+    """Only the state recurrence is serial: the chunk states with the pass
+    over them, then the chunk outputs, give what the one-pass plain version
+    gives."""
     args = flat(*to_torch("float32", *ssd_inputs(p + n + s + 2, b, s, h, p, n)))
-    got = three_launches(*args, heads=h, chunk=chunk, split_bf16=split_bf16)
+    got = two_launches(*args, heads=h, chunk=chunk, split_bf16=split_bf16)
     want = ssd_scan_ref(*args, heads=h, chunk=chunk, split_bf16=split_bf16)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **F32)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", [64, 128])
-def test_three_launches_match_interpreted_pallas_kernel_at_full_chunk(n, dtype):
+def test_two_launches_match_interpreted_pallas_kernel_at_full_chunk(n, dtype):
     b, s, h, p = 1, 512, 2, 64
     inputs = ssd_inputs(p + n + s, b, s, h, p, n)
     want = jssd_scan(*to_jax(dtype, *inputs), chunk=256, interpret=True)
-    got = unflat(three_launches(*flat(*to_torch(dtype, *inputs)), heads=h, chunk=256), b, h)
+    got = unflat(two_launches(*flat(*to_torch(dtype, *inputs)), heads=h, chunk=256), b, h)
     assert got.dtype == getattr(torch, dtype)
     np.testing.assert_allclose(as_np(got), as_np(want), **FULL_CHUNK_TOL[dtype])
+
+
+@pytest.mark.parametrize("split_bf16", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SPLIT_SHAPES + [(2, 64, 3, 64, 128, 64), (1, 20, 2, 64, 64, 20)])
+def test_chunk_state_pass_is_the_chunk_states_then_the_pass(b, s, h, p, n, chunk, split_bf16):
+    """The fused launch's plain function is its two parts composed, bit for
+    bit; over a single chunk (S = Q) the state entering it is all zeros."""
+    x, dt, A, B, _, _ = flat(*to_torch("float32", *ssd_inputs(p + n + s + 3, b, s, h, p, n)))
+    cum, h_ = ssd_chunk_state_pass_ref(x, dt, A, B, heads=h, chunk=chunk, split_bf16=split_bf16)
+    want_cum, states = ssd_chunk_state_ref(x, dt, A, B, heads=h, chunk=chunk, split_bf16=split_bf16)
+    assert torch.equal(cum, want_cum)
+    assert torch.equal(h_, ssd_state_pass_ref(states, want_cum, chunk=chunk))
+    assert h_.shape == (b * h, s // min(chunk, s), n, p) and h_.dtype == torch.float32
+    assert not h_[:, 0].any()
+    if s == chunk:
+        assert states.shape[1] == 0 and not h_.any()
 
 
 @pytest.mark.parametrize("terms", [2, 3])
@@ -451,20 +468,32 @@ def test_chip_smoke_counts_each_split_launchs_work():
     spec.loader.exec_module(chip_smoke)
     bh, s, p, n, q, bg = 256, 2048, 64, 128, 256, 8  # the full-width scoring shape
     work = chip_smoke.split_launch_work(bh, s, p, n, q, bg)
-    # the scan's products split between the first and the last launch
-    assert work["ssd_chunk_state"][1] + work["ssd_chunk_scan"][1] == chip_smoke.ssd_ops(bh, s, p, n, q, bg)
+    assert set(work) == {"ssd_chunk_state", "ssd_chunk_scan"}
+    (state_ops, state_peak), (pass_ops, pass_peak) = work["ssd_chunk_state"][1]
+    (scan_ops, scan_peak), = work["ssd_chunk_scan"][1]
+    # the scan's products split between the two launches
+    assert state_ops + scan_ops == chip_smoke.ssd_ops(bh, s, p, n, q, bg)
+    assert state_peak == scan_peak == chip_smoke.BF16_PEAK and pass_peak == chip_smoke.F32_PEAK
+    assert pass_ops == 2 * n * p * bh * (s // q - 1)
+    # ssd_chunk_state: x, B, dt, A in, cum and h out, about 142.6 MB; no chunk states
+    assert work["ssd_chunk_state"][0] == 142_607_360
     # ssd_chunk_scan: x, dt, cum, h, B, C, D in and y out, about 214 MB
     assert work["ssd_chunk_scan"][0] == 213_910_528
-    assert work["ssd_chunk_scan"][2] == chip_smoke.BF16_PEAK and work["ssd_state_pass"][2] == chip_smoke.F32_PEAK
-    log = ("ptxas info    : Compiling entry function '_ZN2sp14ssd_chunk_scanILi64EEEv' for 'sm_90a'\n"
-           "ptxas info    : Function properties for _ZN2sp14ssd_chunk_scanILi64EEEv\n"
+    bound, by = chip_smoke.launch_bound(*work["ssd_chunk_state"])
+    assert by == "bytes" and bound == pytest.approx(142_607_360 / chip_smoke.HBM_RATE * 1e3)
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_12sp14ssd_chunk_scanILi64EEEv14CUtensorMap_st' "
+           "for 'sm_90a'\n"
+           "ptxas info    : Function properties for _ZN12_GLOBAL__N_12sp14ssd_chunk_scanILi64EEEv14CUtensorMap_st\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
            "ptxas info    : Used 168 registers, used 16 barriers\n"
-           "ptxas info    : Compiling entry function '_ZN2sp15ssd_chunk_stateILi64EEEv' for 'sm_90a'\n"
-           "ptxas info    : Used 128 registers, used 1 barriers\n")
+           "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_12sp15ssd_chunk_stateILi128EEEv14CUtensorMap_st' "
+           "for 'sm_90a'\n"
+           "ptxas info    : Used 168 registers, used 4 barriers\n")
     assert chip_smoke.ptxas_lines(log, "ssd_chunk_scan") == {
-        "_ZN2sp14ssd_chunk_scanILi64EEEv":
+        "_ZN12_GLOBAL__N_12sp14ssd_chunk_scanILi64EEEv14CUtensorMap_st":
             "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; Used 168 registers, used 16 barriers"}
+    assert chip_smoke.ptxas_lines(log, "ssd_chunk_state") == {
+        "_ZN12_GLOBAL__N_12sp15ssd_chunk_stateILi128EEEv14CUtensorMap_st": "Used 168 registers, used 4 barriers"}
 
 
 def test_ablation_tool_edits_match_the_source_once():

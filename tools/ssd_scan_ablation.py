@@ -1,4 +1,4 @@
-"""Where the time of the SSD scan's chunk-output launch (``ssd_chunk_scan``) goes, by ablation.
+"""Where the time of the split SSD-scan instance's two launches goes, by ablation.
 
     python3 tools/ssd_scan_ablation.py [--reps 2] [--baseline OLD/ssd_scan.cu]
 
@@ -7,20 +7,27 @@ Needs one CUDA card and nvcc.  Builds copies of
 textual edits of ``ABLATIONS`` (each must match the source exactly once),
 into ``src/repro_torch/build/ablation/``, one nvcc per copy, all started
 together.  Each ``--baseline`` source (another version of the file with the
-same C entry points, such as an older commit's: ``git show
+same C entry points, such as a later commit's: ``git show
 <rev>:src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu > .archive/old.cu``)
 is built and timed beside them as it is.
 
 At the full-width scoring shape (``chip_smoke.SSD_FULL``: x 256 x 2048 x 64,
-B and C 8 x 2048 x 128, bf16, chunk 256) it times ``ssd_chunk_scan`` of every
-copy on the same inputs and the same float32 scratch, with CUDA events around
-20 back-to-back launches; the copies are timed in turn, ``--reps`` rounds,
-and the median of each is printed.  The copies in ``EXACT`` change how, not
-what, the launch computes: each is held against
-``ssd_chunk_scan_ref(split_bf16=True)`` at ``SPLIT_TOL`` at the full-width
-shape, at a chunk of 20 rows (ragged tiles) and at a chunk of 512 rows (two
-windows of G tiles).  The others compute a wrong answer on purpose: only
-their time is read.  For every copy it prints what ``ptxas -v`` says of
+B and C 8 x 2048 x 128, bf16, chunk 256) it times both launches of every
+copy, ``ssd_chunk_state`` (the chunk states and the chained state pass) and
+``ssd_chunk_scan`` (the chunk outputs), on the same inputs, with CUDA events
+around 20 back-to-back launches of each; the copies are timed in turn,
+``--reps`` rounds, and the median of each is printed.  The copies in
+``EXACT`` change how, not what, the launches compute: each is held at the
+full-width shape, at a chunk of 20 rows (ragged tiles) and at a chunk of 512
+rows (a turning B ring in the first launch, two windows of G tiles in the
+second) against the plain functions, in multiples of their tolerances (at
+most 1 passes): ``ssd_chunk_state``'s cumsum and chunk states (through its
+check output) against ``ssd_chunk_state_ref(split_bf16=True)`` and its
+states entering each chunk against ``ssd_state_pass_ref`` of its own chunk
+states, at chip_smoke's ``SCRATCH_TOL``, and ``ssd_chunk_scan``'s output
+against ``ssd_chunk_scan_ref(split_bf16=True)`` at ``SPLIT_TOL``.  The others
+compute a wrong answer on purpose: only their time is read.  For every copy
+it prints what ``ptxas -v`` says of ``ssd_chunk_state<128>`` and
 ``ssd_chunk_scan<128>``: registers, spilled bytes, and performance notes
 such as C7513 and C7520 (every wgmma of the kernel serialised).
 
@@ -30,7 +37,6 @@ Prints one line per measurement and, last, a JSON object of them all.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import statistics
 import subprocess
@@ -43,11 +49,19 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import torch  # noqa: E402
 
-from chip_smoke import SSD_FULL, device_ms, ptxas_lines, ssd_flat, ssd_inputs  # noqa: E402
+from chip_smoke import SCRATCH_TOL, SSD_FULL, device_ms, ptxas_lines, ssd_flat, ssd_inputs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as sr  # noqa: E402
 from repro_torch.kernels.ssd_scan.gate import SPLIT_TOL, excess  # noqa: E402
+
+# edits of ssd_chunk_state that more than one copy makes
+_NO_CHAIN = ("const bool chained = c > 0;", "const bool chained = false;")
+_NO_H_STORE = ("for (int e = 0; e < N / 2; ++e) hn[at_np(e)] =",
+               "for (int e = 0; e < N / 2; ++e) if (et < 0.f) hn[at_np(e)] =")
+_NO_FLAG = ("if (t == 0) flag_release(flags + (size_t)bh * nc + c + 1);",
+            "if (et < 0.f) flag_release(flags + (size_t)bh * nc + c + 1);")
+_NO_PRODUCTS = ("    hopper::wgmma_rs(d, a, db, 1);\n", "")
 
 # name -> [(text of the source, its replacement)]
 ABLATIONS = {
@@ -64,24 +78,33 @@ ABLATIONS = {
     "no C_i . h^T": [("            if (c > 0) {\n#pragma unroll 1", "            if (c < 0) {\n#pragma unroll 1")],
     "scores . x on term 0 alone": [
         ("term_rs(acc, cur[kk][tm], db);", "if (tm == 0) term_rs(acc, cur[kk][tm], db);")],
+    # ssd_chunk_state: h_{c+1} = S_c, no block waiting for its predecessor
+    "ssd_chunk_state without the chained wait (the recurrence skipped)": [_NO_CHAIN],
+    "ssd_chunk_state's products on term 0 alone": [
+        ("state_term(acc, cur[ks][tm], db);", "if (tm == 0) state_term(acc, cur[ks][tm], db);")],
+    "ssd_chunk_state with one head a block": [
+        ("constexpr int STATE_GROUP = 2;", "constexpr int STATE_GROUP = 1;")],
+    "ssd_chunk_state with four heads a block": [
+        ("constexpr int STATE_GROUP = 2;", "constexpr int STATE_GROUP = 4;")],
+    "ssd_chunk_state with eight heads a block": [
+        ("constexpr int STATE_GROUP = 2;", "constexpr int STATE_GROUP = 8;")],
+    "ssd_chunk_state with two x stages": [
+        ("constexpr int STATE_XS = 3;", "constexpr int STATE_XS = 2;")],
+    # h_{c+1} computed but not stored (et > 0): the bytes of the state pass's writes
+    "ssd_chunk_state without the store of h": [_NO_H_STORE],
+    # the three parts of its time: the products alone (no recurrence, no store
+    # of h, no flags), then without the products too (the A words, the x loads
+    # and the cumsum)
+    "ssd_chunk_state's products, no recurrence or store of h": [_NO_CHAIN, _NO_H_STORE, _NO_FLAG],
+    "ssd_chunk_state's A words, x loads and cumsum alone": [_NO_CHAIN, _NO_H_STORE, _NO_FLAG, _NO_PRODUCTS],
 }
 EXACT = ("as shipped", "expf for the decay", "the warpgroup index without the shuffle",
-         "a branch around each product of scores . x")
+         "a branch around each product of scores . x", "ssd_chunk_state with one head a block",
+         "ssd_chunk_state with four heads a block", "ssd_chunk_state with eight heads a block",
+         "ssd_chunk_state with two x stages")
+LAUNCHES = ("ssd_chunk_state", "ssd_chunk_scan")
 # (batch, seq, heads, head dim, state, chunk) of the exact copies' checks
 CHECKS = (SSD_FULL, (2, 100, 3, 64, 64, 20), (1, 1024, 3, 64, 128, 512))
-
-
-def _bind(lib: ctypes.CDLL) -> None:
-    """The three launches of the split instance, which every version of the
-    source exports alike."""
-    ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_chunk_state_launch.argtypes = [c_int, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int,
-                                           c_int, ptr]
-    lib.ssd_state_pass_launch.argtypes = [c_int, ptr, ptr, ptr, c_int, c_int, c_int, ptr]
-    lib.ssd_chunk_scan_launch.argtypes = [c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int,
-                                          c_int, c_int, ptr]
-    for fn in (lib.ssd_chunk_state_launch, lib.ssd_state_pass_launch, lib.ssd_chunk_scan_launch):
-        fn.restype = c_int
 
 
 def ablated_library(index: int, name: str, edits, source: Path = sk.LIBRARY.source) -> _build.CudaLibrary:
@@ -95,16 +118,37 @@ def ablated_library(index: int, name: str, edits, source: Path = sk.LIBRARY.sour
     path = _build.BUILD_DIR / "ablation" / f"ssd_scan_ablation{index}.cu"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(src)
-    return _build.CudaLibrary(f"ssd_scan_ablation{index}", path, _bind, error_fn="ssd_scan_error_string",
+    return _build.CudaLibrary(f"ssd_scan_ablation{index}", path, sk._bind, error_fn="ssd_scan_error_string",
                               extra_flags=("-Xptxas", "-v"))
 
 
 def ptxas_report(lib: _build.CudaLibrary) -> dict:
-    """ptxas -v of ssd_chunk_scan<128>, and its C75xx notes."""
-    said = [v for k, v in ptxas_lines(lib.build_log, "ssd_chunk_scan").items() if "ILi128E" in k]
-    notes = sorted({line.split(")")[0].split("(")[-1] for line in lib.build_log.splitlines()
-                    if "(C75" in line and "ssd_chunk_scan" in line})
-    return {"ptxas": said[0] if said else "", "notes": notes}
+    """ptxas -v of each launch's kernel at N 128, and its C75xx notes."""
+    out = {}
+    for launch in LAUNCHES:
+        said = [v for k, v in ptxas_lines(lib.build_log, launch).items() if "ILi128E" in k]
+        notes = sorted({line.split(")")[0].split("(")[-1] for line in lib.build_log.splitlines()
+                        if "(C75" in line and launch in line})
+        out[launch] = {"ptxas": said[0] if said else "", "notes": notes}
+    return out
+
+
+def launch_excess(scan, flat, heads: int, chunk: int) -> dict:
+    """Each launch of ``scan`` (a SplitScan that has run) against its plain
+    functions, in multiples of the tolerance: the first launch again with its
+    check output."""
+    x, dt, A, bb, cc, d = flat
+    states = torch.empty((scan.bh, scan.s // scan.q - 1, scan.n, x.shape[-1]), dtype=torch.float32,
+                         device=x.device)
+    scan.chunk_state(states)
+    cum, want_states = sr.ssd_chunk_state_ref(x, dt, A, bb, heads=heads, chunk=chunk, split_bf16=True)
+    out = sr.ssd_chunk_scan_ref(x, dt, scan.cum, scan.h, cc, bb, d, heads=heads, chunk=chunk,
+                                split_bf16=True)
+    return {"ssd_chunk_state": max(excess(scan.cum, cum, SCRATCH_TOL),
+                                   excess(states, want_states, SCRATCH_TOL),
+                                   excess(scan.h, sr.ssd_state_pass_ref(states, scan.cum, chunk=chunk),
+                                          SCRATCH_TOL)),
+            "ssd_chunk_scan": excess(scan.out, out)}
 
 
 def main() -> int:
@@ -128,7 +172,7 @@ def main() -> int:
 
     gen = torch.Generator(dev).manual_seed(0)
     inputs = {case: ssd_flat(*ssd_inputs(gen, *case[:5], torch.bfloat16, dev)) for case in CHECKS}
-    times: dict[str, list[float]] = {name: [] for name in libraries}
+    times = {name: {launch: [] for launch in LAUNCHES} for name in libraries}
     for rep in range(args.reps):
         for name in (libraries if rep % 2 == 0 else reversed(list(libraries))):
             with mock.patch.object(sk, "LIBRARY", libraries[name]):
@@ -138,23 +182,27 @@ def main() -> int:
                     scan = sk.SplitScan(*flat, heads=case[2], chunk=case[5])
                     scan.run()
                     if rep == 0 and (name in EXACT or name.startswith("baseline")):
-                        x, dt, _, bb, cc, d = flat
-                        want = sr.ssd_chunk_scan_ref(x, dt, scan.cum, scan.h, cc, bb, d, heads=case[2],
-                                                     chunk=case[5], split_bf16=True)
-                        result[name].setdefault("excess", {})[str(case)] = excess(scan.out, want)
+                        result[name].setdefault("excess", {})[str(case)] = launch_excess(
+                            scan, flat, case[2], case[5])
                     if case == SSD_FULL:
-                        times[name].append(device_ms(scan.chunk_scan))
+                        times[name]["ssd_chunk_state"].append(device_ms(scan.chunk_state))
+                        times[name]["ssd_chunk_scan"].append(device_ms(scan.chunk_scan))
     for name, r in result.items():
-        r["ms"] = statistics.median(times[name])
-        line = f"[ablation] {name}: ssd_chunk_scan {r['ms']:.4f} ms ({', '.join(f'{t:.4f}' for t in times[name])})"
+        r["ms"] = {launch: statistics.median(t) for launch, t in times[name].items()}
+        line = f"[ablation] {name}: " + ", ".join(
+            f"{launch} {r['ms'][launch]:.4f} ms ({', '.join(f'{t:.4f}' for t in times[name][launch])})"
+            for launch in LAUNCHES)
         if "excess" in r:
-            line += "; against the plain function, of SPLIT_TOL: " + ", ".join(
-                f"{case} {v:.3g}" for case, v in r["excess"].items())
-        line += f"; ptxas: {r['ptxas']}" + (f"; notes {', '.join(r['notes'])}" if r["notes"] else "")
+            line += "; against the plain functions, of the tolerance: " + ", ".join(
+                f"{case} {launch} {v:.3g}" for case, e in r["excess"].items() for launch, v in e.items())
+        for launch in LAUNCHES:
+            rp = r[launch]
+            line += f"; {launch} ptxas: {rp['ptxas']}" + (f", notes {', '.join(rp['notes'])}" if rp["notes"] else "")
         print(line, flush=True)
-    bad = {name: r["excess"] for name, r in result.items() if name in EXACT and max(r["excess"].values()) > 1}
+    bad = {name: r["excess"] for name, r in result.items()
+           if name in EXACT and max(v for e in r["excess"].values() for v in e.values()) > 1}
     print(json.dumps({"card": smi.splitlines()[0], "shape": SSD_FULL, "split_tol": SPLIT_TOL,
-                      "results": result}))
+                      "scratch_tol": SCRATCH_TOL, "results": result}))
     if bad:
         print(f"ssd_scan_ablation: copies that must keep the answer do not: {bad}", file=sys.stderr)
         return 1

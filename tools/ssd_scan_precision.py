@@ -14,10 +14,9 @@ are the weights chip_smoke.py scores) and scores its held-out batch through:
   split instance derives rounded to two and to three bf16 terms;
 - copies of ``src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu`` with the
   split instance changed by the textual edits of ``VARIANTS`` (each must match
-  the source exactly once): two bf16 terms, and each product of a launch
-  (``ssd_chunk_state``'s mma.sync, ``ssd_chunk_scan``'s wgmma) made from a
-  zero accumulator and added in float32, which rounds otherwise but is not a
-  fault; built into ``src/repro_torch/build/precision/``, one nvcc per copy,
+  the source exactly once): two bf16 terms, and each wgmma of a launch
+  (``ssd_chunk_state``'s, ``ssd_chunk_scan``'s) made from a zero accumulator
+  and added in float32, which rounds otherwise but is not a fault; built into ``src/repro_torch/build/precision/``, one nvcc per copy,
   all started together;
 - chip_smoke.py's two faulty scans around the shipped kernel.
 
@@ -60,16 +59,19 @@ VARIANTS = {
     "as shipped (three bf16 terms)": [],
     "two bf16 terms (hi + lo)": [
         ("constexpr int TERMS = 3;", "constexpr int TERMS = 2;")],
-    "three terms, each mma.sync of ssd_chunk_state from a zero accumulator, added in float32": [
-        ("using hopper::mma_bf16_m16n8k16;",
-         "__device__ __forceinline__ void mma_bf16_m16n8k16(float (&d)[4], const uint32_t (&a)[4],"
-         " uint32_t b0, uint32_t b1) {\n"
-         "    float t[4] = {0.f, 0.f, 0.f, 0.f};\n"
-         "    hopper::mma_bf16_m16n8k16(t, a, b0, b1);\n"
-         "    for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], t[i]);\n"
-         "}")],
-    # the same for ssd_chunk_scan's products on wgmma: each term's product is
-    # waited for and added, so the copy is slow (every wgmma serialised)
+    # each term's product is waited for and added, so these copies are slow
+    # (every wgmma of the kernel serialised)
+    "three terms, each wgmma of ssd_chunk_state from a zero accumulator, added in float32": [
+        ("    hopper::wgmma_rs(d, a, db, 1);",
+         "    float z[M];\n"
+         "    for (int i = 0; i < M; ++i) z[i] = 0.f;\n"
+         "    hopper::fence_regs(z);\n"
+         "    hopper::wgmma_fence();\n"
+         "    hopper::wgmma_rs(z, a, db, 0);\n"
+         "    hopper::wgmma_commit();\n"
+         "    hopper::wgmma_wait<0>();\n"
+         "    hopper::fence_regs(z);\n"
+         "    for (int i = 0; i < M; ++i) d[i] = __fadd_rn(d[i], z[i]);")],
     "three terms, each wgmma of ssd_chunk_scan from a zero accumulator, added in float32": [
         (f"    hopper::{call}(d, {ops}, 1);",
          "    float z[32];\n"
