@@ -1,6 +1,7 @@
 """Where the time of the split SSD-scan instance's two launches goes, by ablation.
 
-    python3 tools/ssd_scan_ablation.py [--reps 2] [--baseline OLD/ssd_scan.cu]
+    python3 tools/ssd_scan_ablation.py [--reps 2] [--baseline OLD/ssd_scan.cu] [--bitwise]
+        [--only NAME ...] [--source OTHER/ssd_scan.cu]
 
 Needs one CUDA card and nvcc.  Builds copies of
 ``src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu``, each changed by the
@@ -31,7 +32,16 @@ it prints what ``ptxas -v`` says of ``ssd_chunk_state<128>`` and
 ``ssd_chunk_scan<128>``: registers, spilled bytes, and performance notes
 such as C7513 and C7520 (every wgmma of the kernel serialised).
 
-Prints one line per measurement and, last, a JSON object of them all.
+With ``--bitwise``, each baseline's ``ssd_chunk_scan`` is also held bit for
+bit against the source as shipped at every ``CHECKS`` shape, both on the
+same inputs and the same cum and h (the shipped first launch's): a redesign
+that keeps every sum's order must give the same bits.  ``--only`` builds
+and times the named copies alone, beside the source as shipped; ``--source``
+makes the copies from another version of the file (its edits must match it).
+
+Prints one line per measurement and, last, a JSON object of them all; exits
+1 if a copy in ``EXACT`` leaves its tolerance or a ``--bitwise`` check finds
+a bit that differs.
 """
 
 from __future__ import annotations
@@ -62,6 +72,15 @@ _NO_H_STORE = ("for (int e = 0; e < N / 2; ++e) hn[at_np(e)] =",
 _NO_FLAG = ("if (t == 0) flag_release(flags + (size_t)bh * nc + c + 1);",
             "if (et < 0.f) flag_release(flags + (size_t)bh * nc + c + 1);")
 _NO_PRODUCTS = ("    hopper::wgmma_rs(d, a, db, 1);\n", "")
+# edits of ssd_chunk_scan that more than one copy makes
+_NO_INTER = ("            if (c > 0) {\n#pragma unroll 1", "            if (c < 0) {\n#pragma unroll 1")
+_NO_G_PRODUCTS = ("for (int kk = 0; kk < N / 16; ++kk) {", "for (int kk = 0; kk < 0; ++kk) {")
+_NO_G_STORE = ("                gt[jj * 128 + t] =", "                if (nb < 0) gt[jj * 128 + t] =")
+_NO_X_READ = ("const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + at_row + p);",
+              "const __nv_bfloat162 xv = __floats2bfloat162_rn(dv, ec);")
+_NO_Y_STORE = ("*reinterpret_cast<__nv_bfloat162*>(y + at_row + p) = __floats2bfloat162_rn(y0, y1);",
+               "if (y0 == 1234.5f && y1 == -1234.5f) *reinterpret_cast<__nv_bfloat162*>(y + at_row + p) = "
+               "__floats2bfloat162_rn(y0, y1);")
 
 # name -> [(text of the source, its replacement)]
 ABLATIONS = {
@@ -75,9 +94,25 @@ ABLATIONS = {
     "a branch around each product of scores . x": [
         ("term_rs(acc, cur[kk][tm], db);", "if (jrows > 16 * kk) term_rs(acc, cur[kk][tm], db);")],
     "no exponential (the exponent in its place)": [("exp_f32(d)", "(d)")],
-    "no C_i . h^T": [("            if (c > 0) {\n#pragma unroll 1", "            if (c < 0) {\n#pragma unroll 1")],
+    "no C_i . h^T": [_NO_INTER],
     "scores . x on term 0 alone": [
         ("term_rs(acc, cur[kk][tm], db);", "if (tm == 0) term_rs(acc, cur[kk][tm], db);")],
+    # ssd_chunk_scan's fixed costs: the block's prologue and G phase (the B
+    # tiles still loaded, the G products and stores skipped: the scores read
+    # stale shared memory), the epilogue's x read and y store (each output
+    # computed, stored only where it equals a value it never takes), scores .
+    # x alone, and every block cut to one j tile (the cost of a block with
+    # one tile's steps per head)
+    "no G tiles made (stale shared memory read in their place)": [_NO_G_PRODUCTS, _NO_G_STORE],
+    "no x read or y store in the epilogue": [_NO_X_READ, _NO_Y_STORE],
+    "scores . x alone (no C_i . h^T, no x read or y store)": [_NO_INTER, _NO_X_READ, _NO_Y_STORE],
+    "ssd_chunk_scan with one j tile a block": [("const int nj = ib + 1;", "const int nj = 1;")],
+    # every block loads C_i and makes its G tiles, then has no head to scan:
+    # the launch's blocks, their prologues and G phases alone
+    "ssd_chunk_scan's blocks with no heads (prologue and G phase alone)": [
+        ("const int c = rest % nc, bg = rest / nc;\n    const int h0 = g * group, nh = min(group, heads - h0);",
+         "const int c = rest % nc, bg = rest / nc;\n    const int h0 = g * group, nh = 0 * min(group, heads - h0);")],
+    "ssd_chunk_scan with two x stages": [("constexpr int XS = 3;", "constexpr int XS = 2;")],
     # ssd_chunk_state: h_{c+1} = S_c, no block waiting for its predecessor
     "ssd_chunk_state without the chained wait (the recurrence skipped)": [_NO_CHAIN],
     "ssd_chunk_state's products on term 0 alone": [
@@ -101,7 +136,7 @@ ABLATIONS = {
 EXACT = ("as shipped", "expf for the decay", "the warpgroup index without the shuffle",
          "a branch around each product of scores . x", "ssd_chunk_state with one head a block",
          "ssd_chunk_state with four heads a block", "ssd_chunk_state with eight heads a block",
-         "ssd_chunk_state with two x stages")
+         "ssd_chunk_state with two x stages", "ssd_chunk_scan with two x stages")
 LAUNCHES = ("ssd_chunk_state", "ssd_chunk_scan")
 # (batch, seq, heads, head dim, state, chunk) of the exact copies' checks
 CHECKS = (SSD_FULL, (2, 100, 3, 64, 64, 20), (1, 1024, 3, 64, 128, 512))
@@ -151,11 +186,40 @@ def launch_excess(scan, flat, heads: int, chunk: int) -> dict:
             "ssd_chunk_scan": excess(scan.out, out)}
 
 
+def same_bits(lib: _build.CudaLibrary, baseline: _build.CudaLibrary, inputs: dict) -> dict[str, int]:
+    """ssd_chunk_scan of ``lib`` and of ``baseline`` on the same inputs and
+    the same cum and h (``lib``'s first launch): at each case, how many
+    outputs differ in any bit."""
+    out = {}
+    for case, flat in inputs.items():
+        with mock.patch.object(sk, "LIBRARY", lib):
+            first = sk.SplitScan(*flat, heads=case[2], chunk=case[5])
+            first.run()
+        with mock.patch.object(sk, "LIBRARY", baseline):
+            second = sk.SplitScan(*flat, heads=case[2], chunk=case[5])
+            second.cum.copy_(first.cum)
+            second.h.copy_(first.h)
+            second.chunk_scan()
+        torch.cuda.synchronize()
+        a, b = first.out.view(torch.int16), second.out.view(torch.int16)
+        out[str(case)] = int((a != b).sum())
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--baseline", type=Path, action="append", default=[])
+    ap.add_argument("--only", action="append", default=[], metavar="NAME",
+                    help="build and time only these copies (and the source as shipped)")
+    ap.add_argument("--source", type=Path, default=sk.LIBRARY.source,
+                    help="the version of ssd_scan.cu the copies are made from (default: the repo's)")
+    ap.add_argument("--bitwise", action="store_true",
+                    help="hold ssd_chunk_scan's output bit for bit against each --baseline's")
     args = ap.parse_args()
+    unknown = set(args.only) - set(ABLATIONS)
+    if unknown:
+        ap.error(f"no such copies: {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("ssd_scan_ablation: no CUDA device visible to torch; nothing was run", file=sys.stderr)
         return 2
@@ -164,7 +228,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"[card] {smi.splitlines()[0]}", flush=True)
-    libraries = {name: ablated_library(i, name, edits) for i, (name, edits) in enumerate(ABLATIONS.items())}
+    libraries = {name: ablated_library(i, name, edits, args.source.resolve())
+                 for i, (name, edits) in enumerate(ABLATIONS.items())
+                 if not args.only or name in args.only or not edits}
     for j, path in enumerate(args.baseline):
         libraries[f"baseline {path}"] = ablated_library(len(ABLATIONS) + j, str(path), [], path.resolve())
     _build.build_all(list(libraries.values()))
@@ -201,12 +267,23 @@ def main() -> int:
         print(line, flush=True)
     bad = {name: r["excess"] for name, r in result.items()
            if name in EXACT and max(v for e in r["excess"].values() for v in e.values()) > 1}
+    differ = {}
+    if args.bitwise:
+        for name in libraries:
+            if name.startswith("baseline"):
+                result[name]["bitwise"] = same_bits(libraries["as shipped"], libraries[name], inputs)
+                print(f"[bitwise] ssd_chunk_scan of the source as shipped against {name}, on the same "
+                      "cum and h: " + ", ".join(f"{case} {'equal' if n == 0 else f'{n} outputs differ'}"
+                                                for case, n in result[name]["bitwise"].items()), flush=True)
+                if any(result[name]["bitwise"].values()):
+                    differ[name] = result[name]["bitwise"]
     print(json.dumps({"card": smi.splitlines()[0], "shape": SSD_FULL, "split_tol": SPLIT_TOL,
                       "scratch_tol": SCRATCH_TOL, "results": result}))
     if bad:
         print(f"ssd_scan_ablation: copies that must keep the answer do not: {bad}", file=sys.stderr)
-        return 1
-    return 0
+    if differ:
+        print(f"ssd_scan_ablation: ssd_chunk_scan's bits differ from a baseline's: {differ}", file=sys.stderr)
+    return 1 if bad or differ else 0
 
 
 if __name__ == "__main__":
