@@ -522,6 +522,37 @@ def test_chunk_scan_shares_c_b_across_head_groups(cuda, s, chunk, heads, n):
     assert torch.equal(scan.out, out), "two launches of ssd_chunk_scan differ"
 
 
+def test_chunk_scan_gives_the_same_bits_back_to_back(cuda):
+    # h's terms pass from the producer's splitter warps to the consumers
+    # through mbarriers, C_i . h^T runs under the next head's scores and x_i
+    # is read from a held x stage: twenty launches on one instance, one answer
+    args = ssd_inputs(cuda, 13, 2, 2048, 32, 64, 128, torch.bfloat16)
+    x, dt, a, bb, cc, d = args
+    scan = sk.SplitScan(*args, heads=32, chunk=256)
+    scan.chunk_state()
+    runs = []
+    for _ in range(20):
+        scan.chunk_scan()
+        runs.append(scan.out.clone())
+    torch.cuda.synchronize()
+    for out in runs[1:]:
+        assert torch.equal(out, runs[0])
+    want = sr.ssd_chunk_scan_ref(x, dt, scan.cum, scan.h, cc, bb, d, heads=32, chunk=256, split_bf16=True)
+    torch.testing.assert_close(runs[0].float(), want.float(), **SPLIT_TOL)
+
+
+# 16 chunks a head: every unit but those of the first chunk takes C_i . h_c^T
+@pytest.mark.parametrize("n", sk.SPLIT_STATE_DIMS)
+def test_chunk_scan_over_many_chunks(cuda, n):
+    args = ssd_inputs(cuda, n + 14, 2, 4096, 32, 64, n, torch.bfloat16)
+    x, dt, a, bb, cc, d = args
+    scan = sk.SplitScan(*args, heads=32, chunk=256)
+    scan.run()
+    torch.cuda.synchronize()
+    want = sr.ssd_chunk_scan_ref(x, dt, scan.cum, scan.h, cc, bb, d, heads=32, chunk=256, split_bf16=True)
+    torch.testing.assert_close(scan.out.float(), want.float(), **SPLIT_TOL)
+
+
 def test_split_instance_reads_unaligned_views(cuda):
     # a TMA map needs a 16-byte aligned base: a view 1 element into its storage is copied
     x, dt, a, bb, cc, d = ssd_inputs(cuda, 4, 1, 128, 2, 64, 64, torch.bfloat16)
