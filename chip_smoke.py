@@ -792,12 +792,6 @@ def ssd_bound(bh: int, s: int, p: int, n: int, q: int, bg: int, itemsize: int) -
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-# ssd_chunk_scan's full-width time before its second Hopper design (PERF.md,
-# the kernel table: chip_smoke.py on an H100 80GB HBM3 at 700 W), printed
-# beside the time measured now
-SCAN_MS_BEFORE = 0.2493
-
-
 def split_launch_work(bh: int, s: int, p: int, n: int, q: int,
                       bg: int) -> dict[str, tuple[int, tuple[tuple[int, float], ...]]]:
     """Per launch of the split instance: the bytes it must move (each input read
@@ -948,8 +942,7 @@ def ssd_phase(dev, seed: int) -> dict:
             f"({nb / HBM_RATE * 1e3:.4f} ms at {HBM_RATE / 1e12:.2f} TB/s) and do "
             + " and ".join(f"{o / 1e9:.2f} GFLOP ({o / pk * 1e3:.4f} ms at {pk / 1e12:.0f} TFLOP/s)"
                            for o, pk in ops)
-            + f": bound {bound_k:.4f} ms by {by_k}, {100 * bound_k / launch_ms[k]:.2f} % of it"
-            + (f" (before its second design {SCAN_MS_BEFORE} ms)" if k == "ssd_chunk_scan" else ""))
+            + f": bound {bound_k:.4f} ms by {by_k}, {100 * bound_k / launch_ms[k]:.2f} % of it")
     lib = sk.LIBRARY.load()
     per_sm = lib.ssd_chunk_state_blocks_per_sm(n)
     assert per_sm >= 1, per_sm

@@ -79,39 +79,27 @@
 // scores . x 32, C . h^T 23 and C . B^T 5.4 (43 if made for every head, as the
 // mma.sync version did).  Beside them the CUDA cores make 84 M scores (an exp,
 // two multiplies and three bf16 terms each) and split 59 M elements of h into
-// terms (each of a chunk's four i-tile blocks splits the same h).  Both
-// bounds are near and the CUDA-core work is of the same order, so the design
-// keeps the kinds of work apart and in flight together:
+// terms.  Both bounds are near and the CUDA-core work is of the same order,
+// so the design keeps the three kinds of work apart and in flight together:
 //   - one block of three warpgroups per (batch entry, chunk, group of
 //     HEAD_GROUP heads, 64-row tile i), the heaviest tiles first.  G_ij = C_i .
 //     B_j^T is made once for the group's heads on wgmma m64n64k16 (both
 //     operands K-major from TMA tiles) and kept in float32 in shared memory,
 //     up to GC = 4 tiles (a chunk of 256 rows).  A longer chunk runs in windows
 //     of GC tiles with one head for each consumer, G made again per window;
-//   - warpgroup 0 gives its registers up (setmaxnreg).  Lane 0 of its warp 0
-//     issues the TMA loads of both consumers, side by side: C_i once, B_j for
-//     each consumer's share of G, then x_hj for each of their heads and j
-//     through a ring of XS stages per consumer.  Its warps 1-3 split h_c, for
-//     each head in turn, into the three bf16 terms of every row, laid out as
-//     TMA would lay them out (the MN-major B operand of C_i . h^T), and hand
-//     them over by an mbarrier pair per consumer (h_full, h_empty).  h_c
-//     comes by TMA, in float32, into the consumer's term region, where the
-//     warps split it in place: loaded into registers a float4 at a time, h
-//     kept too few bytes in flight, and the split, on warps 2 and 3 alone,
-//     took issue slots from the consumer warps of two of the SM's four
-//     schedulers, which held back both warpgroups;
+//   - warpgroup 0 gives its registers up (setmaxnreg) and two of its lanes
+//     issue TMA loads, one for each consumer warpgroup: C_i once, B_j for the
+//     consumer's share of G, then x_hj for each of its heads and j through a
+//     ring of XS stages, and an L2 prefetch of each head's h;
 //   - each consumer walks its heads (k, k + 2, ...).  Per j it applies the
 //     head's decay to G on the accumulator's layout (cum and dt staged in
 //     shared memory by cp.async a head ahead; exp on one MUFU.EX2), splits the
 //     scores into three A-register words per k-step, and runs wgmma m64n64k16
 //     with x_j as the MN-major B operand (the P . V pattern of
 //     flash_attention.cu), making tile j + 1's scores while tile j's products
-//     run.  At a head's end it issues C_i . h^T on wgmma from the splitter's
-//     terms (both operands in shared memory) and, while those products run,
-//     makes the next head's first scores; then it waits, hands the terms back
-//     and writes the outputs, reading x_i for D x_i from the diagonal tile's
-//     x stage, which it holds until then.  The two consumers work on
-//     different heads;
+//     run.  Then it splits h_c 64 rows at a time into three swizzled bf16
+//     blocks and runs C_i . h^T on wgmma with both operands in shared memory.
+//     The two consumers work on different heads;
 //   - no branch or register copy sits between a wgmma fence and its
 //     products: ptxas can then serialise every wgmma of the kernel, each
 //     waited for before the next is issued (C7513, C7520), or add fences
@@ -121,31 +109,18 @@
 //     the sequence and would read the next chunk's rows;
 //   - no atomics: every sum runs in a fixed order of j tiles, terms and heads,
 //     so two runs give the same bits.
-// Shared memory (ScanSmem): C_i (NB 8 KB blocks), a term region per consumer
-// (TERMS NB blocks: h's three terms, 48 KB at N 128; its tm 0 blocks are the
-// consumer's B stage, dead once the last window's G tiles are made, which the
-// consumer signals on h_empty before the splitters may write them), XS x
-// stages per consumer (2 at N 128, where the regions take a third stage's
-// room; 3 at N 64), G (64 KB) and the staged cum and dt (9 KB): 223400 bytes
-// at N 128, 182472 at N 64, one block an SM.  No room is left for a second
-// term region, so a head's copy of h waits for the last head's products.
-// Registers: the producer warpgroup 40 a thread, the consumers 232 (128 x 40
-// + 256 x 232 <= 65536).  At a head's end the consumer holds acc, inter and
-// the next head's A words (112 registers), fewer than during a step (acc and
-// two buffers of A words, 128).
-// Where its time goes (H100, tools/ssd_scan_ablation.py).  The launch before
-// this design, 0.2507 ms: C_i . h^T 0.051 (h loaded, split and multiplied on
-// the consumer, one step after another), the epilogue's x read and y store
-// 0.025, the G products 0.002; a block cut to one j tile 0.182, the blocks'
-// prologues and G phases alone 0.021.  This design, 0.257 ms (that one 0.249
-// in the same run): 0.188 without C_i . h^T at all.  The split, moved to the
-// producer's warps, still takes about 0.03 ms of issue slots that the
-// consumers need (the SM's four schedulers serve both), and each head's
-// chain of copy, split and hand-over about 0.025 more, which the consumers
-// wait for; blocks of one j tile got faster (0.169).  Where a head's next
-// scores go was measured too: all of them after the products are waited for
-// at once 0.254, half before the terms and half under the products (as
-// here) 0.257, all under the products 0.268.
+// Where its time goes (tools/ssd_scan_ablation.py at the full-width shape,
+// medians of 3, an H100 80GB HBM3 at 700 W): 0.2507 ms as built, 0.1747 for
+// scores . x alone.  Left out one at a time, C . h^T saves 0.051 ms, the
+// epilogue's x read and y store 0.025, the exponential 0.019, scores . x's
+// two smaller terms 0.032 and the G products 0.002.  At one j tile a block
+// the launch takes 0.1822: a block costs about 0.137 ms whatever its tiles,
+// and a j tile of a head about 0.046.  A design that split h on the
+// producer's idle warps, handed the terms over by mbarrier and ran C . h^T
+// under the next head's scores kept every bit but ran 4 % slower: the split
+// took scheduler slots the consumers' warps need, and a head's split could not
+// start before the last head's products had read the terms.
+//
 // ---- ssd_chunk_state on wgmma and TMA, the state pass chained across its blocks
 // What bounds it.  At the full-width scoring shape the launch must read x
 // (67.1 MB), B (4.2 MB) and dt (2.1 MB) and write cum (2.1 MB) and h (67.1
@@ -498,11 +473,11 @@ constexpr int TERMS = 3;       // bf16 terms of a float32 operand
 // Launch 2 (the wgmma instance of the header note): grid BG x chunks x head
 // groups x tiles, flattened with the tile fastest (the tiles of one chunk
 // share its B, C and h in L2) and the heaviest tile first.  Warpgroup 0 is
-// the producer: lane 0 of its warp 0 issues the TMA loads of C, B and x for
-// both consumers, and its other three warps split h_c into bf16 terms for
-// both.  Warpgroups 1 and 2 are the consumers k = 0, 1: each
-// computes the G tiles j = k mod 2 of a window, then walks the heads k, k +
-// 2, ... of the group over all of the window's j tiles.
+// the producer: lane 0 of its warp k issues every TMA load of consumer k
+// (C_i by warp 0 for both).  Warpgroups 1 and 2 are the consumers k = 0, 1:
+// each computes the G tiles j = k mod 2 of a window, then walks the heads
+// k, k + 2, ... of the group over all of the window's j tiles.
+constexpr int XS = 3;                 // stages of a consumer's x ring
 constexpr int GC = 4;                 // j tiles of G a window keeps (a chunk of 256 rows)
 constexpr int HEAD_GROUP = 8;         // heads of a block when the chunk fits one window
 constexpr int SCAN_THREADS = 384;     // producer + two consumer warpgroups
@@ -513,39 +488,24 @@ constexpr int GTILE = TILE * TILE;    // floats of a G tile
 // cum and dt are staged in shared memory: cum and dt of the window's rows, then
 // cum of the i tile's rows
 constexpr int UNIT = 2 * GC * TILE + TILE;
-constexpr int SPLIT_ROWS = 8;          // rows of h a splitter warp reads before it writes their terms
-constexpr int SPLITTERS = 3;           // producer warps that split h: all but the TMA warp
-// A head's first scores, in column groups of 8: SCORES_BEFORE_TERMS of them
-// are made before the last head's consumer waits for its terms of h, the
-// next SCORES_UNDER_INTER while that head's C_i . h^T products run, the rest
-// once its terms are handed back
-constexpr int SCORES_BEFORE_TERMS = 4;
-constexpr int SCORES_UNDER_INTER = 4;
-template <int V> using Int = std::integral_constant<int, V>;
 
-template <int XS> struct ScanBars {
+struct ScanBars {
     uint64_t c_full;
     uint64_t b_full[2], b_empty[2];
     uint64_t x_full[2][XS], x_empty[2][XS];
-    uint64_t h_load[2][2];           // half hb of h_c in float32 has landed in consumer k's term region
-    uint64_t h_full[2], h_empty[2];  // consumer k's term region: h's terms written / read
 };
 
-// Byte offsets in shared memory, each 1024-aligned (the swizzle's atoms).  A
-// consumer's term region holds the TERMS bf16 terms of all N rows of h, NB
-// blocks a term; its term-0 blocks (hb TERMS) are the consumer's B stage, dead
-// once the last window's G tiles are made (C_i . h^T runs only in that window).
-// At N 128 the regions take the room of a third x stage.
+// Byte offsets in shared memory, each 1024-aligned (the swizzle's atoms).
 template <int N> struct ScanSmem {
     static constexpr int NB = N / 64;                          // 64-column blocks of B and C
-    static constexpr int XS = N == 128 ? 2 : 3;                // stages of a consumer's x ring
     static constexpr size_t C = 0;                             // C_i: NB blocks
-    static constexpr size_t R = C + NB * BLOCK;                // term regions: TERMS NB blocks per consumer
-    static constexpr size_t X = R + 2 * TERMS * NB * BLOCK;    // x_j: XS stages per consumer
-    static constexpr size_t G = X + 2 * XS * BLOCK;            // G: GC float32 tiles
+    static constexpr size_t B = C + NB * BLOCK;                // B_j: one stage per consumer
+    static constexpr size_t X = B + 2 * NB * BLOCK;            // x_j: XS stages per consumer
+    static constexpr size_t H = X + 2 * XS * BLOCK;            // terms of 64 rows of h, per consumer
+    static constexpr size_t G = H + 2 * TERMS * BLOCK;         // G: GC float32 tiles
     static constexpr size_t U = G + (size_t)GC * GTILE * sizeof(float);  // cum, dt: 2 units per consumer
     static constexpr size_t BARS = U + 2 * 2 * UNIT * sizeof(float);
-    static constexpr size_t BYTES = BARS + sizeof(ScanBars<XS>) + 1024;  // + room to align
+    static constexpr size_t BYTES = BARS + sizeof(ScanBars) + 1024;  // + room to align
 };
 
 // exp(x) in float32 to a few ulp, for x <= 0: 2^t e^c with t = x log2 e
@@ -588,102 +548,20 @@ __device__ __forceinline__ void term_ss(float (&d)[32], uint64_t da, uint64_t db
     hopper::wgmma_ss_m64n64k16<1>(d, da, db, 1);
 }
 
-// The SPLITTERS warps of the producer that split h for both consumers.  They
-// take the block's heads in order, head hh being consumer hh % 2's head v = hh
-// / 2 (h_c of head hh is state state0 + hh nc of the (BH chunks) states).
-// Their first lane has TMA copy h_c in float32 into the consumer's term
-// region (regions + k REGION), the 32 columns [32 ch, + 32) of its rows
-// [64 hb, + 64) as the 64 rows of block hb TERMS + 1 + ch, each half hb on
-// its own barrier (loaded[k][hb]).  The warps split each half in place,
-// SPLIT_ROWS rows at a time and the batches of rows in turn, into the TERMS
-// bf16 terms of every row laid out as TMA would lay out h (the MN-major B
-// operand of C_i . h^T: term tm of rows [64 hb, + 64) as block hb TERMS + tm,
-// row n's 64 p as 128 swizzled bytes), and hand them over (full[k]).  A row's
-// float32 sits in its own terms' rows of blocks 1 and 2 of its half: a warp
-// reads its rows before it writes their terms.  Head v's copy waits for the
-// consumer to have read head v - 1's terms (empty[k]); each consumer's first
-// copy starts at once (the copies miss the B stage, the tm 0 blocks), and its
-// split waits for the consumer's last G tile instead.  The consumer's next h
-// is asked for in L2 meanwhile.
-template <int N>
-__device__ __forceinline__ void split_states(uint8_t* regions, const CUtensorMap* tm_h, const float* h,
-                                             int state0, int nc, int nh, uint64_t (*loaded)[2],
-                                             uint64_t* full, uint64_t* empty, int warp, int lane) {
-    using namespace hopper;
-    constexpr int NB = N / 64, REGION = TERMS * NB * BLOCK;
-    const bool leader = warp == 0 && lane == 0;
-    auto copy = [&](int hh) {
-        const int k = hh & 1, state = state0 + hh * nc;
-        for (int hb = 0; hb < NB; ++hb) {
-            mbar_arrive_expect_tx(&loaded[k][hb], 64 * P * sizeof(float));
-            for (int ch = 0; ch < 2; ++ch) {
-                tma_load_3d(regions + k * REGION + (hb * TERMS + 1 + ch) * BLOCK, tm_h, &loaded[k][hb], 32 * ch,
-                            64 * hb, state);
-            }
-        }
-    };
-    if (leader) {
-        tma_prefetch(tm_h);
-        for (int hh = 0; hh < min(nh, 2); ++hh) copy(hh);
-    }
-    const int fc = lane % 16;  // lane l splits p = 4 fc .. 4 fc + 3 of rows n0 + 2 i + l / 16
-    for (int hh = 0; hh < nh; ++hh) {
-        const int k = hh & 1, v = hh >> 1;
-        uint8_t* region = regions + k * REGION;
-        if (leader && hh + 2 < nh) prefetch_l2(h + (size_t)(state0 + (hh + 2) * nc) * N * P, N * P * sizeof(float));
-        if (v == 0) {
-            mbar_wait(&empty[k], 0);  // the B stage is dead
-        } else if (leader) {
-            mbar_wait(&empty[k], v & 1);  // head v - 1's terms are read
-            copy(hh);
-        }
-#pragma unroll 1
-        for (int hb = 0; hb < NB; ++hb) {
-            mbar_wait(&loaded[k][hb], v & 1);
-#pragma unroll 1
-            for (int n0 = 64 * hb + warp * SPLIT_ROWS; n0 < 64 * hb + 64; n0 += SPLITTERS * SPLIT_ROWS) {
-                uint8_t* rows = region + hb * TERMS * BLOCK + (n0 % 64 + lane / 16) * ROW_BYTES;
-                float4 hv[SPLIT_ROWS / 2];
-#pragma unroll
-                for (int i = 0; i < SPLIT_ROWS / 2; ++i) {
-                    hv[i] = *reinterpret_cast<const float4*>(rows + 2 * i * ROW_BYTES + (1 + fc / 8) * BLOCK +
-                                                             (fc % 8) * 16);
-                }
-                __syncwarp();
-#pragma unroll
-                for (int i = 0; i < SPLIT_ROWS / 2; ++i) {
-                    const int r7 = (n0 + 2 * i + lane / 16) & 7;  // the row's swizzle
-                    uint32_t w0[TERMS], w1[TERMS];
-                    split_pair(hv[i].x, hv[i].y, w0);
-                    split_pair(hv[i].z, hv[i].w, w1);
-                    uint8_t* dst = rows + 2 * i * ROW_BYTES + (((fc >> 1) ^ r7) << 4) + (fc & 1) * 8;
-#pragma unroll
-                    for (int tm = 0; tm < TERMS; ++tm) {
-                        *reinterpret_cast<uint2*>(dst + tm * BLOCK) = make_uint2(w0[tm], w1[tm]);
-                    }
-                }
-            }
-        }
-        fence_proxy_async();  // the terms are visible to wgmma
-        mbar_arrive(&full[k]);
-    }
-}
-
 template <int N>
 __global__ void __launch_bounds__(SCAN_THREADS, 1)
 ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_b,
-               const __grid_constant__ CUtensorMap tm_c, const __grid_constant__ CUtensorMap tm_h,
-               const bf16* __restrict__ x,
+               const __grid_constant__ CUtensorMap tm_c, const bf16* __restrict__ x,
                const float* __restrict__ dt, const float* __restrict__ cum,
                const float* __restrict__ h, const float* __restrict__ dskip, bf16* __restrict__ y,
                int s, int q, int heads, int group) {
     using namespace hopper;
     using L = ScanSmem<N>;
-    constexpr int NB = L::NB, XS = L::XS;
+    constexpr int NB = L::NB;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t pad = (1024 - (smem_addr(smem_raw) & 1023)) & 1023;
     uint8_t* sm = smem_raw + pad;
-    ScanBars<XS>& bar = *reinterpret_cast<ScanBars<XS>*>(sm + L::BARS);
+    ScanBars& bar = *reinterpret_cast<ScanBars*>(sm + L::BARS);
 
     const int nc = s / q;
     const int ntiles = (q + TILE - 1) / TILE;
@@ -698,7 +576,6 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
     const int nj = ib + 1;                                   // j tiles: 0..ib
     const int nwin = (nj + GC - 1) / GC;
     const int crow = c * q;                                  // the chunk's first row
-    const bool inter_term = c > 0;                           // C_i . h_c^T; h_0 is zero
 
     if (threadIdx.x == 0) {
         mbar_init(&bar.c_full, 1);
@@ -709,10 +586,6 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
                 mbar_init(&bar.x_full[k][st], 1);
                 mbar_init(&bar.x_empty[k][st], 128);
             }
-            mbar_init(&bar.h_load[k][0], 1);
-            mbar_init(&bar.h_load[k][1], 1);
-            mbar_init(&bar.h_full[k], 32 * SPLITTERS);
-            mbar_init(&bar.h_empty[k], 128);
         }
         mbar_fence_init();
     }
@@ -724,46 +597,39 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
     if (wgi == 0) {
         // ------------------------------------------------------- producer
         setmaxnreg_dec<40>();
-        const int pw = threadIdx.x / 32, lane = threadIdx.x & 31;
-        if (pw > 0) {  // the splitters
-            if (inter_term) {
-                split_states<N>(sm + L::R, &tm_h, h, (bg * heads + h0) * nc + c, nc, nh, bar.h_load, bar.h_full,
-                                bar.h_empty, pw - 1, lane);
+        const int k = threadIdx.x / 32;  // the consumer this warp feeds
+        if (k < 2 && (threadIdx.x & 31) == 0) {
+            if (k == 0) {
+                tma_prefetch(&tm_x);
+                tma_prefetch(&tm_b);
+                tma_prefetch(&tm_c);
+                mbar_arrive_expect_tx(&bar.c_full, NB * BLOCK);
+                for (int b = 0; b < NB; ++b) {
+                    tma_load_3d(sm + L::C + b * BLOCK, &tm_c, &bar.c_full, 64 * b, crow + i0, bg);
+                }
             }
-            return;
-        }
-        if (lane == 0) {  // every TMA load of both consumers but h's
-            tma_prefetch(&tm_x);
-            tma_prefetch(&tm_b);
-            tma_prefetch(&tm_c);
-            mbar_arrive_expect_tx(&bar.c_full, NB * BLOCK);
-            for (int b = 0; b < NB; ++b) {
-                tma_load_3d(sm + L::C + b * BLOCK, &tm_c, &bar.c_full, 64 * b, crow + i0, bg);
-            }
-            int nb[2] = {0, 0}, nx[2] = {0, 0};  // B and x tiles loaded for each consumer
+            int nb = 0, nx = 0;  // B and x tiles loaded for consumer k
             for (int w = 0; w < nwin; ++w) {
                 const int ja = w * GC, jz = min(nj, ja + GC);
-                for (int j = ja; j < jz; ++j) {  // G tile j is consumer (j - ja) % 2's
-                    const int k = (j - ja) & 1;
-                    mbar_wait(&bar.b_empty[k], (nb[k] & 1) ^ 1);  // the first round passes
+                for (int j = ja + k; j < jz; j += 2, ++nb) {
+                    mbar_wait(&bar.b_empty[k], (nb & 1) ^ 1);  // the first round passes
                     mbar_arrive_expect_tx(&bar.b_full[k], NB * BLOCK);
                     for (int b = 0; b < NB; ++b) {
-                        tma_load_3d(sm + L::R + (k * NB + b) * TERMS * BLOCK, &tm_b, &bar.b_full[k], 64 * b,
+                        tma_load_3d(sm + L::B + (k * NB + b) * BLOCK, &tm_b, &bar.b_full[k], 64 * b,
                                     crow + j * TILE, bg);
                     }
-                    ++nb[k];
                 }
-                // the two consumers' heads side by side, tile by tile
-                for (int hh = 0; hh < nh; hh += 2) {
-                    for (int j = ja; j < jz; ++j) {
-                        for (int k = 0; k < 2 && hh + k < nh; ++k) {
-                            const int st = nx[k] % XS;
-                            mbar_wait(&bar.x_empty[k][st], ((nx[k] / XS) & 1) ^ 1);
-                            mbar_arrive_expect_tx(&bar.x_full[k][st], BLOCK);
-                            tma_load_3d(sm + L::X + (k * XS + st) * BLOCK, &tm_x, &bar.x_full[k][st], 0,
-                                        crow + j * TILE, bg * heads + h0 + hh + k);
-                            ++nx[k];
-                        }
+                for (int hh = k; hh < nh; hh += 2) {
+                    const int bh = bg * heads + h0 + hh;
+                    if (c > 0 && w == nwin - 1) {  // the state entering the chunk, for C_i . h^T
+                        prefetch_l2(h + ((size_t)bh * nc + c) * N * P, N * P * sizeof(float));
+                    }
+                    for (int j = ja; j < jz; ++j, ++nx) {
+                        const int st = nx % XS;
+                        mbar_wait(&bar.x_empty[k][st], ((nx / XS) & 1) ^ 1);
+                        mbar_arrive_expect_tx(&bar.x_full[k][st], BLOCK);
+                        tma_load_3d(sm + L::X + (k * XS + st) * BLOCK, &tm_x, &bar.x_full[k][st], 0,
+                                    crow + j * TILE, bh);
                     }
                 }
             }
@@ -779,9 +645,9 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
     const int col0 = 2 * (lane % 4);      // and its columns 8 jj + col0 + {0, 1}
     const int ia = i0 + r0, ib8 = ia + 8; // those rows in the chunk
     const uint32_t c_base = smem_addr(sm + L::C);
-    // the term region: h's terms (block hb TERMS + tm: term tm of rows [64 hb,
-    // 64 hb + 64) of h); its blocks hb TERMS are the B stage until then
-    const uint32_t r_base = smem_addr(sm + L::R + k * TERMS * NB * BLOCK);
+    const uint32_t b_base = smem_addr(sm + L::B + k * NB * BLOCK);
+    uint8_t* hbuf = sm + L::H + k * TERMS * BLOCK;
+    const uint32_t h_base = smem_addr(hbuf);
     // G tile jw as float4s: accumulator values 4 jj .. 4 jj + 3 of thread t at
     // gs4[jw GTILE / 4 + jj 128 + t], so a warp's reads and writes are contiguous
     float4* gs4 = reinterpret_cast<float4*>(sm + L::G);
@@ -816,212 +682,9 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
 
     mbar_wait(&bar.c_full, 0);
     float acc[32];
-    // the scores' A words of two j tiles, taking turns: at[k-step][term][word]
-    uint32_t at[4][TERMS][4], an[4][TERMS][4];
-    int nb = 0, nx = 0, ja = 0, jz = 0, held = 0;
-    bool last = false;          // the window where the heads' sums end
-    const float* cw = ubuf;     // the unit's cum of the window's rows; dt follows, then cum of the i tile
-    float ca = 0.f, cb = 0.f;   // the unit's cum at rows ia and ib8
-
-    // The scores of j tile j in float32 on G's accumulator layout, split
-    // into TERMS bf16 A words of each k-step: a[k-step][term][word], for the
-    // column groups [jj0, jj1) of 8 (Int<> values: the words of k-steps jj0 /
-    // 2 .. jj1 / 2 - 1).  `masked` (std::true_type or std::false_type) says
-    // whether the tile holds a pair above the diagonal or a row or column past
-    // the chunk.
-    auto scores = [&](int j, uint32_t (&a)[4][TERMS][4], auto masked, auto jj0, auto jj1) {
-        constexpr bool MASKED = decltype(masked)::value;
-        const float* dw = cw + GC * TILE;  // dt of the window's rows
-        const int j0 = j * TILE;
-        const float4* gt = gs4 + (j - ja) * (GTILE / 4);
-#pragma unroll
-        for (int jj = decltype(jj0)::value; jj < decltype(jj1)::value; ++jj) {
-            const int jc = j0 + 8 * jj + col0;
-            const int jw = (j - ja) * TILE + 8 * jj + col0;  // the column in the window
-            const float2 cjv = *reinterpret_cast<const float2*>(cw + jw);
-            const float2 djv = *reinterpret_cast<const float2*>(dw + jw);
-            const float cj[2] = {cjv.x, cjv.y}, dj[2] = {djv.x, djv.y};
-            const float4 g4 = gt[jj * 128 + t];
-            const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
-            // the decay, in float32; the exponent above the diagonal is never taken
-            float v[4] = {0.f, 0.f, 0.f, 0.f};
-            // in a masked tile, skip a column group above every row of the warp
-            if (!MASKED || j0 + 8 * jj <= i0 + 16 * warp + 15) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int i = e < 2 ? ia : ib8;
-                    const float ci = e < 2 ? ca : cb;
-                    // a pair above the diagonal or past the chunk takes exp(0), then 0
-                    const bool in = !MASKED || (jc + (e & 1) <= i && i < q);
-                    const float d = in ? __fsub_rn(ci, cj[e & 1]) : 0.f;
-                    const float sv = __fmul_rn(__fmul_rn(gv[e], exp_f32(d)), dj[e & 1]);
-                    v[e] = in ? sv : 0.f;
-                }
-            }
-            // words 2 (jj % 2) and 2 (jj % 2) + 1 of k-step jj / 2: rows r0 and r0 + 8
-            uint32_t w0[TERMS], w1[TERMS];
-            split_pair(v[0], v[1], w0);
-            split_pair(v[2], v[3], w1);
-#pragma unroll
-            for (int tm = 0; tm < TERMS; ++tm) {
-                a[jj / 2][tm][2 * (jj % 2)] = w0[tm];
-                a[jj / 2][tm][2 * (jj % 2) + 1] = w1[tm];
-            }
-        }
-    };
-    // a tile wholly on or below the diagonal, inside the chunk, needs no mask
-    auto make_scores = [&](int j, uint32_t (&a)[4][TERMS][4], auto jj0, auto jj1) {
-        if (j < ib && i0 + TILE <= q) {
-            scores(j, a, std::false_type{}, jj0, jj1);
-        } else {
-            scores(j, a, std::true_type{}, jj0, jj1);
-        }
-    };
-    // Unit uu starts: its cum and dt have landed (unit uu + 1's are on their
-    // way)
-    auto open_unit = [&](int uu) {
-        named_barrier(2 + k, 128);  // every thread is done with unit uu - 1's buffer
-        stage_unit(uu + 1);
-        cp_async_wait_group<1>();   // unit uu has landed
-        named_barrier(2 + k, 128);  // for every thread
-        cw = ubuf + (uu % 2) * UNIT;
-        ca = cw[2 * GC * TILE + r0];
-        cb = cw[2 * GC * TILE + r0 + 8];
-    };
-    // and its first tile's scores are made into at
-    auto begin_unit = [&](int uu) {
-        open_unit(uu);
-        make_scores(ja, at, Int<0>{}, Int<8>{});
-    };
-
-    // intra-chunk term, scores . x_j: tile j's products run on the
-    // tensor cores while the CUDA cores make tile j + 1's scores.  Every
-    // k-step is issued, with no branch and no register copy between a
-    // wgmma fence and its products: either can make ptxas serialise
-    // every wgmma of the kernel (C7513, C7520).  So the two A buffers
-    // take turns by an unrolled pair of steps, and the rows of a ragged
-    // tile past the chunk are zeroed in x_j (a TMA box reads on into the
-    // next chunk) rather than skipped.  The head's last tile, the diagonal
-    // one, keeps its stage: the epilogue reads x_i there.
-    auto step = [&](int j, uint32_t (&cur)[4][TERMS][4], uint32_t (&nxt)[4][TERMS][4]) {
-        const int st = nx % XS;
-        mbar_wait(&bar.x_full[k][st], (nx / XS) & 1);
-        uint8_t* xt = sm + L::X + (k * XS + st) * BLOCK;
-        const int jrows = min(TILE, q - j * TILE);
-        if (jrows < TILE) {  // a uniform branch: the chunk ends inside this tile
-            for (int e = jrows * (ROW_BYTES / 16) + t; e < TILE * (ROW_BYTES / 16); e += 128) {
-                reinterpret_cast<uint4*>(xt)[e] = make_uint4(0u, 0u, 0u, 0u);
-            }
-            fence_proxy_async();
-            named_barrier(2 + k, 128);
-        }
-        const uint32_t x_base = smem_addr(xt);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-            for (int tm = 0; tm < TERMS; ++tm) fence_regs(cur[kk][tm]);
-        }
-        fence_regs(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-            // B = x_j, (j, p) as stored: MN-major
-            const uint64_t db = make_desc_sw128(x_base + kk * 16 * ROW_BYTES, BLOCK, 1024);
-#pragma unroll
-            for (int tm = TERMS - 1; tm >= 0; --tm) {  // the smallest term first
-                term_rs(acc, cur[kk][tm], db);
-            }
-        }
-        wgmma_commit();
-        if (j + 1 < jz) make_scores(j + 1, nxt, Int<0>{}, Int<8>{});
-        wgmma_wait<0>();
-        fence_regs(acc);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-            for (int tm = 0; tm < TERMS; ++tm) fence_regs(cur[kk][tm]);
-        }
-        if (last && j + 1 == jz) {
-            held = st;  // x_i, until the epilogue has read it
-        } else {
-            mbar_arrive(&bar.x_empty[k][st]);
-        }
-        ++nx;
-    };
-
-    // The head's end: C_i . h_c^T from the terms the splitters wrote, issued
-    // and left to run while the next head's first scores are made (only acc,
-    // inter and at are live: SCORES_UNDER_INTER column groups of them, after
-    // SCORES_BEFORE_TERMS made before the terms were waited for); then the
-    // wait, the terms handed back, the rest of the scores, and out = (intra
-    // + exp(cum) inter) + D x, cast once.  `with_inter` (std::true_type or
-    // std::false_type): c > 0.
-    auto finish_head = [&](int hh, int bh, size_t row0, auto with_inter) {
-        constexpr bool INTER = decltype(with_inter)::value;
-        float inter[32];
-#pragma unroll
-        for (int e = 0; e < 32; ++e) inter[e] = 0.f;
-        const float ec[2] = {expf(ca), expf(cb)};
-        const bool more = hh + 2 < nh;
-        if (more) {  // the next head's first scores, part of them before the terms, part under the products
-            open_unit(u + 1);
-            make_scores(ja, at, Int<0>{}, Int<SCORES_BEFORE_TERMS>{});
-        }
-        if constexpr (INTER) {
-            mbar_wait(&bar.h_full[k], (hh >> 1) & 1);  // this head's terms are written
-            fence_regs(inter);
-            wgmma_fence();
-#pragma unroll
-            for (int hb = 0; hb < NB; ++hb) {
-#pragma unroll
-                for (int kk = 0; kk < 4; ++kk) {
-                    // A = C_i, columns [64 hb + 16 kk, + 16): K-major; B = a term of
-                    // h's rows [64 hb + 16 kk, + 16): MN-major; the smallest term first
-                    const uint64_t da = make_desc_sw128(c_base + hb * BLOCK + kk * 32, 0, 1024);
-#pragma unroll
-                    for (int tm = TERMS - 1; tm >= 0; --tm) {
-                        term_ss(inter, da, make_desc_sw128(r_base + (hb * TERMS + tm) * BLOCK +
-                                                           kk * 16 * ROW_BYTES, BLOCK, 1024));
-                    }
-                }
-            }
-            wgmma_commit();
-        }
-        constexpr int UNDER = SCORES_BEFORE_TERMS + SCORES_UNDER_INTER;
-        if (more) make_scores(ja, at, Int<SCORES_BEFORE_TERMS>{}, Int<UNDER>{});
-        if constexpr (INTER) {
-            wgmma_wait<0>();
-            fence_regs(inter);
-            mbar_arrive(&bar.h_empty[k]);  // the splitters may write the next head's terms
-        }
-        if (more) make_scores(ja, at, Int<UNDER>{}, Int<8>{});
-        const float dv = dskip[bh];
-        const uint8_t* xi = sm + L::X + (k * XS + held) * BLOCK;  // x_i as TMA laid it out
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const int r = r0 + 8 * half, i = i0 + r;
-            if (i >= q) continue;
-            const size_t at_row = (row0 + i) * P;
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj) {
-                const int p = 8 * jj + col0;
-                const __nv_bfloat162 xv =
-                    *reinterpret_cast<const __nv_bfloat162*>(xi + r * ROW_BYTES + ((jj ^ (r & 7)) << 4) + 2 * col0);
-                const int e = 4 * jj + 2 * half;
-                const float y0 = __fadd_rn(__fadd_rn(acc[e], __fmul_rn(ec[half], inter[e])),
-                                           __fmul_rn(dv, __bfloat162float(xv.x)));
-                const float y1 = __fadd_rn(__fadd_rn(acc[e + 1], __fmul_rn(ec[half], inter[e + 1])),
-                                           __fmul_rn(dv, __bfloat162float(xv.y)));
-                *reinterpret_cast<__nv_bfloat162*>(y + at_row + p) = __floats2bfloat162_rn(y0, y1);
-            }
-        }
-        mbar_arrive(&bar.x_empty[k][held]);
-    };
-
+    int nb = 0, nx = 0;
     for (int w = 0; w < nwin; ++w) {
-        ja = w * GC;
-        jz = min(nj, ja + GC);
-        last = w == nwin - 1;
+        const int ja = w * GC, jz = min(nj, ja + GC);
         if (w > 0) named_barrier(1, 256);  // both consumers are done with the last window's G
 
         // G_ij = C_i . B_j^T, both K-major, once for every head of the block
@@ -1034,10 +697,9 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < N / 16; ++kk) {
-                // column block kk / 4: C_i's block, and the B stage's (a term region's tm 0 blocks)
-                wgmma_ss_m64n64k16<0>(gacc, make_desc_sw128(c_base + (kk / 4) * BLOCK + (kk % 4) * 32, 0, 1024),
-                                      make_desc_sw128(r_base + (kk / 4) * TERMS * BLOCK + (kk % 4) * 32, 0, 1024),
-                                      1);
+                const uint32_t off = (kk / 4) * BLOCK + (kk % 4) * 32;
+                wgmma_ss_m64n64k16<0>(gacc, make_desc_sw128(c_base + off, 0, 1024),
+                                      make_desc_sw128(b_base + off, 0, 1024), 1);
             }
             wgmma_commit();
             wgmma_wait<0>();
@@ -1050,30 +712,216 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
                     make_float4(gacc[4 * jj], gacc[4 * jj + 1], gacc[4 * jj + 2], gacc[4 * jj + 3]);
             }
         }
-        // the B stage is dead: the term region is the splitter's
-        if (last && inter_term) mbar_arrive(&bar.h_empty[k]);
         named_barrier(1, 256);  // every G tile of the window is written
 
-        if (k < nh) begin_unit(u);
         for (int hh = k; hh < nh; hh += 2, ++u) {
             const int bh = bg * heads + h0 + hh;
             const size_t row0 = (size_t)bh * s + crow;  // the chunk's first row in x and y
+            const bool last = w == nwin - 1;             // the head's sums end in this window
+            named_barrier(2 + k, 128);  // every thread is done with unit u - 1's buffer
+            stage_unit(u + 1);
+            cp_async_wait_group<1>();   // unit u has landed
+            named_barrier(2 + k, 128);  // for every thread
+            const float* cw = ubuf + (u % 2) * UNIT;  // cum of the window's rows
+            const float* dw = cw + GC * TILE;          // dt of the window's rows
+            const float* cwi = dw + GC * TILE;         // cum of the i tile's rows
+            const float4* hc = reinterpret_cast<const float4*>(h + ((size_t)bh * nc + c) * N * P);
+            // 16-byte pieces of 64 rows of h: idx = t + 128 pc is row idx / 8,
+            // piece pair idx % 8 (the producer has asked for h in L2)
+            float4 hv[8];
+            auto load_h = [&](int half) {
+#pragma unroll
+                for (int pc = 0; pc < 4; ++pc) {
+                    const int idx = t + 128 * pc;
+                    hv[2 * pc] = hc[half * 64 * (P / 4) + 2 * idx];
+                    hv[2 * pc + 1] = hc[half * 64 * (P / 4) + 2 * idx + 1];
+                }
+            };
+            const float ca = cwi[r0], cb = cwi[r0 + 8];
             if (w == 0) {
 #pragma unroll
                 for (int e = 0; e < 32; ++e) acc[e] = 0.f;
             }
+
+            // The scores of j tile j in float32 on G's accumulator layout, split
+            // into TERMS bf16 A words of each k-step: at[k-step][term][word].
+            // `masked` (std::true_type or std::false_type) says whether the tile
+            // holds a pair above the diagonal or a row or column past the chunk.
+            auto scores = [&](int j, uint32_t (&at)[4][TERMS][4], auto masked) {
+                constexpr bool MASKED = decltype(masked)::value;
+                const int j0 = j * TILE;
+                const float4* gt = gs4 + (j - ja) * (GTILE / 4);
+#pragma unroll
+                for (int jj = 0; jj < 8; ++jj) {
+                    const int jc = j0 + 8 * jj + col0;
+                    const int jw = (j - ja) * TILE + 8 * jj + col0;  // the column in the window
+                    const float2 cjv = *reinterpret_cast<const float2*>(cw + jw);
+                    const float2 djv = *reinterpret_cast<const float2*>(dw + jw);
+                    const float cj[2] = {cjv.x, cjv.y}, dj[2] = {djv.x, djv.y};
+                    const float4 g4 = gt[jj * 128 + t];
+                    const float g[4] = {g4.x, g4.y, g4.z, g4.w};
+                    // the decay, in float32; the exponent above the diagonal is never taken
+                    float v[4] = {0.f, 0.f, 0.f, 0.f};
+                    // in a masked tile, skip a column group above every row of the warp
+                    if (!MASKED || j0 + 8 * jj <= i0 + 16 * warp + 15) {
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const int i = e < 2 ? ia : ib8;
+                            const float ci = e < 2 ? ca : cb;
+                            // a pair above the diagonal or past the chunk takes exp(0), then 0
+                            const bool in = !MASKED || (jc + (e & 1) <= i && i < q);
+                            const float d = in ? __fsub_rn(ci, cj[e & 1]) : 0.f;
+                            const float sv = __fmul_rn(__fmul_rn(g[e], exp_f32(d)),
+                                                       dj[e & 1]);
+                            v[e] = in ? sv : 0.f;
+                        }
+                    }
+                    // words 2 (jj % 2) and 2 (jj % 2) + 1 of k-step jj / 2: rows r0 and r0 + 8
+                    uint32_t w0[TERMS], w1[TERMS];
+                    split_pair(v[0], v[1], w0);
+                    split_pair(v[2], v[3], w1);
+#pragma unroll
+                    for (int tm = 0; tm < TERMS; ++tm) {
+                        at[jj / 2][tm][2 * (jj % 2)] = w0[tm];
+                        at[jj / 2][tm][2 * (jj % 2) + 1] = w1[tm];
+                    }
+                }
+            };
+            // a tile wholly on or below the diagonal, inside the chunk, needs no mask
+            auto make_scores = [&](int j, uint32_t (&at)[4][TERMS][4]) {
+                if (j < ib && i0 + TILE <= q) {
+                    scores(j, at, std::false_type{});
+                } else {
+                    scores(j, at, std::true_type{});
+                }
+            };
+
+            // intra-chunk term, scores . x_j: tile j's products run on the
+            // tensor cores while the CUDA cores make tile j + 1's scores.  Every
+            // k-step is issued, with no branch and no register copy between a
+            // wgmma fence and its products: either can make ptxas serialise
+            // every wgmma of the kernel (C7513, C7520).  So the two A buffers
+            // take turns by an unrolled pair of steps, and the rows of a ragged
+            // tile past the chunk are zeroed in x_j (a TMA box reads on into the
+            // next chunk) rather than skipped.
+            auto step = [&](int j, uint32_t (&cur)[4][TERMS][4], uint32_t (&nxt)[4][TERMS][4]) {
+                const int st = nx % XS;
+                mbar_wait(&bar.x_full[k][st], (nx / XS) & 1);
+                uint8_t* xt = sm + L::X + (k * XS + st) * BLOCK;
+                const int jrows = min(TILE, q - j * TILE);
+                if (jrows < TILE) {  // a uniform branch: the chunk ends inside this tile
+                    for (int e = jrows * (ROW_BYTES / 16) + t; e < TILE * (ROW_BYTES / 16); e += 128) {
+                        reinterpret_cast<uint4*>(xt)[e] = make_uint4(0u, 0u, 0u, 0u);
+                    }
+                    fence_proxy_async();
+                    named_barrier(2 + k, 128);
+                }
+                const uint32_t x_base = smem_addr(xt);
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+                    for (int tm = 0; tm < TERMS; ++tm) fence_regs(cur[kk][tm]);
+                }
+                fence_regs(acc);
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+                    // B = x_j, (j, p) as stored: MN-major
+                    const uint64_t db = make_desc_sw128(x_base + kk * 16 * ROW_BYTES, BLOCK, 1024);
+#pragma unroll
+                    for (int tm = TERMS - 1; tm >= 0; --tm) {  // the smallest term first
+                        term_rs(acc, cur[kk][tm], db);
+                    }
+                }
+                wgmma_commit();
+                if (j + 1 < jz) {
+                    make_scores(j + 1, nxt);
+                } else if (last && c > 0) {
+                    load_h(0);  // the first 64 rows of h, for C_i . h^T next
+                }
+                wgmma_wait<0>();
+                fence_regs(acc);
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+                    for (int tm = 0; tm < TERMS; ++tm) fence_regs(cur[kk][tm]);
+                }
+                mbar_arrive(&bar.x_empty[k][st]);
+                ++nx;
+            };
+            uint32_t at[4][TERMS][4], an[4][TERMS][4];
+            make_scores(ja, at);
             for (int j = ja; j < jz; j += 2) {
                 step(j, at, an);
                 if (j + 1 < jz) step(j + 1, an, at);
             }
-            if (!last) {  // the head's later windows follow (one head a consumer when there are several)
-                if (hh + 2 < nh) begin_unit(u + 1);
-                continue;
+            if (!last) continue;  // the head's later windows follow
+
+            // inter-chunk term C_i . h_c^T; h_0 is zero.  64 rows of h at a
+            // time, split into TERMS bf16 blocks laid out as TMA would
+            // (MN-major B operands), the smallest term first
+            float inter[32];
+#pragma unroll
+            for (int e = 0; e < 32; ++e) inter[e] = 0.f;
+            if (c > 0) {
+#pragma unroll 1
+                for (int half = 0; half < NB; ++half) {
+                    named_barrier(2 + k, 128);  // the last products are done with hbuf
+#pragma unroll
+                    for (int pc = 0; pc < 4; ++pc) {
+                        const int idx = t + 128 * pc, r = idx / 8, ch = idx % 8;
+                        uint32_t w[4][TERMS];
+                        split_pair(hv[2 * pc].x, hv[2 * pc].y, w[0]);
+                        split_pair(hv[2 * pc].z, hv[2 * pc].w, w[1]);
+                        split_pair(hv[2 * pc + 1].x, hv[2 * pc + 1].y, w[2]);
+                        split_pair(hv[2 * pc + 1].z, hv[2 * pc + 1].w, w[3]);
+                        const int off = r * ROW_BYTES + ((ch ^ (r & 7)) << 4);
+#pragma unroll
+                        for (int tm = 0; tm < TERMS; ++tm) {
+                            *reinterpret_cast<uint4*>(hbuf + tm * BLOCK + off) =
+                                make_uint4(w[0][tm], w[1][tm], w[2][tm], w[3][tm]);
+                        }
+                    }
+                    if (half + 1 < NB) load_h(half + 1);  // under this half's products
+                    fence_proxy_async();        // the terms are visible to wgmma
+                    named_barrier(2 + k, 128);  // and every thread's are written
+                    fence_regs(inter);
+                    wgmma_fence();
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk) {
+                        // A = C_i, columns [64 half + 16 kk, + 16): K-major
+                        const uint64_t da = make_desc_sw128(c_base + half * BLOCK + kk * 32, 0, 1024);
+#pragma unroll
+                        for (int tm = TERMS - 1; tm >= 0; --tm) {
+                            term_ss(inter, da,
+                                    make_desc_sw128(h_base + tm * BLOCK + kk * 16 * ROW_BYTES, BLOCK, 1024));
+                        }
+                    }
+                    wgmma_commit();
+                    wgmma_wait<0>();
+                    fence_regs(inter);
+                }
             }
-            if (inter_term) {
-                finish_head(hh, bh, row0, std::true_type{});
-            } else {
-                finish_head(hh, bh, row0, std::false_type{});
+
+            // out = (intra + exp(cum) inter) + D x, cast once
+            const float dv = dskip[bh];
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int i = half ? ib8 : ia;
+                if (i >= q) continue;
+                const float ec = expf(half ? cb : ca);
+                const size_t at_row = (row0 + i) * P;
+#pragma unroll
+                for (int jj = 0; jj < 8; ++jj) {
+                    const int p = 8 * jj + col0;
+                    const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + at_row + p);
+                    const int e = 4 * jj + 2 * half;
+                    const float y0 = __fadd_rn(__fadd_rn(acc[e], __fmul_rn(ec, inter[e])),
+                                               __fmul_rn(dv, __bfloat162float(xv.x)));
+                    const float y1 = __fadd_rn(__fadd_rn(acc[e + 1], __fmul_rn(ec, inter[e + 1])),
+                                               __fmul_rn(dv, __bfloat162float(xv.y)));
+                    *reinterpret_cast<__nv_bfloat162*>(y + at_row + p) = __floats2bfloat162_rn(y0, y1);
+                }
             }
         }
     }
@@ -1490,23 +1338,6 @@ cudaError_t chunk_state(const void* x, const void* dt, const void* a, const void
 // window, and a head's sum runs over every window).
 int scan_group(int q) { return (q + TILE - 1) / TILE <= GC ? HEAD_GROUP : 2; }
 
-// A 3-D map over the float32 states h, (states, N rows, P columns) innermost
-// last, read in unswizzled boxes of 32 columns x 64 rows of one state: a box
-// lands as 64 rows of 128 bytes, as a term block's rows lie.  Returns 0, or
-// hopper::ENCODE_ERROR_BASE + the CUresult.
-int encode_states(CUtensorMap* map, const void* h, int n, int states) {
-    hopper::EncodeTiledFn fn = hopper::encode_tiled_fn();
-    if (fn == nullptr) return hopper::ENCODE_ERROR_BASE + (int)CUDA_ERROR_NOT_FOUND;
-    const cuuint64_t dims[3] = {(cuuint64_t)P, (cuuint64_t)n, (cuuint64_t)states};
-    const cuuint64_t strides[2] = {(cuuint64_t)P * sizeof(float), (cuuint64_t)n * P * sizeof(float)};
-    const cuuint32_t box[3] = {32, 64, 1};
-    const cuuint32_t elem[3] = {1, 1, 1};
-    CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(h), dims, strides, box, elem,
-                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? 0 : hopper::ENCODE_ERROR_BASE + (int)r;
-}
-
 long long scan_blocks(int bh, int s, int q, int heads) {
     const int group = scan_group(q);
     return (long long)(bh / heads) * (s / q) * ((heads + group - 1) / group) * ((q + TILE - 1) / TILE);
@@ -1517,11 +1348,10 @@ cudaError_t chunk_scan(const void* x, const void* dt, const void* cum, const voi
                        const void* b, const void* c, const void* d, void* y, int bh, int s, int q,
                        int heads, cudaStream_t stream, int* encode_err) {
     const int bg = bh / heads;
-    CUtensorMap tm_x, tm_b, tm_c, tm_h;
+    CUtensorMap tm_x, tm_b, tm_c;
     int err = hopper::encode_bf16_3d(&tm_x, x, P, s, bh, TILE);
     if (err == 0) err = hopper::encode_bf16_3d(&tm_b, b, N, s, bg, TILE);
     if (err == 0) err = hopper::encode_bf16_3d(&tm_c, c, N, s, bg, TILE);
-    if (err == 0) err = encode_states(&tm_h, h, N, bh * (s / q));
     if (err != 0) {
         *encode_err = err;
         return cudaErrorInvalidValue;
@@ -1534,7 +1364,7 @@ cudaError_t chunk_scan(const void* x, const void* dt, const void* cum, const voi
     const int group = scan_group(q);
     const unsigned blocks = (unsigned)scan_blocks(bh, s, q, heads);
     kernel<<<blocks, SCAN_THREADS, smem, stream>>>(
-        tm_x, tm_b, tm_c, tm_h, static_cast<const bf16*>(x), static_cast<const float*>(dt),
+        tm_x, tm_b, tm_c, static_cast<const bf16*>(x), static_cast<const float*>(dt),
         static_cast<const float*>(cum), static_cast<const float*>(h), static_cast<const float*>(d),
         static_cast<bf16*>(y), s, q, heads, group);
     return cudaGetLastError();
@@ -1619,8 +1449,7 @@ int ssd_chunk_state_blocks_per_sm(int n) {
 int ssd_chunk_scan_launch(int n, const void* x, const void* dt, const void* cum, const void* h,
                           const void* b, const void* c, const void* d, void* y, int bh, int s,
                           int q, int heads, void* stream) {
-    if (!sp::takes(n, q, s, bh, heads) || sp::scan_blocks(bh, s, q, heads) >= (1ll << 31) ||
-        (long long)bh * (s / q) >= (1ll << 31)) {
+    if (!sp::takes(n, q, s, bh, heads) || sp::scan_blocks(bh, s, q, heads) >= (1ll << 31)) {
         return cudaErrorInvalidValue;
     }
     cudaStream_t st = static_cast<cudaStream_t>(stream);

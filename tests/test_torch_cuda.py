@@ -523,9 +523,9 @@ def test_chunk_scan_shares_c_b_across_head_groups(cuda, s, chunk, heads, n):
 
 
 def test_chunk_scan_gives_the_same_bits_back_to_back(cuda):
-    # h's terms pass from the producer's splitter warps to the consumers
-    # through mbarriers, C_i . h^T runs under the next head's scores and x_i
-    # is read from a held x stage: twenty launches on one instance, one answer
+    # the x ring's mbarriers run through many phases, and C_i . h^T's terms
+    # pass through shared memory between named barriers: twenty launches on
+    # one instance, one answer
     args = ssd_inputs(cuda, 13, 2, 2048, 32, 64, 128, torch.bfloat16)
     x, dt, a, bb, cc, d = args
     scan = sk.SplitScan(*args, heads=32, chunk=256)

@@ -73,11 +73,11 @@ _NO_FLAG = ("if (t == 0) flag_release(flags + (size_t)bh * nc + c + 1);",
             "if (et < 0.f) flag_release(flags + (size_t)bh * nc + c + 1);")
 _NO_PRODUCTS = ("    hopper::wgmma_rs(d, a, db, 1);\n", "")
 # edits of ssd_chunk_scan that more than one copy makes
-_NO_INTER = ("const bool inter_term = c > 0;", "const bool inter_term = false;")
+_NO_INTER = ("            if (c > 0) {\n#pragma unroll 1", "            if (c < 0) {\n#pragma unroll 1")
 _NO_G_PRODUCTS = ("for (int kk = 0; kk < N / 16; ++kk) {", "for (int kk = 0; kk < 0; ++kk) {")
 _NO_G_STORE = ("                gt[jj * 128 + t] =", "                if (nb < 0) gt[jj * 128 + t] =")
-_X_I = "*reinterpret_cast<const __nv_bfloat162*>(xi + r * ROW_BYTES + ((jj ^ (r & 7)) << 4) + 2 * col0);"
-_NO_X_READ = (_X_I, "__floats2bfloat162_rn(dv, ec[half]);")
+_NO_X_READ = ("const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + at_row + p);",
+              "const __nv_bfloat162 xv = __floats2bfloat162_rn(dv, ec);")
 _NO_Y_STORE = ("*reinterpret_cast<__nv_bfloat162*>(y + at_row + p) = __floats2bfloat162_rn(y0, y1);",
                "if (y0 == 1234.5f && y1 == -1234.5f) *reinterpret_cast<__nv_bfloat162*>(y + at_row + p) = "
                "__floats2bfloat162_rn(y0, y1);")
@@ -112,42 +112,7 @@ ABLATIONS = {
     "ssd_chunk_scan's blocks with no heads (prologue and G phase alone)": [
         ("const int c = rest % nc, bg = rest / nc;\n    const int h0 = g * group, nh = min(group, heads - h0);",
          "const int c = rest % nc, bg = rest / nc;\n    const int h0 = g * group, nh = 0 * min(group, heads - h0);")],
-    # x_i read from global memory in the epilogue, the diagonal tile's x stage
-    # handed back at once (PR 25's epilogue)
-    "ssd_chunk_scan with x_i read from global memory": [
-        ("if (last && j + 1 == jz) {", "if (false) {"),
-        (_X_I, "*reinterpret_cast<const __nv_bfloat162*>(x + at_row + p);"),
-        ("        mbar_arrive(&bar.x_empty[k][held]);\n", "")],
-    # the splitters' TMA copies of h (the terms split from what the region
-    # held), and their split (the terms left as the copies wrote h)
-    "ssd_chunk_scan's splitters without their copies of h": [
-        ("mbar_arrive_expect_tx(&loaded[k][hb], 64 * P * sizeof(float));", "mbar_arrive(&loaded[k][hb]);"),
-        ("tma_load_3d(regions + k * REGION + (hb * TERMS + 1 + ch) * BLOCK, tm_h, &loaded[k][hb], 32 * ch,",
-         "if (state < 0) tma_load_3d(regions + k * REGION + (hb * TERMS + 1 + ch) * BLOCK, tm_h, &loaded[k][hb], "
-         "32 * ch,")],
-    "ssd_chunk_scan's splitters without the split": [
-        ("n0 < 64 * hb + 64; n0 += SPLITTERS * SPLIT_ROWS) {", "n0 < 64 * hb; n0 += SPLITTERS * SPLIT_ROWS) {")],
-    "ssd_chunk_scan's splitters at 4 rows a read": [("constexpr int SPLIT_ROWS = 8;", "constexpr int SPLIT_ROWS = 4;")],
-    "ssd_chunk_scan's splitters at 16 rows a read": [("constexpr int SPLIT_ROWS = 8;", "constexpr int SPLIT_ROWS = 16;")],
-    # where the next head's first scores are made, in column groups of 8, as
-    # shipped 4 before the terms are waited for and 4 under C_i . h^T's
-    # products: all after the products are waited for at once (the terms
-    # handed back soonest), all before the terms, all under the products, or
-    # none before the terms and half under the products
-    "ssd_chunk_scan with C_i . h^T's products waited for at once": [
-        ("constexpr int SCORES_BEFORE_TERMS = 4;", "constexpr int SCORES_BEFORE_TERMS = 0;"),
-        ("constexpr int SCORES_UNDER_INTER = 4;", "constexpr int SCORES_UNDER_INTER = 0;")],
-    "ssd_chunk_scan with the next head's first scores before the terms, none under the products": [
-        ("constexpr int SCORES_BEFORE_TERMS = 4;", "constexpr int SCORES_BEFORE_TERMS = 8;"),
-        ("constexpr int SCORES_UNDER_INTER = 4;", "constexpr int SCORES_UNDER_INTER = 0;")],
-    "ssd_chunk_scan with C_i . h^T's products under all of the next head's first scores": [
-        ("constexpr int SCORES_BEFORE_TERMS = 4;", "constexpr int SCORES_BEFORE_TERMS = 0;"),
-        ("constexpr int SCORES_UNDER_INTER = 4;", "constexpr int SCORES_UNDER_INTER = 8;")],
-    "ssd_chunk_scan with none of the next head's first scores before the terms": [
-        ("constexpr int SCORES_BEFORE_TERMS = 4;", "constexpr int SCORES_BEFORE_TERMS = 0;")],
-    "ssd_chunk_scan without C_i . h^T's products (h still split)": [
-        ("for (int hb = 0; hb < NB; ++hb) {\n#pragma unroll\n                for (int kk = 0; kk < 4; ++kk) {",
-         "for (int hb = 0; hb < 0; ++hb) {\n#pragma unroll\n                for (int kk = 0; kk < 4; ++kk) {")],
+    "ssd_chunk_scan with two x stages": [("constexpr int XS = 3;", "constexpr int XS = 2;")],
     # ssd_chunk_state: h_{c+1} = S_c, no block waiting for its predecessor
     "ssd_chunk_state without the chained wait (the recurrence skipped)": [_NO_CHAIN],
     "ssd_chunk_state's products on term 0 alone": [
@@ -171,12 +136,7 @@ ABLATIONS = {
 EXACT = ("as shipped", "expf for the decay", "the warpgroup index without the shuffle",
          "a branch around each product of scores . x", "ssd_chunk_state with one head a block",
          "ssd_chunk_state with four heads a block", "ssd_chunk_state with eight heads a block",
-         "ssd_chunk_state with two x stages", "ssd_chunk_scan with x_i read from global memory",
-         "ssd_chunk_scan's splitters at 4 rows a read", "ssd_chunk_scan's splitters at 16 rows a read",
-         "ssd_chunk_scan with C_i . h^T's products waited for at once",
-         "ssd_chunk_scan with the next head's first scores before the terms, none under the products",
-         "ssd_chunk_scan with C_i . h^T's products under all of the next head's first scores",
-         "ssd_chunk_scan with none of the next head's first scores before the terms")
+         "ssd_chunk_state with two x stages", "ssd_chunk_scan with two x stages")
 LAUNCHES = ("ssd_chunk_state", "ssd_chunk_scan")
 # (batch, seq, heads, head dim, state, chunk) of the exact copies' checks
 CHECKS = (SSD_FULL, (2, 100, 3, 64, 64, 20), (1, 1024, 3, 64, 128, 512))
