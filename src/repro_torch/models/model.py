@@ -17,6 +17,10 @@ the shared block the embedding of the *previous* token as ``x0``
 (``repro/models/model.py:503``), where the full-sequence forward feeds each
 position its own token's embedding; the port's decode feeds the current
 token's, so that decode continues the forward.
+
+The train forward's embedding, final norm and loss run as named stages
+(:func:`repro_torch.obs.stages.stage`), as do the ssm mixer's parts, so a
+profiler's trace of scoring puts each kernel under the stage that launched it.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..distributed.sharding import constrain, finish_partial, map_shards
+from ..obs.stages import stage
 from .init import ModelParams, init_params, torch_dtype  # noqa: F401 (re-export)
 from .moe import moe_ffn
 from .ops import decode_attention, gqa_attention, length_starts, rms_norm, rope, swiglu
@@ -164,7 +169,8 @@ def encode(params: ModelParams, cfg: ModelConfig, frames: torch.Tensor) -> torch
 def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, *,
                    enc_out: torch.Tensor | None = None):
     """Full-sequence causal forward -> (hidden (B,S,D), aux loss)."""
-    h = embed_inputs(params, cfg, inputs)
+    with stage("model.embed"):
+        h = embed_inputs(params, cfg, inputs)
     h = constrain(h, "batch", "seq", "d_model")
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -204,7 +210,9 @@ def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, 
 
         def body(hh, xs):
             bp, i = xs
-            hh = hh + mamba_mixer(rms_norm(hh, bp["norm_in"], cfg.norm_eps), bp, cfg)
+            with stage("ssm.norm_in"):
+                x = rms_norm(hh, bp["norm_in"], cfg.norm_eps)
+            hh = hh + mamba_mixer(x, bp, cfg)
             hh = constrain(hh, "batch", "seq_sp", "d_model")
             return maybe_cond(_is_shared_site(cfg, i), shared_block, lambda v: v, hh), None
 
@@ -213,7 +221,8 @@ def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, 
     else:
         raise ValueError(f"unknown family {cfg.family}")
 
-    return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
+    with stage("model.final_norm"):
+        return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
 
 
 def lm_logits(params: ModelParams, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
@@ -315,7 +324,8 @@ def train_loss(params: ModelParams, cfg: ModelConfig, batch: dict) -> tuple[torc
         inputs = batch["tokens"]
     hidden, aux = forward_hidden(params, cfg, inputs, enc_out=enc_out)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    ce = _chunked_ce(hidden, head, batch["targets"], ce_dtype=torch_dtype(cfg.ce_dtype))
+    with stage("model.head_ce"):
+        ce = _chunked_ce(hidden, head, batch["targets"], ce_dtype=torch_dtype(cfg.ce_dtype))
     loss = ce + AUX_COEF * aux
     return loss, {"ce": ce, "aux": aux}
 

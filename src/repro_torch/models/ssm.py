@@ -6,9 +6,11 @@ PyTorch (intra-chunk quadratic term plus an inter-chunk recurrence over
 chunk states); ``mamba_mixer`` wraps projections, causal convolutions,
 gating and the output norm, and, as in the reference, ``attn_impl ==
 "pallas"`` selects the hand-written SSD-scan kernel instead of
-``ssd_chunked``.  Serving takes :func:`mamba_prefill`, the mixer that also
-returns the state a decode continues from (through ``ssd_chunked``, since the
-kernel returns no state, as at ``repro/models/model.py:355,387``), and
+``ssd_chunked``; its parts run as named stages
+(:func:`repro_torch.obs.stages.stage`) that a profiler's trace shows.
+Serving takes :func:`mamba_prefill`, the mixer that also returns the state a
+decode continues from (through ``ssd_chunked``, since the kernel returns no
+state, as at ``repro/models/model.py:355,387``), and
 :func:`mamba_decode_step`, the O(1) recurrence over that state.
 """
 
@@ -20,6 +22,7 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..distributed.sharding import constrain, map_shards
+from ..obs.stages import stage
 from .ops import rms_norm
 
 __all__ = ["ssd_chunked", "causal_conv1d", "mamba_mixer", "mamba_prefill",
@@ -122,27 +125,32 @@ def mamba_mixer(x: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence Mamba2 block (train / scoring).  x: (B,S,D) -> (B,S,D)."""
     b, s, _ = x.shape
     di, hds, p = cfg.d_inner, cfg.ssm_heads, cfg.ssm.head_dim
-    z, xin, B_, C_, dt = _project(x, params)
-    xin = causal_conv1d(xin, params["conv_x"], params["conv_x_b"])
-    B_ = causal_conv1d(B_, params["conv_B"], params["conv_B_b"])
-    C_ = causal_conv1d(C_, params["conv_C"], params["conv_C_b"])
-    xh = xin.reshape(b, s, hds, p)
-    xh = constrain(xh, "batch", "seq", "ssm_heads", None)
-    A = -torch.exp(params["A_log"].float())
+    with stage("ssm.in_proj"):
+        z, xin, B_, C_, dt = _project(x, params)
+    with stage("ssm.conv"):
+        xin = causal_conv1d(xin, params["conv_x"], params["conv_x_b"])
+        B_ = causal_conv1d(B_, params["conv_B"], params["conv_B_b"])
+        C_ = causal_conv1d(C_, params["conv_C"], params["conv_C_b"])
     if cfg.attn_impl == "pallas":
         from ..kernels.ssd_scan import ops as ssd_ops
 
         scan = ssd_ops.ssd_scan
     else:
         scan = ssd_chunked
-    args = (xh, dt, A, B_, C_, params["D_skip"])
-    if isinstance(xh, DTensor):  # each rank scans its batch rows and heads
-        y = map_shards(scan, args, _SSD_ROLES, _SSD_ROLES[0], chunk=cfg.ssm.chunk)
-    else:
-        y = scan(*args, chunk=cfg.ssm.chunk)
-    y = y.reshape(b, s, di)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    return torch.matmul(y, params["out_proj"])
+    with stage("ssm.scan"):
+        xh = xin.reshape(b, s, hds, p)
+        xh = constrain(xh, "batch", "seq", "ssm_heads", None)
+        A = -torch.exp(params["A_log"].float())
+        args = (xh, dt, A, B_, C_, params["D_skip"])
+        if isinstance(xh, DTensor):  # each rank scans its batch rows and heads
+            y = map_shards(scan, args, _SSD_ROLES, _SSD_ROLES[0], chunk=cfg.ssm.chunk)
+        else:
+            y = scan(*args, chunk=cfg.ssm.chunk)
+        y = y.reshape(b, s, di)
+    with stage("ssm.gate_norm"):
+        y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    with stage("ssm.out_proj"):
+        return torch.matmul(y, params["out_proj"])
 
 
 def _ssd_with_state(xh, dt, A, B_, C_, D_, chunk: int):
