@@ -44,7 +44,12 @@ Phases, each fatal on failure:
    agree with attn_impl="naive", and the batched tokens are compared with
    sequential prefill + decode; the kernel's and scaled_dot_product_attention's
    times at every served length;
-6. ssm: the SSD-scan kernel against its plain PyTorch version at the shapes
+6. ssm: the mixer's causal-convolution kernel at the score cell's shape
+   (mamba2-370m, 256 x 2048 tokens: x over 2048 channels, B and C over 128,
+   bf16, 4 taps) bit for bit against its plain version
+   (repro_torch.models.ssm.causal_conv1d), and the kernel's, the plain
+   version's and F.conv1d's times for one mixer's three launches beside the
+   byte bound.  The SSD-scan kernel against its plain PyTorch version at the shapes
    of tests/test_kernels.py and the reduced configs' in float32 and bf16,
    its chunk-independence case, and in bf16 the zamba2-7b and mamba2-370m
    head and state sizes and the full-width scoring shape (2e-4 in float32,
@@ -72,7 +77,9 @@ Phases, each fatal on failure:
    (repro_torch.kernels.ssd_scan.gate) holds each layer's launch against the
    plain version with split operands on that layer's inputs at one bf16 ulp,
    and both faulty scans, run on the same inputs, must fail it on every
-   layer of more than one chunk; the smallest margin is printed;
+   layer of more than one chunk; the smallest margin is printed.  The
+   scoring pass must launch the convolution kernel 3 times a layer (x, B and
+   C), each launch bit-equal to the plain version on its own inputs;
 7. hammer: the paper's fdb-hammer benchmark (benchmarks/fdb_hammer_torch.py)
    at its field size of 1 MiB.  (a) run_config drives the tiered codec
    deployment with 4 writer/reader threads, 5 output steps of 10 params x 10
@@ -114,7 +121,9 @@ Phases, each fatal on failure:
    over "data": every leaf must be a DTensor on the mesh, equal to the
    saved state by its float64 checksum.  The held-out batch of phase 6 is
    scored through the SSD-scan kernel from the restored parameters: every
-   launch on the split instance, the loss within 1e-6 of phase 6's.
+   launch on the split instance, the loss within 1e-6 of phase 6's, and 3
+   launches a layer of the convolution kernel, each bit-equal to the plain
+   version on its inputs.
    make_rules is printed for mamba2-370m, qwen2.5-3b and zamba2-7b on
    stand-in (16, 16) and (2, 16, 16) meshes (names and sizes only).  Then
    benchmarks/run_torch.py runs once in a subprocess on the card: every line
@@ -235,6 +244,10 @@ SSD_BF16_CASES = [
     SSD_FULL,
 ]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CKPT_EVERY, FAIL_AT = 8, 2048, 6, 3, 4
+# the mixer's causal convolution at the score cell's shape (mamba2-370m, 256 x
+# 2048 tokens): one mixer's three calls, x over d_inner and B, C over d_state
+# channels, d_conv taps, bf16
+CONV_FULL = (256, 2048, (2048, 128, 128), 4)
 # held-out loss through the kernel against ssd_chunked, both bf16: ssd_chunked
 # rounds its scores, chunk states and inter-chunk term to bf16 where the
 # kernel keeps float32, in each of 48 layers.  H100 runs measured 2.92e-4 for
@@ -979,6 +992,84 @@ def ssd_phase(dev, seed: int) -> dict:
             "launch_bound_ms": {k: v[0] for k, v in launch_bounds.items()}}
 
 
+def conv_work(b: int, s: int, widths: tuple[int, ...], k: int, itemsize: int) -> tuple[int, int]:
+    """Bytes and float32 operations of causal convolutions of (b, s, c) inputs,
+    one for each width c: every input, weight, bias and output byte moved once;
+    k multiply-adds, the bias and silu's exponential, add and division for
+    each output element."""
+    nbytes = sum((2 * b * s * c + k * c + c) * itemsize for c in widths)
+    ops = sum((2 * k + 4) * b * s * c for c in widths)
+    return nbytes, ops
+
+
+def conv_phase(dev, seed: int) -> dict:
+    """The causal-convolution kernel at the score cell's shape: bit for bit
+    against the plain version, and its, the plain version's and F.conv1d's times."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.causal_conv import kernel as ck
+    from repro_torch.models import ssm
+
+    b, s, widths, k = CONV_FULL
+    gen = torch.Generator(dev).manual_seed(seed)
+    inputs = [tuple(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                    for shape in ((b, s, c), (k, c), (c,))) for c in widths]
+    errs = []
+    for args in inputs:
+        out, ref = ck.causal_conv1d_call(*args), ssm.causal_conv1d(*args)
+        errs.append(float((out.float() - ref.float()).abs().max()))
+        assert torch.equal(out, ref), f"conv kernel != plain at {tuple(out.shape)} (max {errs[-1]:.3g})"
+        del out, ref
+    # the library's yardstick: F.conv1d with its bias and padding on
+    # channel-first copies, no silu and no layout change
+    channel_first = [(x.transpose(1, 2).contiguous(), w.T[:, None, :].contiguous(), bias)
+                     for x, w, bias in inputs]
+
+    def kernel():
+        for args in inputs:
+            ck.causal_conv1d_call(*args)
+
+    def plain():
+        for args in inputs:
+            ssm.causal_conv1d(*args)
+
+    def library():
+        for xt, wt, bias in channel_first:
+            Fn.conv1d(xt, wt, bias, padding=k - 1, groups=xt.shape[1])
+
+    # the kernel, then the yardsticks, then the kernel again
+    t_kernel = [device_ms(kernel)]
+    plain_ms, library_ms = device_ms(plain, launches=5), device_ms(library)
+    t_kernel.append(device_ms(kernel))
+    ms = statistics.mean(t_kernel)
+    nbytes, ops = conv_work(b, s, widths, k, 2)
+    bound, by = max((nbytes / HBM_RATE, "bytes"), (ops / F32_PEAK, "operations"))
+    bound *= 1e3
+    say(f"[conv] causal_conv1d at the score cell's shape, one mixer's three launches (x ({b}, {s}, "
+        f"{widths[0]}), B and C ({b}, {s}, {widths[1]}), bf16, {k} taps): bit-equal to the plain "
+        f"version; kernel {ms:.4f} ms ({t_kernel[0]:.4f} and {t_kernel[1]:.4f} around the "
+        f"yardsticks; {100 * bound / ms:.2f} % of the bound), plain {plain_ms:.4f} ms, library "
+        f"F.conv1d {library_ms:.4f} ms; bound {bound:.4f} ms by {by}: {nbytes / 1e9:.3f} GB take "
+        f"{nbytes / HBM_RATE * 1e3:.4f} ms at {HBM_RATE / 1e12:.2f} TB/s, {ops / 1e9:.2f} GFLOP take "
+        f"{ops / F32_PEAK * 1e3:.4f} ms at {F32_PEAK / 1e12:.0f} TFLOP/s float32")
+    assert ms < plain_ms, (ms, plain_ms, "the conv kernel is slower than the plain version")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+            "bound_by": by, "max_abs_err": max(errs)}
+
+
+def bit_checked(call, plain, errs: list):
+    """``call`` (a kernel's launch), held against its plain version ``plain``
+    bit for bit on the same inputs at each launch; the largest difference
+    goes to ``errs``."""
+    def run(*args):
+        out = call(*args)
+        ref = plain(*args)
+        errs.append(float((out.float() - ref.float()).abs().max()))
+        assert torch.equal(out, ref), (tuple(out.shape), errs[-1])
+        return out
+    return run
+
+
 def checksums(state) -> dict[str, float]:
     """Per reference leaf name, the float64 sum of its values."""
     from repro_torch.tree import leaf_groups
@@ -1012,9 +1103,10 @@ def train_phase(dev, seed: int) -> dict:
     from repro_torch.core import CHECKPOINT_SCHEMA, make_fdb
     from repro_torch.core.daos import DaosEngine
     from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.causal_conv import ops as cops
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
-    from repro_torch.models import train_loss
+    from repro_torch.models import ssm, train_loss
     from repro_torch.training import Trainer
 
     cfg = dataclasses.replace(get_config("mamba2-370m"), attn_impl="naive", remat="full")
@@ -1087,12 +1179,14 @@ def train_phase(dev, seed: int) -> dict:
         train_loss(params, kernel_cfg, batch)  # warm-up
         torch.cuda.synchronize()
         sops.reset_kernel_launches()
+        cops.reset_kernel_launches()
         t0 = time.perf_counter()
         lk, _ = train_loss(params, kernel_cfg, batch)
         lk = float(lk)
         kernel_s = time.perf_counter() - t0
         launches = sops.KERNEL_LAUNCHES["ssd_scan"]
         by_instance = dict(sops.INSTANCE_LAUNCHES)
+        conv_launches = cops.KERNEL_LAUNCHES["causal_conv1d"]
         train_loss(params, cfg, batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1103,10 +1197,14 @@ def train_phase(dev, seed: int) -> dict:
         for what, scan in faulty_scans(sops.ssd_scan).items():
             with mock.patch.object(sops, "ssd_scan", scan):
                 faults[what] = float(train_loss(params, kernel_cfg, batch)[0])
-        # and every layer's kernel launch against the plain version on that layer's inputs
-        layer_err = []
+        # and every layer's kernel launches against the plain versions on that
+        # layer's inputs: the scan's within SSD_TOL, each of the three
+        # convolutions' bit for bit
+        layer_err, conv_err = [], []
         with mock.patch.object(sops, "ssd_scan_call",
-                               checked(sops.ssd_scan_call, ssd_scan_ref, SSD_TOL, layer_err)):
+                               checked(sops.ssd_scan_call, ssd_scan_ref, SSD_TOL, layer_err)), \
+                mock.patch.object(cops, "causal_conv1d_call",
+                                  bit_checked(cops.causal_conv1d_call, ssm.causal_conv1d, conv_err)):
             train_loss(params, kernel_cfg, batch)
         # the gate: each layer's launch against the plain version with split
         # operands at SPLIT_TOL, and both faulty scans on the same inputs
@@ -1123,6 +1221,9 @@ def train_phase(dev, seed: int) -> dict:
     say(f"[score] each of the {len(layer_err)} layers' launches against the plain version on its "
         f"own inputs: max |kernel - plain| {max(layer_err):.3g} (bf16 tolerance "
         f"{SSD_TOL[torch.bfloat16]})")
+    say(f"[score] causal_conv1d launches {conv_launches} = {cfg.n_layers} layers x 3 (x, B, C); "
+        f"each of the {len(conv_err)} against the plain version on its own inputs: bit-equal, "
+        f"max |kernel - plain| {max(conv_err):.3g}")
     ratio, layer, fault = gate.margin()
     scan_excess = [rec["scan"] for rec in gate.layers]
     say(f"[score] gate, each of the {len(gate.layers)} layers against the plain version with split "
@@ -1140,12 +1241,14 @@ def train_phase(dev, seed: int) -> dict:
     assert launches == cfg.n_layers, launches
     assert by_instance == {"split": launches, "fwd": 0}, by_instance
     assert len(layer_err) == cfg.n_layers, len(layer_err)
+    assert conv_launches == len(conv_err) == 3 * cfg.n_layers, (conv_launches, len(conv_err))
     assert len(gate.layers) == cfg.n_layers and lg == lk, (len(gate.layers), lg, lk)
     gate.check()  # the check on the kernel's output: each layer at SPLIT_TOL
     assert all(abs(v - ln) > SCORE_TOL for v in faults.values()), faults
     restore_s = [rec["restore_s"] for rec in trainer.ckpt.timings if rec["op"] == "restore"]
     return {"launches": launches, "step_s": step_med, "losses": losses, "peak": peak,
-            "layer_err": max(layer_err), "gate_margin": ratio, "cfg": cfg, "fdb": fdb, "run": "mamba2-370m",
+            "layer_err": max(layer_err), "conv_launches": conv_launches,
+            "conv_err": max(conv_err), "gate_margin": ratio, "cfg": cfg, "fdb": fdb, "run": "mamba2-370m",
             "saved": saved[TRAIN_STEPS], "batch": batch, "kernel_loss": lk,
             "restore_s": restore_s[0]}
 
@@ -1628,8 +1731,9 @@ def distributed_phase(dev, train: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.distributed import (AbstractMesh, PartitionSpec, logical_to_spec, make_rules,
                                          named_shardings, zero_shard_tree)
+    from repro_torch.kernels.causal_conv import ops as cops
     from repro_torch.kernels.ssd_scan import ops as sops
-    from repro_torch.models import abstract_params, logical_axes, train_loss
+    from repro_torch.models import abstract_params, logical_axes, ssm, train_loss
     from repro_torch.training.optimizer import OptState
     from repro_torch.tree import leaf_groups, tree_map
 
@@ -1669,17 +1773,24 @@ def distributed_phase(dev, train: dict) -> dict:
         params.copy_from(tree_map(lambda t: t.to_local(), state["params"]))
         del state, leaves
         kernel_cfg = dataclasses.replace(cfg, attn_impl="pallas")
-        with torch.no_grad():
+        conv_err = []
+        with torch.no_grad(), mock.patch.object(
+                cops, "causal_conv1d_call",
+                bit_checked(cops.causal_conv1d_call, ssm.causal_conv1d, conv_err)):
             sops.reset_kernel_launches()
+            cops.reset_kernel_launches()
             loss = float(train_loss(params, kernel_cfg, train["batch"])[0])
             launches = sops.KERNEL_LAUNCHES["ssd_scan"]
             by_instance = dict(sops.INSTANCE_LAUNCHES)
+            conv_launches = cops.KERNEL_LAUNCHES["causal_conv1d"]
         say(f"[dist] held-out batch scored from the restored parameters (to_local): loss {loss:.6f}, "
             f"phase 6's through the kernel {train['kernel_loss']:.6f}, |diff| "
             f"{abs(loss - train['kernel_loss']):.3g} (tolerance {RESTORED_SCORE_TOL}); ssd_scan "
-            f"launches {launches}, by instance {by_instance}")
+            f"launches {launches}, by instance {by_instance}; causal_conv1d launches "
+            f"{conv_launches}, each bit-equal to the plain version on its inputs")
         assert by_instance == {"split": cfg.n_layers, "fwd": 0}, by_instance
         assert launches == cfg.n_layers, launches
+        assert conv_launches == len(conv_err) == 3 * cfg.n_layers, (conv_launches, len(conv_err))
         assert abs(loss - train["kernel_loss"]) <= RESTORED_SCORE_TOL, (loss, train["kernel_loss"])
         del params
         torch.cuda.empty_cache()
@@ -1722,8 +1833,8 @@ def distributed_phase(dev, train: dict) -> dict:
     assert harness["grib_pack"]["max_abs_err"] == 0.0, harness
     seconds = time.perf_counter() - t0
     say(f"[dist] phase 9 in {seconds:.2f} s (restore {restore_s:.2f} s, run_torch.py {harness_s:.2f} s)")
-    return {"launches": launches, "restore_s": restore_s, "loss": loss, "harness": harness,
-            "seconds": seconds}
+    return {"launches": launches, "conv_launches": conv_launches, "conv_err": max(conv_err),
+            "restore_s": restore_s, "loss": loss, "harness": harness, "seconds": seconds}
 
 
 def dry_cell(cell: tuple, out_dir: str) -> dict:
@@ -2039,6 +2150,7 @@ def main() -> int:
         return 2
     from repro_torch.core import Key
     from repro_torch.kernels import _build
+    from repro_torch.kernels.causal_conv import kernel as ck
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.grib_pack import kernel as gk
     from repro_torch.kernels.grib_pack import ops as gops
@@ -2062,7 +2174,7 @@ def main() -> int:
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}"
         f" devices {torch.cuda.device_count()} memory rate used for bounds {HBM_RATE / 1e12:.2f} TB/s")
     t0 = time.perf_counter()
-    libraries = [gk.LIBRARY, fk.LIBRARY, sk.LIBRARY]
+    libraries = [gk.LIBRARY, fk.LIBRARY, sk.LIBRARY, ck.LIBRARY]
     libs = _build.build_all(libraries)  # one nvcc per source, all at once
     say(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libraries:  # ptxas's warnings and performance notes, not its -v lines
@@ -2190,6 +2302,8 @@ def main() -> int:
     torch.cuda.empty_cache()  # the serving phase's weights are gone
 
     # ----------------------------------------------------------------- 6. ssm
+    conv = conv_phase(dev, args.seed)
+    torch.cuda.empty_cache()
     ssd = ssd_phase(dev, args.seed)
     torch.cuda.empty_cache()
     train = train_phase(dev, args.seed)
@@ -2279,6 +2393,20 @@ def main() -> int:
                            dist9["harness"]["ssd_scan"]["max_abs_err"]),
         **{k: ssd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "instance",
                                "launch_ms", "launch_bound_ms", "chunked_ms")},
+    })
+    # every path that runs the causal convolution: the same two scoring passes
+    conv_paths = {"score (phase 6)": train["conv_launches"],
+                  "score restored (phase 9)": dist9["conv_launches"]}
+    assert all(conv_paths.values()), conv_paths
+    kernels.append({
+        "name": "causal_conv1d",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/causal_conv/csrc/causal_conv.cu",
+        "replaces": None,  # the reference convolves with jax.lax.conv_general_dilated
+        "launches": sum(conv_paths.values()),
+        "launches_by_path": conv_paths,
+        "max_abs_err": max(conv["max_abs_err"], train["conv_err"], dist9["conv_err"]),
+        **{k: conv[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })
     say(json.dumps({"kernels": kernels}))
     say(smi)

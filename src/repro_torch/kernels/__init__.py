@@ -5,6 +5,9 @@
   prefill attention of the serving path
 - ssd_scan: the Mamba2 SSD chunked scan with a carried state, the scoring
   path of the ssm family
+- causal_conv: the Mamba2 mixer's causal depthwise convolution with its bias
+  and silu on the channel-last layout, the scoring path's ``ssm.conv`` stage
+  (it replaces no TPU kernel)
 
 Each package mirrors the reference's three files: ``kernel.py`` builds and
 binds the CUDA source under ``csrc/``, ``ops.py`` is the public wrapper that

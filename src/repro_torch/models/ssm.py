@@ -6,7 +6,8 @@ PyTorch (intra-chunk quadratic term plus an inter-chunk recurrence over
 chunk states); ``mamba_mixer`` wraps projections, causal convolutions,
 gating and the output norm, and, as in the reference, ``attn_impl ==
 "pallas"`` selects the hand-written SSD-scan kernel instead of
-``ssd_chunked``; its parts run as named stages
+``ssd_chunked`` (and, unlike the reference, the hand-written channel-last
+causal convolution instead of ``causal_conv1d``); its parts run as named stages
 (:func:`repro_torch.obs.stages.stage`) that a profiler's trace shows.
 Serving takes :func:`mamba_prefill`, the mixer that also returns the state a
 decode continues from (through ``ssd_chunked``, since the kernel returns no
@@ -96,6 +97,10 @@ _SSD_ROLES = ({"batch": 0, "heads": 2}, {"batch": 0, "heads": 2}, {"heads": 0}, 
               {"batch": 0}, {"heads": 0})
 
 
+#: the convolution's independent axes: batch rows and channels of x, w and bias
+CONV_ROLES = ({"batch": 0, "chan": 2}, {"chan": 1}, {"chan": 0})
+
+
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv. x: (B,S,C), w: (K,C) -> (B,S,C), silu applied.
 
@@ -103,8 +108,7 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch
     ``w.T[:, None, :]``; like JAX's convolution it is a cross-correlation, so
     neither flips the kernel."""
     if isinstance(x, DTensor):  # independent per batch row and channel: each rank its shards
-        return map_shards(causal_conv1d, (x, w, bias), ({"batch": 0, "chan": 2}, {"chan": 1},
-                                                         {"chan": 0}), {"batch": 0, "chan": 2})
+        return map_shards(causal_conv1d, (x, w, bias), CONV_ROLES, CONV_ROLES[0])
     k, c = w.shape
     xp = F.pad(x.transpose(1, 2), (k - 1, 0))  # (B,C,S+K-1)
     out = F.conv1d(xp, w.T[:, None, :].to(x.dtype), groups=c).transpose(1, 2)
@@ -127,16 +131,17 @@ def mamba_mixer(x: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
     di, hds, p = cfg.d_inner, cfg.ssm_heads, cfg.ssm.head_dim
     with stage("ssm.in_proj"):
         z, xin, B_, C_, dt = _project(x, params)
-    with stage("ssm.conv"):
-        xin = causal_conv1d(xin, params["conv_x"], params["conv_x_b"])
-        B_ = causal_conv1d(B_, params["conv_B"], params["conv_B_b"])
-        C_ = causal_conv1d(C_, params["conv_C"], params["conv_C_b"])
     if cfg.attn_impl == "pallas":
+        from ..kernels.causal_conv import ops as conv_ops
         from ..kernels.ssd_scan import ops as ssd_ops
 
-        scan = ssd_ops.ssd_scan
+        conv, scan = conv_ops.causal_conv1d, ssd_ops.ssd_scan
     else:
-        scan = ssd_chunked
+        conv, scan = causal_conv1d, ssd_chunked
+    with stage("ssm.conv"):
+        xin = conv(xin, params["conv_x"], params["conv_x_b"])
+        B_ = conv(B_, params["conv_B"], params["conv_B_b"])
+        C_ = conv(C_, params["conv_C"], params["conv_C_b"])
     with stage("ssm.scan"):
         xh = xin.reshape(b, s, hds, p)
         xh = constrain(xh, "batch", "seq", "ssm_heads", None)

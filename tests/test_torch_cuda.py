@@ -21,8 +21,10 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import codec  # noqa: E402
 from repro_torch.device import default_device, set_default_device  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import causal_conv as cc  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grib_pack as gp  # noqa: E402
+from repro_torch.kernels.causal_conv import kernel as ck  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.grib_pack import kernel as gk  # noqa: E402
@@ -32,6 +34,7 @@ from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as sr  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import decode_step, init_cache, init_params, prefill, train_loss  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 
 NBITS_ALL = (1, 8, 16, 24, 31)
@@ -635,3 +638,90 @@ def test_ssm_scoring_on_the_card_launches_the_kernel_per_layer_and_matches_the_c
             losses[dev] = float(train_loss(params.to(dev), cfg, batch)[0])
         assert ss.KERNEL_LAUNCHES["ssd_scan"] == (cfg.n_layers if dev == "cuda" else 0)
     assert losses["cuda"] == pytest.approx(losses["cpu"], abs=1e-4)
+
+
+# The mixer's causal convolution (attn_impl="pallas"): the kernel against the
+# plain version on the card, bit for bit, at mamba2-370m's scoring widths (x
+# 2048 channels, B and C 128), zamba2-7b's (7168 and 64), at sequences
+# shorter than the window, of one row past a tile, and of the cell's 2048.
+CONV_WIDTHS = (2048, 128, 7168, 64)
+CONV_LENGTHS = (1, 2, 3, 4, 257, 2048)
+
+
+def conv_inputs(cuda, seed: int, b: int, s: int, c: int, k: int, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x, w, bias = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+                  for shape in ((b, s, c), (k, c), (c,)))
+    return x, w, bias
+
+
+def assert_bit_equal(out: torch.Tensor, ref: torch.Tensor) -> None:
+    assert out.dtype == ref.dtype and out.shape == ref.shape and out.is_contiguous()
+    assert torch.equal(out, ref), (
+        f"{int((out != ref).sum())} of {out.numel()} elements differ, max |kernel - plain| "
+        f"{float((out.float() - ref.float()).abs().max()):.3g}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", CONV_WIDTHS)
+@pytest.mark.parametrize("s", CONV_LENGTHS)
+def test_conv_kernel_equals_plain_version(cuda, dtype, c, s):
+    x, w, bias = conv_inputs(cuda, c + s, 3, s, c, 4, dtype)
+    out = ck.causal_conv1d_call(x, w, bias)
+    ref = tssm.causal_conv1d(x, w, bias)
+    torch.cuda.synchronize()
+    assert_bit_equal(out, ref)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5])
+def test_conv_kernel_refuses_other_tap_counts(cuda, k):
+    """Only K = 4 (every config's d_conv) is built; on the CPU any K is the plain version's."""
+    x, w, bias = conv_inputs(cuda, k, 2, 16, 16, k, torch.bfloat16)
+    with pytest.raises(ValueError, match="K = 4"):
+        ck.causal_conv1d_call(x, w, bias)
+    cpu = (x.cpu(), w.cpu(), bias.cpu())
+    assert torch.equal(cc.causal_conv1d(*cpu), tssm.causal_conv1d(*cpu))
+
+
+def test_conv_kernel_takes_any_multiple_of_its_four_channels(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in (4, 12, 20):
+            x, w, bias = conv_inputs(cuda, c, 2, 67, c, 4, dtype)
+            assert_bit_equal(ck.causal_conv1d_call(x, w, bias), tssm.causal_conv1d(x, w, bias))
+
+
+def test_conv_wrapper_counts_launches_and_refuses_what_the_kernel_does_not_take(cuda):
+    x, w, bias = conv_inputs(cuda, 0, 2, 16, 16, 4, torch.bfloat16)
+    cc.reset_kernel_launches()
+    out = cc.causal_conv1d(x, w.float(), bias.float())  # weights cast to x's type, as plain
+    assert cc.KERNEL_LAUNCHES == {"causal_conv1d": 1}
+    assert_bit_equal(out, tssm.causal_conv1d(x, w.float(), bias.float()))
+    x10, w10, b10 = conv_inputs(cuda, 1, 2, 16, 10, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        cc.causal_conv1d(x10, w10, b10)
+    x5, w5, b5 = conv_inputs(cuda, 2, 2, 16, 16, 5, torch.bfloat16)
+    with pytest.raises(ValueError, match="K = 4"):
+        cc.causal_conv1d(x5, w5, b5)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cc.causal_conv1d(x.half(), w.half(), bias.half())
+    assert cc.KERNEL_LAUNCHES == {"causal_conv1d": 1}
+    cpu = cc.causal_conv1d(x.cpu(), w.cpu(), bias.cpu())
+    assert cc.KERNEL_LAUNCHES == {"causal_conv1d": 1}
+    assert cpu.shape == out.shape
+    with pytest.raises(NotImplementedError, match="no VJP"):
+        cc.causal_conv1d(x.float().requires_grad_(True), w.float(), bias.float()).sum().backward()
+
+
+def test_scoring_mamba2_370m_launches_the_conv_kernel_three_times_a_layer(cuda):
+    """A scored batch of mamba2-370m at full width: 3 x 48 = 144 launches
+    under "pallas", none under "naive", which keeps the plain convolution."""
+    cfg = get_config("mamba2-370m")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab, (2, 257)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    for impl, launches in (("pallas", 144), ("naive", 0)):
+        cc.reset_kernel_launches()
+        with torch.no_grad():
+            loss = float(train_loss(params, dataclasses.replace(cfg, attn_impl=impl), batch)[0])
+        assert np.isfinite(loss)
+        assert cc.KERNEL_LAUNCHES == {"causal_conv1d": launches} and 3 * cfg.n_layers == 144

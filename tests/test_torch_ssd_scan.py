@@ -6,7 +6,9 @@ interpret mode, its O(S) recurrence and its ``ssd_chunked``, at the shapes
 and tolerances of ``tests/test_kernels.py:74-112``; so are the plain versions
 of the split instance's two launches, composed.  The port's own
 ``ssd_chunked`` and ``causal_conv1d`` are held against the reference's at
-1e-5 in float32, and ``mamba_mixer`` at 1e-4.  Inputs come from a numpy seed.
+1e-5 in float32, and ``mamba_mixer`` at 1e-4 (its gradient under "naive"
+too); the convolution kernel's wrapper is the plain ``causal_conv1d`` on the
+CPU, bit for bit.  Inputs come from a numpy seed.
 """
 
 import dataclasses
@@ -31,6 +33,7 @@ from repro.models import ssm as jssm  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.device import default_device, set_default_device  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import causal_conv as cc  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref  # noqa: E402
@@ -461,6 +464,23 @@ def test_library_is_keyed_by_its_extra_flags(tmp_path):
     assert sk.LIBRARY.flags == verbose.flags
 
 
+def test_chip_smoke_counts_the_convolutions_bytes_and_operations():
+    """One mixer's three convolutions at the score cell's shape move 4.832 GB
+    (every input, weight, bias and output byte once), so the byte bound holds."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    b, s, widths, k = chip_smoke.CONV_FULL
+    cfg = get_config("mamba2-370m")
+    assert (b, s, widths, k) == (256, 2048, (cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_state),
+                                 cfg.ssm.d_conv)
+    nbytes, ops = chip_smoke.conv_work(b, s, widths, k, 2)
+    assert nbytes == 4_831_861_248
+    assert ops == 12 * 256 * 2048 * (2048 + 2 * 128)
+    assert nbytes / chip_smoke.HBM_RATE > ops / chip_smoke.F32_PEAK
+
+
 def test_chip_smoke_counts_each_split_launchs_work():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -551,6 +571,56 @@ def test_causal_conv1d_matches_reference():
     x2[:, 7:] = 0
     got2 = tssm.causal_conv1d(torch.from_numpy(x2), torch.from_numpy(w), torch.from_numpy(bias))
     np.testing.assert_array_equal(got2[:, :7].numpy(), got[:, :7].numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,c,k", [(2, 11, 16, 4), (1, 1, 8, 4), (3, 2, 24, 4), (2, 3, 8, 3),
+                                     (2, 40, 64, 2)])
+def test_conv_kernel_wrapper_is_the_plain_version_on_the_cpu(dtype, b, s, c, k):
+    """A CPU tensor goes to ssm.causal_conv1d itself, sequences shorter than
+    the window included: the same bits, and no launch counted."""
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal((b, s, c), dtype=np.float32)).to(getattr(torch, dtype))
+    w = torch.from_numpy(rng.standard_normal((k, c), dtype=np.float32))  # cast to x's type by both
+    bias = torch.from_numpy(rng.standard_normal(c, dtype=np.float32))
+    cc.reset_kernel_launches()
+    got = cc.causal_conv1d(x, w, bias)
+    assert cc.KERNEL_LAUNCHES == {"causal_conv1d": 0}
+    assert got.dtype == x.dtype and got.shape == (b, s, c)
+    assert torch.equal(got, tssm.causal_conv1d(x, w, bias))
+
+
+def test_conv_kernel_has_no_backward_on_the_cpu():
+    """As K4's wrapper, the convolution's wrapper refuses a gradient (here
+    through its plain version); a forward under grad mode works."""
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy(rng.standard_normal((2, 9, 16), dtype=np.float32)).requires_grad_(True)
+    w, bias = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)) for shape in ((4, 16), 16))
+    y = cc.causal_conv1d(x, w, bias)
+    assert y.requires_grad and torch.equal(y, tssm.causal_conv1d(x, w, bias))
+    with pytest.raises(NotImplementedError, match="no VJP"):
+        y.sum().backward()
+
+
+def test_mamba_mixer_trains_through_the_plain_conv():
+    """Under "naive" the mixer keeps the plain convolution, so the gradient
+    of its output reaches the convolutions' weights and biases, and equals
+    the reference's."""
+    cfg = dataclasses.replace(reduced(get_config("mamba2-370m")), attn_impl="naive")
+    jcfg = dataclasses.replace(jreduced(jget_config("mamba2-370m")), attn_impl="naive")
+    jp = jinit_params(jcfg, jax.random.PRNGKey(16))
+    tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp))
+    x = np.random.default_rng(16).standard_normal((2, 64, cfg.d_model), dtype=np.float32)
+    jbp = jax.tree.map(lambda a: a[0], jp["blocks"])
+    want = jax.grad(lambda p: jssm.mamba_mixer(jnp.asarray(x), p, jcfg).sum())(jbp)
+    names = ("conv_x", "conv_x_b", "conv_B", "conv_B_b", "conv_C", "conv_C_b")
+    params = {k: v.detach().clone().requires_grad_(k in names) for k, v in tp["blocks"][0].tree().items()}
+    cc.reset_kernel_launches()
+    tssm.mamba_mixer(torch.from_numpy(x), params, cfg).sum().backward()
+    assert cc.KERNEL_LAUNCHES == {"causal_conv1d": 0}
+    for name in names:
+        assert params[name].grad.abs().max() > 1.0
+        np.testing.assert_allclose(params[name].grad.numpy(), np.asarray(want[name]), **MIXER)
 
 
 @pytest.mark.parametrize("impl", ["naive", "pallas"])
