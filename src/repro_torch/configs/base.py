@@ -3,6 +3,14 @@
 One :class:`ModelConfig` per assigned architecture lives in
 ``repro/configs/<arch>.py``; shapes are :class:`ShapeConfig`; together with
 :class:`MeshConfig` and :class:`TrainConfig` they fully determine a run.
+
+The port's copy adds the options of the published Zamba2 hybrid
+(``zamba2-7b-instruct``): grouped B and C in the Mamba2 mixer
+(``SSMConfig.ngroups``), the published site list (``hybrid_sites``), several
+shared blocks used in turn (``n_shared_blocks``), per-site LoRA adapters on
+the shared MLP (``adapter_rank``), its gated-GELU activation (``ffn_act``)
+and its attention's softmax scale (``attn_scale``).  Their defaults leave
+every config of the reference as it is.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ class SSMConfig:
     d_conv: int = 4
     expand: int = 2
     chunk: int = 256            # SSD chunk length
+    ngroups: int = 1            # groups of heads that share one B and one C
 
     @property
     def enabled(self) -> bool:
@@ -78,6 +87,15 @@ class ModelConfig:
     ssm: SSMConfig = field(default_factory=SSMConfig)
     # hybrid (zamba2-style): shared attention block applied every k layers
     hybrid_attn_every: int = 0
+    # hybrid as Zamba2 publishes it: at each layer of ``hybrid_sites`` the
+    # shared block (block s % n_shared_blocks at site s) runs before the
+    # mixer and its output, through the site's own linear, is added to the
+    # mixer's input only; the block's MLP has a LoRA adapter per site
+    hybrid_sites: tuple[int, ...] = ()
+    n_shared_blocks: int = 1
+    adapter_rank: int = 0
+    ffn_act: str = "silu"           # gate activation: 'silu' (SwiGLU) | 'gelu' (exact erf)
+    attn_scale: float = 0.0         # softmax scale; 0 -> 1/sqrt(head_dim)
     # encoder-decoder (whisper-style)
     encoder_layers: int = 0
     is_encoder_decoder: bool = False
@@ -96,6 +114,15 @@ class ModelConfig:
     moe_force_ep: bool = False      # expert parallelism even when E % model != 0
     softmax_dtype: str = "float32"  # attention score/softmax accumulation dtype
     ce_dtype: str = "float32"       # CE logits materialisation dtype
+
+    def __post_init__(self):
+        # a JSON list or any sequence: kept as a tuple, so the config stays hashable
+        object.__setattr__(self, "hybrid_sites", tuple(self.hybrid_sites))
+
+    @property
+    def published_hybrid(self) -> bool:
+        """Whether the shared blocks run at ``hybrid_sites``, as Zamba2 publishes."""
+        return bool(self.hybrid_sites)
 
     @property
     def resolved_head_dim(self) -> int:
@@ -135,7 +162,7 @@ class ModelConfig:
             m = self.moe
             return D * m.n_experts + m.n_experts * 3 * D * m.d_expert
         def ssm_params() -> int:
-            di, st, hds = self.d_inner, self.ssm.d_state, self.ssm_heads
+            di, st, hds = self.d_inner, self.ssm.ngroups * self.ssm.d_state, self.ssm_heads
             return (
                 D * (2 * di + 2 * st + hds)   # in_proj -> z, x, B, C, dt
                 + self.ssm.d_conv * (di + 2 * st)  # conv over x,B,C
@@ -155,6 +182,10 @@ class ModelConfig:
         if self.family == "hybrid" and self.hybrid_attn_every:
             # one shared attention+ffn block (input = concat(h, x0) -> 2D wide)
             n += attn_params(2 * D) + 3 * D * self.d_ff + 2 * 2 * D
+        if self.family == "hybrid" and self.published_hybrid:
+            # the shared blocks, and per site the adapter (D -> r -> 2F) and the linear
+            n += self.n_shared_blocks * (attn_params(2 * D) + 3 * D * F + 2 * D + D)
+            n += len(self.hybrid_sites) * (self.adapter_rank * (D + 2 * F) + D * D)
         if self.is_encoder_decoder:
             # encoder layers + decoder cross-attention
             n += self.encoder_layers * (attn_params(D) + dense_ffn() + 2 * D)
@@ -252,6 +283,12 @@ def reduced(cfg: ModelConfig, **over) -> ModelConfig:
     if cfg.hybrid_attn_every:
         kw["hybrid_attn_every"] = 2
         kw["n_heads"], kw["n_kv_heads"], kw["head_dim"] = 4, 4, 32  # 2*d_model/4
+    if cfg.published_hybrid:
+        # five layers, sites 1, 3 and 4 (blocks A, B, A), two groups, rank-8 adapters;
+        # heads of 32 as above, the softmax scale (head_dim / 2)^-0.5 as published
+        kw.update(n_layers=5, hybrid_sites=(1, 3, 4), adapter_rank=8, n_heads=4, n_kv_heads=4,
+                  head_dim=32, attn_scale=16 ** -0.5)
+        kw["ssm"] = replace(kw["ssm"], ngroups=2)
     if cfg.is_encoder_decoder:
         kw["encoder_layers"] = 2
     kw.update(over)

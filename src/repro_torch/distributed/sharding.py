@@ -276,7 +276,8 @@ def make_rules(cfg, mesh, *, model_axis: str = "model", batch_axes: tuple[str, .
     - heads/d_ff/vocab shard over `model` when divisible, else replicate;
     - kv heads usually < model size -> replicated (GQA groups local);
     - experts shard over `model` when divisible (EP), else expert-FFN width;
-    - batch over (pod, data).
+    - batch over (pod, data);
+    - a LoRA adapter's rank (the published Zamba2's) replicated.
 
     Only the mesh's axis names and sizes are read (:func:`mesh_sizes`).
     """
@@ -316,4 +317,6 @@ def make_rules(cfg, mesh, *, model_axis: str = "model", batch_axes: tuple[str, .
     else:
         rules["experts"] = None
         rules["d_expert"] = None
+    if cfg.adapter_rank:  # the published Zamba2's LoRA adapters: rank 128, replicated
+        rules["lora_rank"] = None
     return AxisRules(rules=rules, mesh=mesh)

@@ -10,8 +10,8 @@
 // Layout: q (BH, Sq, D), k and v (BH / groups, Sk, D), o (BH, Sq, D), all
 // contiguous.  The wrapper picks the instance from (dtype, D) alone.
 //
-// 1. flash_attention_wgmma: bf16 at D in {64, 96, 112, 128}, the head dims of
-//    the repo's models.  What bounds it: at the prefill shapes the work is 4*D
+// 1. flash_attention_wgmma: bf16 at D in {64, 96, 112, 128, 224}, the head
+//    dims of the repo's models (224: the published Zamba2's shared attention).  What bounds it: at the prefill shapes the work is 4*D
 //    operations per (query, key) pair against 2*D elements moved per row,
 //    so the tensor cores' bf16 rate (989 TFLOP/s), not the memory, is the
 //    limit; the softmax's exponentials on the CUDA cores take about half as
@@ -22,10 +22,11 @@
 //      issues TMA loads.  Warpgroups 1 and 2 each own 64 query rows;
 //    - TMA through 3-D tensor maps over (D, S, heads) with the 128-byte
 //      swizzle: Q once, then K and V through a ring of three 128-key
-//      stages, each with a full barrier for K, one for V and an empty
-//      barrier.  A row past seq_k (or a column past D = 96 or 112) is out of
-//      the map's bounds and lands as zeros, so a padded key adds 0 * V and
-//      never a NaN;
+//      stages, each with a full and an empty barrier for K and for V: a K
+//      stage goes back to the producer once Q.K^T has read it, a V stage
+//      once P.V has.  A row past seq_k (or a column past D = 96, 112 or
+//      224) is out of the map's bounds and lands as zeros, so a padded key
+//      adds 0 * V and never a NaN;
 //    - S = Q.K^T on wgmma m64n128k16 from shared memory (K is (keys, D),
 //      K-major), online softmax in registers on the accumulator's layout
 //      (a row's max and sum take two shuffles within a quad; exp2 with
@@ -40,6 +41,15 @@
 //      (V is (keys, D), MN-major).  D = 96 runs as 128 with zero columns;
 //      D = 112 runs P.V as m64n112k16, which reads V's first 64-column
 //      block and 48 columns of its second, and Q.K^T in 7 k-steps;
+//    - D = 224 has tiles of its own (Dims<224>): at the tiles above, 128
+//      keys of 256 columns, Q and three K/V stages would need 448 KB of
+//      shared memory.  It takes 64-key stages, two deep: Q 64 KB + 2 x (K
+//      32 KB + V 32 KB) = 192 KB.  S = Q.K^T runs on m64n64k16 in 14
+//      k-steps, P.V on m64n224k16 (V's first three 64-column blocks and 32
+//      columns of its fourth) in 4; the O accumulator is 112 registers a
+//      consumer thread, S 32 and P 16, the 160 of D = 128.  With two stages,
+//      the split empty barriers keep the next block's K and V loading under
+//      the current block's products;
 //    - overlap: a warpgroup issues Q.K^T of block kb + 1 together with P.V
 //      of block kb and waits only for Q.K^T before its softmax, so P.V runs
 //      under the exponentials; and the two consumer warpgroups take turns
@@ -48,7 +58,8 @@
 //    - the output, divided by max(l, 1e-37) and rounded to bf16, goes
 //      through the warpgroup's own rows of the Q tile to 16-byte stores.
 //    At D = 96, 112 and 128 it holds 224 KB of shared memory: Q 32 KB +
-//    3 x (K 32 KB + V 32 KB).
+//    3 x (K 32 KB + V 32 KB); at 224, 192 KB.  The softmax scale is the
+//    caller's (1/sqrt(D) unless it gives another), folded with log2(e).
 //
 // 2. flash_attention_fwd: float32 at every head dim, and bf16 at D in
 //    {16, 32}.  The tensor cores would take float32 only as TF32, which
@@ -313,39 +324,48 @@ namespace wg {
 using namespace hopper;
 
 constexpr int BQ = 128;                     // query rows per block
-constexpr int BKV = 128;                    // keys per stage
-constexpr int STAGES = 3;                   // K/V ring depth
 constexpr int THREADS = 384;                // producer + two consumer warpgroups
 constexpr int ROW_BYTES = 128;              // one 64-column block row, bf16
-constexpr int BLOCK_BYTES = 128 * ROW_BYTES;  // one 64-column block of a 128-row tile
+constexpr int BLOCK_BYTES = BQ * ROW_BYTES;  // one 64-column block of the Q tile
+constexpr int MAX_STAGES = 3;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// DP: the head dim as the shared-memory tiles hold it (96 and 112 are held as 128)
+// DP: the head dim as the shared-memory tiles hold it (96 and 112 are held as
+// 128, 224 as 256); BKV keys a K/V stage, STAGES stages
 template <int D> struct Dims {
-    static constexpr int DP = D <= 64 ? 64 : 128;
+    static constexpr int DP = D <= 64 ? 64 : D <= 128 ? 128 : 256;
     static constexpr int NB = DP / 64;                  // 64-column blocks per tile
-    static constexpr int TILE_BYTES = NB * BLOCK_BYTES;  // one 128-row tile
+    static constexpr int BKV = D <= 128 ? 128 : 64;
+    static constexpr int STAGES = D <= 128 ? 3 : 2;
+    static constexpr int Q_TILE = NB * BLOCK_BYTES;
+    static constexpr int KV_BLOCK = BKV * ROW_BYTES;    // one 64-column block of a K/V stage
+    static constexpr int KV_TILE = NB * KV_BLOCK;
     static constexpr int KSTEPS = D / 16;                // k-steps of S = Q.K^T
-    // N of P.V, the output columns a warpgroup accumulates: 112 reads V's
-    // 112 columns (m64n112k16), 96 takes the zero columns of the 128-wide tile
-    static constexpr int PV_N = D == 112 ? 112 : DP;
+    static constexpr int PV_STEPS = BKV / 16;            // k-steps of P.V
+    // N of P.V, the output columns a warpgroup accumulates: 112 and 224 read
+    // V's own columns (m64n112k16, m64n224k16), 96 takes the zero columns of
+    // the 128-wide tile
+    static constexpr int PV_N = D == 112 || D == 224 ? D : DP;
+    static_assert(STAGES <= MAX_STAGES, "the barriers hold MAX_STAGES stages");
 };
 
 struct Barriers {
     uint64_t q_full;
-    uint64_t k_full[STAGES];
-    uint64_t v_full[STAGES];
-    uint64_t empty[STAGES];
+    uint64_t k_full[MAX_STAGES];
+    uint64_t v_full[MAX_STAGES];
+    uint64_t k_empty[MAX_STAGES];
+    uint64_t v_empty[MAX_STAGES];
 };
 
 template <int D>
 constexpr size_t smem_bytes() {
     // Q + STAGES x (K + V), the barriers, and room to align the tiles to 1024 bytes
-    return (size_t)(1 + 2 * STAGES) * Dims<D>::TILE_BYTES + sizeof(Barriers) + 1024;
+    using Dm = Dims<D>;
+    return (size_t)Dm::Q_TILE + 2 * Dm::STAGES * Dm::KV_TILE + sizeof(Barriers) + 1024;
 }
 
-// Byte offset of bf16 element (row, col) in a tile laid out as hopper.cuh says.
+// Byte offset of bf16 element (row, col) in a Q tile laid out as hopper.cuh says.
 __device__ __forceinline__ uint32_t swizzled(int row, int col) {
     return (col >> 6) * BLOCK_BYTES + row * ROW_BYTES +
            ((((col & 63) >> 3) ^ (row & 7)) << 4) + ((col & 7) << 1);
@@ -363,6 +383,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// S = Q.K^T at the stage's width: 128 keys (m64n128k16) or 64 (m64n64k16)
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    wgmma_ss_m64n128k16(d, a, b, scale_d);
+}
+
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    wgmma_ss_m64n64k16<0>(d, a, b, scale_d);
+}
+
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -370,15 +399,16 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
                       int sq, int sk, int groups, int causal, int q_offset, float scale_log2) {
     using Dm = Dims<D>;
-    constexpr int NB = Dm::NB, TILE = Dm::TILE_BYTES, PV_N = Dm::PV_N;
+    constexpr int NB = Dm::NB, BKV = Dm::BKV, STAGES = Dm::STAGES, PV_N = Dm::PV_N;
+    constexpr int KV_TILE = Dm::KV_TILE, PV_STEPS = Dm::PV_STEPS;
     extern __shared__ uint8_t smem_raw[];
     // tiles on a 1024-byte boundary, as the 128-byte swizzle's atoms need
     const uint32_t pad = (1024 - (smem_addr(smem_raw) & 1023)) & 1023;
     uint8_t* sm = smem_raw + pad;
     uint8_t* sq_tile = sm;                               // Q, then this block's output
-    uint8_t* sk_tile = sm + TILE;                        // K stages
-    uint8_t* sv_tile = sm + (1 + STAGES) * TILE;         // V stages
-    Barriers& bar = *reinterpret_cast<Barriers*>(sm + (1 + 2 * STAGES) * TILE);
+    uint8_t* sk_tile = sm + Dm::Q_TILE;                  // K stages
+    uint8_t* sv_tile = sk_tile + STAGES * KV_TILE;       // V stages
+    Barriers& bar = *reinterpret_cast<Barriers*>(sv_tile + STAGES * KV_TILE);
 
     const int bh = blockIdx.x;
     const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
@@ -392,7 +422,8 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         for (int s = 0; s < STAGES; ++s) {
             mbar_init(&bar.k_full[s], 1);
             mbar_init(&bar.v_full[s], 1);
-            mbar_init(&bar.empty[s], 2 * 128);  // every consumer thread arrives
+            mbar_init(&bar.k_empty[s], 2 * 128);  // every consumer thread arrives
+            mbar_init(&bar.v_empty[s], 2 * 128);
         }
         mbar_fence_init();
     }
@@ -407,21 +438,23 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
             tma_prefetch(&tm_k);
             tma_prefetch(&tm_v);
             const int kvh = bh / groups;
-            mbar_arrive_expect_tx(&bar.q_full, TILE);
+            mbar_arrive_expect_tx(&bar.q_full, Dm::Q_TILE);
             for (int b = 0; b < NB; ++b) {
                 tma_load_3d(sq_tile + b * BLOCK_BYTES, &tm_q, &bar.q_full, 64 * b, q0, bh);
             }
             for (int kb = 0; kb < nk; ++kb) {
                 const int s = kb % STAGES;
-                mbar_wait(&bar.empty[s], ((kb / STAGES) & 1) ^ 1);  // the first round passes
-                mbar_arrive_expect_tx(&bar.k_full[s], TILE);
+                const uint32_t parity = ((kb / STAGES) & 1) ^ 1;  // the first round passes
+                mbar_wait(&bar.k_empty[s], parity);
+                mbar_arrive_expect_tx(&bar.k_full[s], KV_TILE);
                 for (int b = 0; b < NB; ++b) {
-                    tma_load_3d(sk_tile + s * TILE + b * BLOCK_BYTES, &tm_k, &bar.k_full[s],
+                    tma_load_3d(sk_tile + s * KV_TILE + b * Dm::KV_BLOCK, &tm_k, &bar.k_full[s],
                                 64 * b, kb * BKV, kvh);
                 }
-                mbar_arrive_expect_tx(&bar.v_full[s], TILE);
+                mbar_wait(&bar.v_empty[s], parity);
+                mbar_arrive_expect_tx(&bar.v_full[s], KV_TILE);
                 for (int b = 0; b < NB; ++b) {
-                    tma_load_3d(sv_tile + s * TILE + b * BLOCK_BYTES, &tm_v, &bar.v_full[s],
+                    tma_load_3d(sv_tile + s * KV_TILE + b * Dm::KV_BLOCK, &tm_v, &bar.v_full[s],
                                 64 * b, kb * BKV, kvh);
                 }
             }
@@ -436,11 +469,11 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         const int qpos0 = q0 + row0 + q_offset;
         const int col0 = 2 * (lane % 4);  // accumulator columns col0 + 8j + {0, 1}
 
-        float acc_s[64];        // S: 128 keys
-        float acc_o[PV_N / 2];  // O: PV_N columns
-        uint32_t p_regs[8][4];  // P as bf16, the A operand of each k-step of P.V
+        float acc_s[BKV / 2];          // S: BKV keys
+        float acc_o[PV_N / 2];         // O: PV_N columns
+        uint32_t p_regs[PV_STEPS][4];  // P as bf16, the A operand of each k-step of P.V
 #pragma unroll
-        for (int i = 0; i < 64; ++i) acc_s[i] = 0.f;
+        for (int i = 0; i < BKV / 2; ++i) acc_s[i] = 0.f;
 #pragma unroll
         for (int i = 0; i < PV_N / 2; ++i) acc_o[i] = 0.f;
         float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows row0, row0 + 8
@@ -451,40 +484,42 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         auto issue_qk = [&](int kb) {
             const int s = kb % STAGES;
             mbar_wait(&bar.k_full[s], (kb / STAGES) & 1);
-            const uint32_t k_base = smem_addr(sk_tile + s * TILE);
+            const uint32_t k_base = smem_addr(sk_tile + s * KV_TILE);
             fence_regs(acc_s);
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < Dm::KSTEPS; ++kk) {
-                const uint32_t off = (kk / 4) * BLOCK_BYTES + (kk % 4) * 32;
-                wgmma_ss_m64n128k16(acc_s, make_desc_sw128(q_base + off, 0, 1024),
-                                    make_desc_sw128(k_base + off, 0, 1024), kk > 0);
+                const uint32_t step = (kk % 4) * 32;
+                wgmma_qk(acc_s, make_desc_sw128(q_base + (kk / 4) * BLOCK_BYTES + step, 0, 1024),
+                         make_desc_sw128(k_base + (kk / 4) * Dm::KV_BLOCK + step, 0, 1024), kk > 0);
             }
             wgmma_commit();
         };
+        // after Q.K^T of key block kb has completed: its K stage goes back to the producer
+        auto qk_done = [&](int kb) { mbar_arrive(&bar.k_empty[kb % STAGES]); };
         // O += P . V for key block kb, from p_regs, issued and committed
         auto issue_pv = [&](int kb) {
             const int s = kb % STAGES;
             mbar_wait(&bar.v_full[s], (kb / STAGES) & 1);
-            const uint32_t v_base = smem_addr(sv_tile + s * TILE);
+            const uint32_t v_base = smem_addr(sv_tile + s * KV_TILE);
             fence_regs(acc_o);
             wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < 8; ++kk) {
+            for (int kk = 0; kk < PV_STEPS; ++kk) {
                 wgmma_rs(acc_o, p_regs[kk],
-                         make_desc_sw128(v_base + kk * 16 * ROW_BYTES, BLOCK_BYTES, 1024), 1);
+                         make_desc_sw128(v_base + kk * 16 * ROW_BYTES, Dm::KV_BLOCK, 1024), 1);
             }
             wgmma_commit();
         };
-        // after P.V of key block kb has completed: its stage goes back to the producer
+        // after P.V of key block kb has completed: its V stage goes back to the producer
         auto pv_done = [&](int kb) {
             fence_regs(acc_o);
 #pragma unroll
-            for (int kk = 0; kk < 8; ++kk) {
+            for (int kk = 0; kk < PV_STEPS; ++kk) {
 #pragma unroll
                 for (int w = 0; w < 4; ++w) asm volatile("" : "+r"(p_regs[kk][w])::"memory");
             }
-            mbar_arrive(&bar.empty[kb % STAGES]);
+            mbar_arrive(&bar.v_empty[kb % STAGES]);
         };
         // online softmax of key block kb on the accumulator's layout: acc_s[4j + e]
         // is row row0 + 8 * (e >= 2), key k0 + 8j + col0 + (e & 1).  Leaves P (float32)
@@ -497,7 +532,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
             const int k0 = kb * BKV;
             float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-            for (int j = 0; j < 16; ++j) {
+            for (int j = 0; j < BKV / 8; ++j) {
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                     float x = acc_s[4 * j + e];
@@ -526,7 +561,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
             m1 = mn1;
             float rs0 = 0.f, rs1 = 0.f;  // this thread's share of the row sums
 #pragma unroll
-            for (int j = 0; j < 16; ++j) {
+            for (int j = 0; j < BKV / 8; ++j) {
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                     const float p =
@@ -548,7 +583,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
             for (int i = 0; i < PV_N / 2; ++i) acc_o[i] *= (i & 2) ? alpha1 : alpha0;
 #pragma unroll
-            for (int kk = 0; kk < 8; ++kk) {
+            for (int kk = 0; kk < PV_STEPS; ++kk) {
 #pragma unroll
                 for (int w = 0; w < 4; ++w) {
                     p_regs[kk][w] = pack_bf16(acc_s[8 * kk + 2 * w], acc_s[8 * kk + 2 * w + 1]);
@@ -570,6 +605,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
             your_turn();
             wgmma_wait<1>();  // Q.K^T of kb is done, P.V of kb - 1 may still run
             fence_regs(acc_s);
+            qk_done(kb);
             softmax(kb, mask);
             wgmma_wait<0>();
             pv_done(kb - 1);
@@ -587,6 +623,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         your_turn();
         wgmma_wait<0>();
         fence_regs(acc_s);
+        qk_done(0);
         if (unmasked > 0) {
             softmax(0, std::false_type{});
         } else {
@@ -638,8 +675,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
     CUtensorMap tm_q, tm_k, tm_v;
     const int bk = bh / groups;
     int err = encode_bf16_3d(&tm_q, q, D, sq, bh, BQ);
-    if (err == 0) err = encode_bf16_3d(&tm_k, k, D, sk, bk, BKV);
-    if (err == 0) err = encode_bf16_3d(&tm_v, v, D, sk, bk, BKV);
+    if (err == 0) err = encode_bf16_3d(&tm_k, k, D, sk, bk, Dims<D>::BKV);
+    if (err == 0) err = encode_bf16_3d(&tm_v, v, D, sk, bk, Dims<D>::BKV);
     if (err != 0) {
         *encode_err = err;
         return cudaErrorInvalidValue;
@@ -677,7 +714,8 @@ int flash_attention_fwd_launch(int dtype, int d, const void* q, const void* k, c
     return cudaErrorInvalidValue;
 }
 
-// The bf16 wgmma instance, D in {64, 96, 112, 128}; q, k and v 16-byte aligned.
+// The bf16 wgmma instance, D in {64, 96, 112, 128, 224}; q, k and v 16-byte aligned;
+// the scores scaled by sm_scale (positive).
 // Returns 0, a cudaError_t, or hopper::ENCODE_ERROR_BASE + the CUresult of a
 // tensor-map encode that failed.
 int flash_attention_wgmma_launch(int d, const void* q, const void* k, const void* v, void* o,
@@ -701,6 +739,10 @@ int flash_attention_wgmma_launch(int d, const void* q, const void* k, const void
             break;
         case 128:
             err = wg::launch<128>(q, k, v, o, bh, sq, sk, groups, causal, q_offset, sm_scale, s,
+                                  &encode_err);
+            break;
+        case 224:
+            err = wg::launch<224>(q, k, v, o, bh, sq, sk, groups, causal, q_offset, sm_scale, s,
                                   &encode_err);
             break;
         default:

@@ -16,11 +16,14 @@ shape from ``register_fake``, and a DTensor is split by its sharding rule
 into the local tensors each rank computes, which then take the path of a
 plain tensor.  Its flop count, 4·d per attended (query, key) pair, is
 registered with ``torch.utils.flop_counter``.  A plain CUDA tensor calls the
-kernel directly, without the operator's dispatch.
+kernel directly, without the operator's dispatch.  The softmax scale is
+1/sqrt(d) unless a caller gives another (Zamba2's (d / 2)^-0.5);
+:data:`HEAD_DIM_LAUNCHES` counts the kernel's launches by head dim.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 
 import torch
@@ -32,13 +35,15 @@ from .._autograd import forward_only
 from .kernel import INSTANCES, flash_attention_call, instance_for
 from .ref import flash_attention_ref
 
-__all__ = ["INSTANCE_LAUNCHES", "KERNEL_LAUNCHES", "attention_pairs", "flash_attention",
-           "reset_kernel_launches"]
+__all__ = ["HEAD_DIM_LAUNCHES", "INSTANCE_LAUNCHES", "KERNEL_LAUNCHES", "attention_pairs",
+           "flash_attention", "reset_kernel_launches"]
 
 #: launches of the CUDA kernel (the plain CPU version is not counted)
 KERNEL_LAUNCHES = {"flash_attention": 0}
 #: the same launches, by the kernel instance that ran them
 INSTANCE_LAUNCHES = dict.fromkeys(INSTANCES, 0)
+#: the same launches, by head dim
+HEAD_DIM_LAUNCHES: dict[int, int] = {}
 _launch_mu = threading.Lock()
 
 
@@ -47,30 +52,34 @@ def reset_kernel_launches() -> None:
         KERNEL_LAUNCHES["flash_attention"] = 0
         for name in INSTANCE_LAUNCHES:
             INSTANCE_LAUNCHES[name] = 0
+        HEAD_DIM_LAUNCHES.clear()
 
 
-def _attend(qf, kf, vf, groups: int, causal: bool, q_offset: int) -> torch.Tensor:
+def _attend(qf, kf, vf, groups: int, causal: bool, q_offset: int, scale: float) -> torch.Tensor:
     if type(qf) is not torch.Tensor or qf.device.type == "meta":
-        return torch.ops.repro_torch.flash_attention(qf, kf, vf, groups, causal, q_offset)
+        return torch.ops.repro_torch.flash_attention(qf, kf, vf, groups, causal, q_offset, scale)
     if qf.device.type == "cpu":
-        return flash_attention_ref(qf, kf, vf, groups=groups, causal=causal, q_offset=q_offset)
+        return flash_attention_ref(qf, kf, vf, groups=groups, causal=causal, q_offset=q_offset,
+                                   scale=scale)
     out = flash_attention_call(qf.contiguous(), kf.contiguous(), vf.contiguous(),
-                               groups=groups, causal=causal, q_offset=q_offset)
+                               groups=groups, causal=causal, q_offset=q_offset, scale=scale)
+    d = qf.shape[-1]
     with _launch_mu:
         KERNEL_LAUNCHES["flash_attention"] += 1
-        INSTANCE_LAUNCHES[instance_for(qf.dtype, qf.shape[-1])] += 1
+        INSTANCE_LAUNCHES[instance_for(qf.dtype, d)] += 1
+        HEAD_DIM_LAUNCHES[d] = HEAD_DIM_LAUNCHES.get(d, 0) + 1
     return out
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: int,
-                        causal: bool, q_offset: int) -> torch.Tensor:
+                        causal: bool, q_offset: int, scale: float) -> torch.Tensor:
     """(B*K*G, Sq, d), (B*K, Sk, d), (B*K, Sk, d) -> (B*K*G, Sq, d)."""
-    return _attend(q, k, v, groups, causal, q_offset)
+    return _attend(q, k, v, groups, causal, q_offset, scale)
 
 
 @_flash_attention_op.register_fake
-def _(q, k, v, groups, causal, q_offset):
+def _(q, k, v, groups, causal, q_offset, scale):
     return torch.empty_like(q)
 
 
@@ -85,18 +94,19 @@ def attention_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
-def _flops(q_shape, k_shape, v_shape, groups, causal, q_offset, *args, out_shape=None, **kwargs) -> int:
+def _flops(q_shape, k_shape, v_shape, groups, causal, q_offset, scale, *args, out_shape=None,
+           **kwargs) -> int:
     """4·d operations per attended pair (q·k and p·v, a multiply and an add each)."""
     bh, sq, d = q_shape
     return 4 * d * attention_pairs(sq, k_shape[1], causal, q_offset) * bh
 
 
 @register_sharding(torch.ops.repro_torch.flash_attention.default)
-def _sharding(q, k, v, groups, causal, q_offset):
+def _sharding(q, k, v, groups, causal, q_offset, scale):
     """Per mesh axis: every tensor replicated, or q, k, v and the output split
     along their first dimension, batch·heads (whole KV groups, as the
     flattening of a batch sharded over that axis gives them)."""
-    none = [None, None, None]
+    none = [None, None, None, None]
     return [([Replicate()], [Replicate()] * 3 + none), ([Shard(0)], [Shard(0)] * 3 + none)]
 
 
@@ -107,6 +117,7 @@ def flash_attention(
     *,
     causal: bool = True,
     q_offset: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     if q_offset < 0:  # a row could then see no key; the Pallas grid would skip it
         raise ValueError(f"flash_attention takes q_offset >= 0, got {q_offset}")
@@ -115,5 +126,6 @@ def flash_attention(
     qf = q.permute(0, 2, 3, 1, 4).reshape(b * kh * g, sq, d)
     kf = k.permute(0, 2, 1, 3).reshape(b * kh, sk, d)
     vf = v.permute(0, 2, 1, 3).reshape(b * kh, sk, d)
-    out = forward_only("flash_attention", _attend, qf, kf, vf, g, causal, q_offset)
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    out = forward_only("flash_attention", _attend, qf, kf, vf, g, causal, q_offset, scale)
     return out.reshape(b, kh, g, sq, d).permute(0, 3, 1, 2, 4)

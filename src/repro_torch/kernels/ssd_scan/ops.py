@@ -3,7 +3,10 @@
 The transposes and broadcasts of the reference's ``ops.ssd_scan`` are part
 of the contract: x (B, S, H, P) and dt (B, S, H) are flattened to the
 kernel's (B*H, S, P) and (B*H, S), A and D are broadcast to (B*H, 1), and B
-and C stay (B, S, N), shared by the heads of a batch entry.  A CPU tensor
+and C stay (B, S, N), shared by the heads of a batch entry.  Grouped B and C
+(B, S, G, N) become the kernel's (B*G, S, N) rows, each shared by its H/G
+heads: the heads of group g are the g-th run of H/G, so x's flattening
+already lines them up and only B and C are copied.  A CPU tensor
 goes to the plain version in :mod:`.ref`, a CUDA tensor to the hand-written
 kernel in :mod:`.kernel` (or the launch raises).  Neither has a backward:
 the reference kernel has no VJP.  :data:`KERNEL_LAUNCHES` counts calls of
@@ -53,15 +56,22 @@ def ssd_scan(
     x: torch.Tensor,   # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H)
     A: torch.Tensor,   # (H,)
-    B_: torch.Tensor,  # (B, S, N)
-    C_: torch.Tensor,  # (B, S, N)
+    B_: torch.Tensor,  # (B, S, N), or (B, S, G, N) in G groups of heads
+    C_: torch.Tensor,  # (B, S, N), or (B, S, G, N)
     D_: torch.Tensor,  # (H,)
     *,
     chunk: int = 256,
 ) -> torch.Tensor:
     b, s, h, p = x.shape
+    heads = h
+    if B_.ndim == 4:
+        g, n = B_.shape[2:]
+        if h % g:
+            raise ValueError(f"ssd_scan: {h} heads do not split into {g} groups")
+        B_, C_ = (t.permute(0, 2, 1, 3).reshape(b * g, s, n) for t in (B_, C_))
+        heads = h // g
     xf, dtf, af, df = flatten(x, dt, A, D_)
-    out = forward_only("ssd_scan", _scan, xf, dtf, af, B_, C_, df, h, chunk)
+    out = forward_only("ssd_scan", _scan, xf, dtf, af, B_, C_, df, heads, chunk)
     return out.reshape(b, h, s, p).permute(0, 2, 1, 3)
 
 

@@ -6,7 +6,13 @@ The reference keeps its parameters as a pytree with layer-stacked leaves
 like the reference's key: ``params["blocks"][i]["wq"]`` has shape
 (D, H, hd).  The same holds for the encoder's ``enc_blocks`` and the
 decoder's ``cross`` attention of the audio family; the hybrid family's one
-``shared`` block is a single :class:`ParamDict`.  :func:`init_params` draws
+``shared`` block is a single :class:`ParamDict`.  The published Zamba2
+(``cfg.published_hybrid``) holds ``shared``, a list of its
+``n_shared_blocks`` blocks, and ``sites``, one :class:`ParamDict` per site
+of ``hybrid_sites``: the LoRA adapter of the shared MLP's gate and up
+projections (``lora_in`` (D, r), then ``lora_gate`` and ``lora_up`` (r, F),
+the two halves of the published (r, 2F) matrix) and the site's ``linear``
+(D, D).  :func:`init_params` draws
 the reference's distributions from a ``torch.Generator`` (it does not
 reproduce JAX's random numbers); :func:`params_from_numpy` carries a
 reference pytree across, given as numpy arrays.  ``A_log`` and ``D_skip`` of
@@ -37,8 +43,9 @@ __all__ = ["ParamDict", "ModelParams", "abstract_params", "init_params", "logica
 
 #: leaves kept in float32 whatever the model dtype (``repro/models/init.py:201-206``)
 FLOAT32_LEAVES = ("A_log", "D_skip")
-#: the parts of a model besides ``blocks`` that hold layers (reference order)
-LAYER_LISTS = ("enc_blocks", "cross")
+#: the parts of a model besides ``blocks`` that hold layers (reference order),
+#: then the published Zamba2's sites
+LAYER_LISTS = ("enc_blocks", "cross", "sites")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -69,13 +76,15 @@ class ParamDict(nn.Module):
 class ModelParams(nn.Module):
     """A model's parameters: ``embed``, ``blocks`` (one ParamDict per layer),
     ``final_norm`` and, unless tied, ``lm_head``; the hybrid family adds its
-    ``shared`` block, the audio family its encoder (``enc_blocks``,
+    ``shared`` block (a list of blocks, and the ``sites``, in the published
+    Zamba2), the audio family its encoder (``enc_blocks``,
     ``enc_final_norm``) and the decoder's ``cross`` attention, one ParamDict
     per layer."""
 
     def __init__(self, embed: torch.Tensor, blocks: list[Mapping[str, torch.Tensor]],
                  final_norm: torch.Tensor, lm_head: torch.Tensor | None, *,
-                 shared: Mapping[str, torch.Tensor] | None = None,
+                 shared: Mapping[str, torch.Tensor] | list | None = None,
+                 sites: list[Mapping[str, torch.Tensor]] | None = None,
                  enc_blocks: list[Mapping[str, torch.Tensor]] | None = None,
                  enc_final_norm: torch.Tensor | None = None,
                  cross: list[Mapping[str, torch.Tensor]] | None = None):
@@ -86,7 +95,10 @@ class ModelParams(nn.Module):
         if lm_head is not None:
             self.lm_head = nn.Parameter(lm_head, requires_grad=False)
         if shared is not None:
-            self.shared = ParamDict(shared)
+            self.shared = (nn.ModuleList(ParamDict(b) for b in shared) if isinstance(shared, list)
+                           else ParamDict(shared))
+        if sites is not None:
+            self.sites = nn.ModuleList(ParamDict(s) for s in sites)
         if enc_blocks is not None:
             self.enc_blocks = nn.ModuleList(ParamDict(b) for b in enc_blocks)
             self.enc_final_norm = nn.Parameter(enc_final_norm, requires_grad=False)
@@ -108,7 +120,7 @@ class ModelParams(nn.Module):
             if hasattr(self, name):
                 out[name] = [bp.tree() for bp in self[name]]
         if hasattr(self, "shared"):
-            out["shared"] = self.shared.tree()
+            out["shared"] = _tree_of(self.shared)
         return out
 
     @classmethod
@@ -116,7 +128,7 @@ class ModelParams(nn.Module):
         """The parameters of a tree shaped like :meth:`tree`, its tensors held
         as they are (DTensors, fake tensors)."""
         return cls(tree["embed"], tree["blocks"], tree["final_norm"], tree.get("lm_head"),
-                   shared=tree.get("shared"), enc_blocks=tree.get("enc_blocks"),
+                   shared=tree.get("shared"), sites=tree.get("sites"), enc_blocks=tree.get("enc_blocks"),
                    enc_final_norm=tree.get("enc_final_norm"), cross=tree.get("cross"))
 
     @torch.no_grad()
@@ -132,8 +144,15 @@ class ModelParams(nn.Module):
                 raise ValueError(f"tree has {len(tree[name])} {name}, the model {len(self[name])}")
             for bp, src in zip(self[name], tree[name]):
                 bp.copy_from(src)
-        if hasattr(self, "shared"):
+        if isinstance(getattr(self, "shared", None), ParamDict):
             self.shared.copy_from(tree["shared"])
+        elif hasattr(self, "shared"):
+            for bp, src in zip(self.shared, tree["shared"], strict=True):
+                bp.copy_from(src)
+
+
+def _tree_of(part) -> dict | list:
+    return part.tree() if isinstance(part, ParamDict) else [bp.tree() for bp in part]
 
 
 def _attn_shapes(cfg: ModelConfig, width_in: int) -> dict[str, tuple]:
@@ -178,8 +197,8 @@ def _moe_shapes(cfg: ModelConfig) -> dict[str, tuple]:
 
 
 def _ssm_shapes(cfg: ModelConfig) -> dict[str, tuple]:
-    """``repro/models/init.py::_ssm_shapes``."""
-    di, n, h, k = cfg.d_inner, cfg.ssm.d_state, cfg.ssm_heads, cfg.ssm.d_conv
+    """``repro/models/init.py::_ssm_shapes``; B and C hold ``ngroups`` groups."""
+    di, n, h, k = cfg.d_inner, cfg.ssm.ngroups * cfg.ssm.d_state, cfg.ssm_heads, cfg.ssm.d_conv
     return {
         "norm_in": (cfg.d_model,),
         "w_z": (cfg.d_model, di),
@@ -214,6 +233,12 @@ def _shared_block_shapes(cfg: ModelConfig) -> dict[str, tuple]:
     """The zamba2-style shared attention + FFN block, attention over
     concat(h, x0) (2·d), ``repro/models/init.py::_shared_block_shapes``."""
     return {**_attn_shapes(cfg, 2 * cfg.d_model), **_ffn_shapes(cfg)}
+
+
+def _site_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    """One site of the published Zamba2: the MLP's adapter and the site's linear."""
+    d, r, f = cfg.d_model, cfg.adapter_rank, cfg.d_ff
+    return {"lora_in": (d, r), "lora_gate": (r, f), "lora_up": (r, f), "linear": (d, d)}
 
 
 def _cross_shapes(cfg: ModelConfig) -> dict[str, tuple]:
@@ -275,6 +300,13 @@ _SSM_AXES = {
     "out_proj": ("ssm_inner", "d_model"),
 }
 
+_SITE_AXES = {
+    "lora_in": ("d_model", "lora_rank"),
+    "lora_gate": ("lora_rank", "d_ff"),
+    "lora_up": ("lora_rank", "d_ff"),
+    "linear": ("d_model", "d_model"),
+}
+
 _CROSS_AXES = {
     "xattn_norm": ("d_model",),
     "xwq": ("d_model", "heads", "head_dim"),
@@ -312,6 +344,9 @@ def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[dict[str, tuple], int]]:
         out["enc_blocks"] = ({**_attn_shapes(cfg, cfg.d_model), **_ffn_shapes(cfg)},
                              cfg.encoder_layers)
         out["cross"] = (_cross_shapes(cfg), cfg.n_layers)
+    if cfg.family == "hybrid" and cfg.published_hybrid:
+        out["shared"] = (_shared_block_shapes(cfg), cfg.n_shared_blocks)
+        out["sites"] = (_site_shapes(cfg), len(cfg.hybrid_sites))
     return out
 
 
@@ -366,6 +401,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) ->
     extra: dict = {}
     if _has_shared(cfg):
         extra["shared"] = layers(_shared_block_shapes(cfg), 1)[0]
+    if "sites" in stacks:
+        extra.update(shared=stacks["shared"], sites=stacks["sites"])
     if cfg.is_encoder_decoder:
         extra.update(enc_blocks=stacks["enc_blocks"], cross=stacks["cross"],
                      enc_final_norm=torch.ones((cfg.d_model,), dtype=dtype, device=dev))
@@ -379,7 +416,8 @@ def logical_axes(cfg: ModelConfig) -> dict:
     list of per-layer dicts, so the reference's leading ``"layers"`` axis
     is not there (``repro/models/init.py::logical_axes``)."""
     block_axes = {"blocks": _block_axes(cfg), "enc_blocks": {**_attn_axes(cfg), **_FFN_AXES},
-                  "cross": dict(_CROSS_AXES)}
+                  "cross": dict(_CROSS_AXES), "shared": {**_attn_axes(cfg), **_FFN_AXES},
+                  "sites": dict(_SITE_AXES)}
     axes: dict = {"embed": ("vocab", "d_model"), "final_norm": ("d_model",)}
     for name, (_, n) in _layer_shapes(cfg).items():
         axes[name] = [dict(block_axes[name]) for _ in range(n)]
@@ -412,6 +450,8 @@ def abstract_params(cfg: ModelConfig) -> ModelParams:
     extra: dict = {}
     if _has_shared(cfg):
         extra["shared"] = layer(_shared_block_shapes(cfg))
+    if "sites" in stacks:
+        extra.update(shared=stacks["shared"], sites=stacks["sites"])
     if cfg.is_encoder_decoder:
         extra.update(enc_blocks=stacks["enc_blocks"], cross=stacks["cross"],
                      enc_final_norm=empty("enc_final_norm", (cfg.d_model,)))
@@ -448,6 +488,8 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping, *, device=None) -> ModelP
     extra: dict = {}
     if _has_shared(cfg):
         extra["shared"] = leaves("shared", tree["shared"], _shared_block_shapes(cfg))
+    if "sites" in stacks:
+        extra.update(shared=stacks["shared"], sites=stacks["sites"])
     if cfg.is_encoder_decoder:
         extra.update(enc_blocks=stacks["enc_blocks"], cross=stacks["cross"],
                      enc_final_norm=_tensor(tree["enc_final_norm"], dev, dtype))

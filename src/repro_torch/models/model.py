@@ -19,12 +19,24 @@ position its own token's embedding; the port's decode feeds the current
 token's, so that decode continues the forward.
 
 The train forward's embedding, final norm and loss run as named stages
-(:func:`repro_torch.obs.stages.stage`), as do the ssm mixer's parts, so a
-profiler's trace of scoring puts each kernel under the stage that launched it.
+(:func:`repro_torch.obs.stages.stage`), as do the ssm mixer's parts and the
+published Zamba2's shared block, so a profiler's trace of scoring puts each
+kernel under the stage that launched it.
+
+The published Zamba2 (``cfg.published_hybrid``, ``zamba2-7b-instruct``)
+runs its shared blocks as ``transformers``' ``modeling_zamba2.py`` does, not
+as the reference's hybrid: at site s, layer ``hybrid_sites[s]``, block s mod
+``n_shared_blocks`` takes concat(h, x0), its attention's output goes through
+the pre-FF norm (no residual inside the block) into the gated-GELU MLP with
+the site's LoRA adapter, then the site's linear; that result is added to
+the layer's mixer input only, and the residual stream carries on from h.
+Only the train forward runs it: :func:`prefill` and :func:`decode_step`
+refuse such a config.  :data:`SHARED_BLOCK_CALLS` counts its blocks' calls.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Any
 
 import torch
@@ -54,11 +66,21 @@ __all__ = [
     "init_cache",
     "prefill",
     "decode_step",
+    "SHARED_BLOCK_CALLS",
+    "reset_shared_block_calls",
 ]
 
 AUX_COEF = 0.01
 #: the families whose layers are attention + FFN blocks
 _ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
+#: calls of the published Zamba2's shared blocks in the train forward, by block
+SHARED_BLOCK_CALLS: dict[int, int] = {}
+_calls_mu = threading.Lock()
+
+
+def reset_shared_block_calls() -> None:
+    with _calls_mu:
+        SHARED_BLOCK_CALLS.clear()
 
 
 # =============================================================== primitives
@@ -131,6 +153,42 @@ def _shared_out(h, out, sp, cfg: ModelConfig):
     return h + f
 
 
+def _site_block(h, x0, params, cfg: ModelConfig, site: int, positions) -> torch.Tensor:
+    """The published Zamba2's shared block at ``site``, through the site's
+    linear, added to h: the mixer's input at the site's layer."""
+    block = site % cfg.n_shared_blocks
+    sp, ap = params["shared"][block], params["sites"][site]
+    with _calls_mu:
+        SHARED_BLOCK_CALLS[block] = SHARED_BLOCK_CALLS.get(block, 0) + 1
+    with stage("shared.attn_in"):
+        q, k, v = _shared_qkv(h, x0, sp, cfg, positions)
+    with stage("shared.attn"):
+        out = gqa_attention(q, k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                            scale=cfg.attn_scale or None)
+    with stage("shared.attn_out"):
+        t = rms_norm(torch.einsum("bshk,hkd->bsd", out, sp["wo"]), sp["ffn_norm"], cfg.norm_eps)
+    with stage("shared.mlp"):
+        a = torch.matmul(t, ap["lora_in"])
+        g = torch.matmul(t, sp["w_gate"]) + torch.matmul(a, ap["lora_gate"])
+        u = torch.matmul(t, sp["w_up"]) + torch.matmul(a, ap["lora_up"])
+        act = F.gelu if cfg.ffn_act == "gelu" else F.silu  # exact erf GELU, as published
+        f = torch.matmul(act(g) * u, sp["w_down"])
+    with stage("shared.linear"):
+        return h + torch.matmul(f, ap["linear"])
+
+
+def _refuse_published_hybrid(cfg: ModelConfig, what: str) -> None:
+    """Prefill and decode run the reference's hybrid only: refuse the published
+    Zamba2's options rather than answer wrongly."""
+    options = [name for name, on in (
+        ("hybrid_sites", cfg.published_hybrid), ("n_shared_blocks", cfg.n_shared_blocks != 1),
+        ("adapter_rank", cfg.adapter_rank), ("ffn_act", cfg.ffn_act != "silu"),
+        ("attn_scale", cfg.attn_scale), ("ssm.ngroups", cfg.ssm.ngroups != 1)) if on]
+    if options:
+        raise ValueError(f"{what} does not run {cfg.name}'s options {options}; only the train "
+                         "forward (forward_hidden, train_loss) does")
+
+
 def _remat(fn, cfg: ModelConfig):
     """Recompute each layer in the backward pass unless ``remat="none"``.
 
@@ -199,6 +257,20 @@ def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, 
             return hh + f, None
 
         h, _ = layer_scan(_remat(body, cfg), h, (params["blocks"], params["cross"]), unroll=unroll)
+    elif cfg.published_hybrid:
+        x0 = h
+        site_of = {layer: s for s, layer in enumerate(cfg.hybrid_sites)}
+
+        def body(hh, xs):
+            bp, i = xs
+            m = maybe_cond(i in site_of, lambda v: _site_block(v, x0, params, cfg, site_of[i], positions),
+                           lambda v: v, hh)
+            with stage("ssm.norm_in"):
+                x = rms_norm(m, bp["norm_in"], cfg.norm_eps)
+            return constrain(hh + mamba_mixer(x, bp, cfg), "batch", "seq_sp", "d_model"), None
+
+        h, _ = layer_scan(_remat(body, cfg), h, (params["blocks"], list(range(cfg.n_layers))),
+                          unroll=unroll)
     elif cfg.family in ("ssm", "hybrid"):
         x0 = h
 
@@ -389,8 +461,9 @@ def prefill(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, cache: 
     rows [0, S) take the prompt's keys and values and rows [S, T) are
     zeroed, in place; ``pos`` becomes S.  The audio family encodes
     ``enc_frames`` (B, enc_len, D) first, into a cache made with that
-    ``enc_len``.
+    ``enc_len``.  The published Zamba2's options are refused.
     """
+    _refuse_published_hybrid(cfg, "prefill")
     h = constrain(embed_inputs(params, cfg, inputs), "batch", "seq", "d_model")
     s = h.shape[1]
     for name in ("k", "shared_k"):
@@ -485,8 +558,9 @@ def decode_step(params: ModelParams, cfg: ModelConfig, token: torch.Tensor, cach
     own position, in place, and attends to its own length.  Every position
     must be below the cache length: the reference drops an out-of-range
     write, a torch index raises.  The ssm and hybrid families' recurrent
-    state is replaced in place.
+    state is replaced in place.  The published Zamba2's options are refused.
     """
+    _refuse_published_hybrid(cfg, "decode_step")
     h = constrain(embed_inputs(params, cfg, token), "batch", "seq", "d_model")
     pos = cache["pos"].long()  # (B,)
     b_rows = torch.arange(h.shape[0], device=h.device)

@@ -117,9 +117,11 @@ def _sharded_attention(q, k, v, **kw) -> torch.Tensor:
     return map_shards(gqa_attention, (q, k, v), (_HEADS,) * 3, _HEADS, **kw)
 
 
-def _naive_attention(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
-    """q: (B,S,K,G,d), k/v: (B,T,K,d) -> (B,S,K,G,d).  fp32 softmax."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+def _naive_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                     scale: float | None = None) -> torch.Tensor:
+    """q: (B,S,K,G,d), k/v: (B,T,K,d) -> (B,S,K,G,d).  fp32 softmax; the
+    scores scaled by ``scale``, 1/sqrt(d) unless given."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     scores = torch.einsum("bskgd,btkd->bkgst", q, k).float() * scale
     if causal:
         scores = scores + causal_mask_bias(q.shape[1], k.shape[1], q_offset, device=q.device)
@@ -128,7 +130,7 @@ def _naive_attention(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tenso
 
 
 def _chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0, chunk: int = 1024,
-                       sm_dtype=torch.float32) -> torch.Tensor:
+                       sm_dtype=torch.float32, scale: float | None = None) -> torch.Tensor:
     """Online softmax over KV chunks in plain PyTorch.
 
     Never materialises the full (S, T) score matrix: peak scratch is
@@ -149,7 +151,7 @@ def _chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0, chunk: int =
     qpad = nq * qchunk - s
     if qpad:
         q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, qpad))
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     dev = q.device
     neg_inf = torch.full((), float("-inf"), dtype=sm_dtype, device=dev)
 
@@ -201,23 +203,25 @@ def gqa_attention(
     impl: str = "naive",
     chunk: int = 1024,
     sm_dtype=torch.float32,
+    scale: float | None = None,
 ) -> torch.Tensor:
-    """Grouped-query attention.  q: (B,S,H,d), k/v: (B,T,K,d) -> (B,S,H,d)."""
+    """Grouped-query attention.  q: (B,S,H,d), k/v: (B,T,K,d) -> (B,S,H,d).
+    The scores are scaled by ``scale``, 1/sqrt(d) unless given."""
     if isinstance(q, DTensor):
         return _sharded_attention(q, k, v, causal=causal, q_offset=q_offset, impl=impl, chunk=chunk,
-                                  sm_dtype=sm_dtype)
+                                  sm_dtype=sm_dtype, scale=scale)
     b, s, h, d = q.shape
     n_kv = k.shape[2]
     qg = _split_gqa(q, n_kv)
     if impl == "pallas":
         from ..kernels.flash_attention import ops as fa_ops
 
-        out = fa_ops.flash_attention(qg, k, v, causal=causal, q_offset=q_offset)
+        out = fa_ops.flash_attention(qg, k, v, causal=causal, q_offset=q_offset, scale=scale)
     elif impl == "chunked":
         out = _chunked_attention(qg, k, v, causal=causal, q_offset=q_offset, chunk=chunk,
-                                 sm_dtype=sm_dtype)
+                                 sm_dtype=sm_dtype, scale=scale)
     else:
-        out = _naive_attention(qg, k, v, causal=causal, q_offset=q_offset)
+        out = _naive_attention(qg, k, v, causal=causal, q_offset=q_offset, scale=scale)
     return out.reshape(b, s, h, d)
 
 

@@ -9,9 +9,12 @@ gating and the output norm, and, as in the reference, ``attn_impl ==
 ``ssd_chunked`` (and, unlike the reference, the hand-written channel-last
 causal convolution instead of ``causal_conv1d``); its parts run as named stages
 (:func:`repro_torch.obs.stages.stage`) that a profiler's trace shows.
-Serving takes :func:`mamba_prefill`, the mixer that also returns the state a
-decode continues from (through ``ssd_chunked``, since the kernel returns no
-state, as at ``repro/models/model.py:355,387``), and
+With ``cfg.ssm.ngroups`` G above 1 (Zamba2), B and C hold G groups of N
+channels and heads [g H/G, (g + 1) H/G) read group g's, and the gated norm
+normalises over groups of d_inner / G channels; at G = 1 the mixer is the
+reference's.  Serving takes :func:`mamba_prefill`, the mixer that also
+returns the state a decode continues from (through ``ssd_chunked``, since
+the kernel returns no state, as at ``repro/models/model.py:355,387``), and
 :func:`mamba_decode_step`, the O(1) recurrence over that state.
 """
 
@@ -26,7 +29,7 @@ from ..distributed.sharding import constrain, map_shards
 from ..obs.stages import stage
 from .ops import rms_norm
 
-__all__ = ["ssd_chunked", "causal_conv1d", "mamba_mixer", "mamba_prefill",
+__all__ = ["ssd_chunked", "causal_conv1d", "gated_norm", "mamba_mixer", "mamba_prefill",
            "mamba_decode_step", "init_ssm_state"]
 
 
@@ -34,14 +37,16 @@ def ssd_chunked(
     x: torch.Tensor,   # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H)  positive (softplus already applied)
     A: torch.Tensor,   # (H,)       negative
-    B_: torch.Tensor,  # (B, S, N)
-    C_: torch.Tensor,  # (B, S, N)
+    B_: torch.Tensor,  # (B, S, N), or (B, S, G, N) in G groups of heads
+    C_: torch.Tensor,  # (B, S, N), or (B, S, G, N)
     D_: torch.Tensor,  # (H,)
     chunk: int = 256,
     h0: torch.Tensor | None = None,  # (B, H, P, N) initial state
     return_state: bool = False,
 ):
     """y_t = C_t · h_t + D·x_t with h_t = exp(dt_t A) h_{t-1} + dt_t x_t⊗B_t."""
+    if B_.ndim == 4:
+        return _per_group(x, dt, A, B_, C_, D_, chunk=chunk, h0=h0, return_state=return_state)
     b, s, h, p = x.shape
     n = B_.shape[-1]
     q = min(chunk, s)
@@ -89,6 +94,36 @@ def ssd_chunked(
     if return_state:
         return y, hprev
     return y
+
+
+def _per_group(x, dt, A, B_, C_, D_, *, chunk: int, h0, return_state: bool):
+    """:func:`ssd_chunked` of grouped B and C (B, S, G, N), group by group:
+    heads [g H/G, (g + 1) H/G) with group g's B and C, the outputs (and
+    states) joined along the heads."""
+    g = B_.shape[2]
+    hg = x.shape[2] // g
+    ys, states = [], []
+    for i in range(g):
+        heads = slice(i * hg, (i + 1) * hg)
+        out = ssd_chunked(x[:, :, heads], dt[:, :, heads], A[heads], B_[:, :, i], C_[:, :, i], D_[heads],
+                          chunk=chunk, h0=None if h0 is None else h0[:, heads], return_state=return_state)
+        y, st = out if return_state else (out, None)
+        ys.append(y)
+        states.append(st)
+    y = torch.cat(ys, dim=2)
+    return (y, torch.cat(states, dim=1)) if return_state else y
+
+
+def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, groups: int,
+               eps: float) -> torch.Tensor:
+    """rms_norm(y * silu(z)) over each of ``groups`` groups of channels (Zamba2's
+    gated norm); one group is the whole width, as in the reference."""
+    g = y * F.silu(z)
+    if groups == 1:
+        return rms_norm(g, scale, eps)
+    *lead, di = g.shape
+    return rms_norm(g.reshape(*lead, groups, di // groups), scale.reshape(groups, di // groups),
+                    eps).reshape(*lead, di)
 
 
 #: the SSD scan's independent axes: batch rows and heads (B and C are shared
@@ -146,14 +181,21 @@ def mamba_mixer(x: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
         xh = xin.reshape(b, s, hds, p)
         xh = constrain(xh, "batch", "seq", "ssm_heads", None)
         A = -torch.exp(params["A_log"].float())
+        groups = cfg.ssm.ngroups
+        if groups > 1:  # views: the groups' B and C (B, S, G, N)
+            B_ = B_.reshape(b, s, groups, -1)
+            C_ = C_.reshape(b, s, groups, -1)
         args = (xh, dt, A, B_, C_, params["D_skip"])
         if isinstance(xh, DTensor):  # each rank scans its batch rows and heads
+            if groups > 1:
+                raise NotImplementedError("a sharded mixer scans one group of B and C; "
+                                          f"this config has {groups}")
             y = map_shards(scan, args, _SSD_ROLES, _SSD_ROLES[0], chunk=cfg.ssm.chunk)
         else:
             y = scan(*args, chunk=cfg.ssm.chunk)
         y = y.reshape(b, s, di)
     with stage("ssm.gate_norm"):
-        y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+        y = gated_norm(y, z, params["norm"], groups, cfg.norm_eps)
     with stage("ssm.out_proj"):
         return torch.matmul(y, params["out_proj"])
 

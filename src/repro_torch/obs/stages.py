@@ -15,7 +15,13 @@ covered end to end by flat, non-nested stages:
   cross-entropy of ``train_loss``);
 - in each layer ``ssm.norm_in``, ``ssm.in_proj``, ``ssm.conv``, ``ssm.scan``
   (the SSD scan with its layout copies and casts), ``ssm.gate_norm`` and
-  ``ssm.out_proj``.
+  ``ssm.out_proj``;
+- at each site of the published Zamba2's shared blocks ``shared.attn_in``
+  (the concat, the input norm, q, k, v and RoPE), ``shared.attn`` (K3 with
+  its layout copies), ``shared.attn_out`` (o and the pre-FF norm),
+  ``shared.mlp`` (gate and up with the site's adapter, the GELU product,
+  down) and ``shared.linear`` (the site's linear and the add into the
+  mixer's input).
 
 Only the residual adds fall under no stage.  Nothing turns the stages on
 but a running profiler: outside a profile a stage costs one flag check and

@@ -180,6 +180,44 @@ def test_wgmma_instance_equals_plain_version(cuda, d, groups, sq, sk, causal, of
     torch.testing.assert_close(out.float(), rounded.float(), atol=2e-3, rtol=8e-3)
 
 
+# the published Zamba2's shared attention: head dim 224 at its scoring cell's
+# 4096 tokens (a few of its 16 x 32 heads), ragged and bidirectional lengths,
+# with its softmax scale (224 / 2)^-0.5 and the default 1/sqrt(224)
+@pytest.mark.parametrize("sq,sk,causal,off", [(4096, 4096, True, 0), (4096, 4096, False, 0),
+                                               (4000, 4000, True, 0), (1000, 4000, True, 3000),
+                                               (130, 130, False, 0)])
+@pytest.mark.parametrize("scale", [None, 112 ** -0.5])
+def test_wgmma_instance_at_head_dim_224(cuda, sq, sk, causal, off, scale):
+    q, k, v = attn_inputs(cuda, sq + sk + off, 3, 1, sq, sk, 224, torch.bfloat16)
+    out = fk.flash_attention_call(q, k, v, groups=1, causal=causal, q_offset=off, scale=scale)
+    rounded = flash_attention_ref(q, k, v, groups=1, causal=causal, q_offset=off, round_p=True, scale=scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), rounded.float(), atol=2e-3, rtol=8e-3)
+    del rounded
+    torch.testing.assert_close(out.float(), flash_attention_ref(q, k, v, groups=1, causal=causal, q_offset=off,
+                                                                scale=scale).float(), atol=2e-2, rtol=2e-2)
+
+
+def test_flash_wrapper_counts_launches_by_head_dim_and_takes_a_scale(cuda):
+    q = torch.randn((1, 300, 4, 1, 224), device=cuda).bfloat16()
+    k = torch.randn((1, 300, 4, 224), device=cuda).bfloat16()
+    fa.reset_kernel_launches()
+    out = fa.flash_attention(q, k, k, causal=True, scale=112 ** -0.5)
+    fa.flash_attention(q[..., :112].contiguous(), k[..., :112].contiguous(), k[..., :112].contiguous())
+    assert fa.HEAD_DIM_LAUNCHES == {224: 1, 112: 1} and fa.INSTANCE_LAUNCHES["wgmma"] == 2
+    cpu = fa.flash_attention(q.cpu().float(), k.cpu().float(), k.cpu().float(), causal=True, scale=112 ** -0.5)
+    torch.testing.assert_close(out.float().cpu(), cpu, atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="positive finite scale"):
+        fk.flash_attention_call(q[0].permute(1, 0, 2, 3).reshape(4, 300, 224).contiguous(),
+                                k[0].permute(1, 0, 2).contiguous(), k[0].permute(1, 0, 2).contiguous(),
+                                groups=1, causal=True, scale=-1.0)
+    with pytest.raises(ValueError, match="head dim 224"):  # float32 at 224: no instance
+        fk.flash_attention_call(torch.zeros((2, 8, 224), device=cuda), torch.zeros((2, 8, 224), device=cuda),
+                                torch.zeros((2, 8, 224), device=cuda), groups=1, causal=True)
+    fa.reset_kernel_launches()
+    assert fa.HEAD_DIM_LAUNCHES == {}
+
+
 def test_wgmma_instance_reads_unaligned_views(cuda):
     # TMA needs 16-byte aligned addresses: a view 1 element into its storage is copied
     q, k, v = attn_inputs(cuda, 5, 1, 2, 64, 64, 64, torch.bfloat16)
@@ -221,9 +259,10 @@ def test_cuda_core_instance_refuses_the_wgmma_head_dims_in_bf16(cuda, d):
     assert err == 1
     with pytest.raises(RuntimeError, match="invalid argument"):
         fk.LIBRARY.check(err, "flash_attention")
-    qf, of = q.float(), out.float()  # float32 at the same head dim is this instance's
+    qf, of = q.float(), out.float()  # float32 at the same head dim is this instance's, up to 128
     assert lib.flash_attention_fwd_launch(0, d, qf.data_ptr(), qf.data_ptr(), qf.data_ptr(),
-                                          of.data_ptr(), 2, 64, 64, 1, 1, 0, 1.0, None) == 0
+                                          of.data_ptr(), 2, 64, 64, 1, 1, 0, 1.0, None) == (
+        0 if d in fk.HEAD_DIMS else 1)
     torch.cuda.synchronize()
 
 
@@ -523,6 +562,42 @@ def test_chunk_scan_shares_c_b_across_head_groups(cuda, s, chunk, heads, n):
     scan.chunk_scan()
     torch.cuda.synchronize()
     assert torch.equal(scan.out, out), "two launches of ssd_chunk_scan differ"
+
+
+# grouped B and C as the published Zamba2 has them: 112 heads in 2 groups of
+# 56, each group's B and C (N 64) one row of the kernel's (B*G, S, N), at the
+# scoring cell's 4096 tokens (2 of its 16 rows); each group's heads against
+# the plain version with its own group's B and C, and against the other's
+@pytest.mark.parametrize("rows,s", [(2, 4096), (3, 512)])
+def test_grouped_scan_reads_each_groups_b_and_c(cuda, rows, s):
+    h, g, n = 112, 2, 64
+    x, dt, a, _, _, d = ssd_inputs(cuda, rows + s, rows, s, h, 64, n, torch.bfloat16)
+    rng = np.random.default_rng(s)
+    bb, cc = (torch.from_numpy(rng.standard_normal((rows, s, g, n), dtype=np.float32)).to(cuda).bfloat16()
+              for _ in range(2))
+    xs = x.reshape(rows, h, s, 64).permute(0, 2, 1, 3)  # the model's (B, S, H, P)
+    dts = dt.reshape(rows, h, s).permute(0, 2, 1)
+    ss.reset_kernel_launches()
+    y = ss.ssd_scan(xs, dts, a[:h, 0], bb, cc, d[:h, 0], chunk=256)
+    torch.cuda.synchronize()
+    assert ss.INSTANCE_LAUNCHES == {"split": 1, "fwd": 0}
+    hg = h // g
+    for r in range(rows):
+        for grp in range(g):
+            heads = slice(r * h + grp * hg, r * h + (grp + 1) * hg)
+            got = y[r].permute(1, 0, 2)[grp * hg:(grp + 1) * hg].float()
+            args = (x[heads], dt[heads], a[heads])
+            dd = d[grp * hg:(grp + 1) * hg]  # D of the first row's heads, which the wrapper broadcasts
+            want = ssd_scan_ref(*args, bb[r, :, grp][None], cc[r, :, grp][None], dd, heads=hg, chunk=256,
+                                split_bf16=True)
+            torch.testing.assert_close(got, want.float(), **SPLIT_TOL)
+            other = ssd_scan_ref(*args, bb[r, :, 1 - grp][None], cc[r, :, 1 - grp][None], dd, heads=hg,
+                                 chunk=256, split_bf16=True)
+            assert float((got - other.float()).abs().max()) > 100 * SPLIT_TOL["atol"]
+    # and the mixer's plain chunked scan with groups, in float32 on the same bf16 inputs
+    plain = tssm.ssd_chunked(xs[:1].float(), dts[:1], a[:h, 0], bb[:1].float(), cc[:1].float(), d[:h, 0],
+                             chunk=256)
+    torch.testing.assert_close(y[:1].float(), plain, **ssd_tol(torch.bfloat16))
 
 
 def test_chunk_scan_gives_the_same_bits_back_to_back(cuda):

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 import torch.distributed as dist  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
 
+from repro.configs import ARCHS as JARCHS  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, reduced  # noqa: E402
 from repro_torch.device import default_device, set_default_device  # noqa: E402
 from repro_torch.distributed import (  # noqa: E402
@@ -57,6 +58,19 @@ def ref_mesh(shape, names):
 
 
 # ------------------------------------------------------------------ make_rules
+def reference_twin(cfg):
+    """The reference's ModelConfig of the fields it shares with a port's config."""
+    from repro.configs.base import ModelConfig as JModelConfig
+    from repro.configs.base import MoEConfig as JMoEConfig
+    from repro.configs.base import SSMConfig as JSSMConfig
+
+    def keep(kind, obj):
+        return {f.name: getattr(obj, f.name) for f in dataclasses.fields(kind)}
+    kw = keep(JModelConfig, cfg)
+    kw.update(ssm=JSSMConfig(**keep(JSSMConfig, cfg.ssm)), moe=JMoEConfig(**keep(JMoEConfig, cfg.moe)))
+    return JModelConfig(**kw)
+
+
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 @pytest.mark.parametrize("shape", sorted(MESHES))
 def test_make_rules_equals_reference(arch, shape):
@@ -68,7 +82,12 @@ def test_make_rules_equals_reference(arch, shape):
     from repro_torch.launch.specs import rules_for
 
     names = MESHES[shape]
-    ours = rules_for(get_config(arch), AbstractMesh(shape, names))
+    cfg = get_config(arch)
+    ours = rules_for(cfg, AbstractMesh(shape, names))
+    if arch not in JARCHS:  # the port's own config: the reference's rules of its fields,
+        theirs = jrules_for(reference_twin(cfg), ref_mesh(shape, names))  # its adapters replicated
+        assert ours.rules == {**theirs.rules, "lora_rank": None}
+        return
     theirs = jrules_for(jget_config(arch), ref_mesh(shape, names))
     assert ours.rules == theirs.rules
 
@@ -150,6 +169,9 @@ def test_logical_axes_and_abstract_params_equal_reference(arch):
 
     cfg = get_config(arch)
     axes, params = logical_axes(cfg), abstract_params(cfg).tree()
+    if arch not in JARCHS:  # the port's own config: the same names, ranks and dtypes throughout
+        check_own_tree(cfg, axes, params)
+        return
     jaxes, jparams = jlogical_axes(jget_config(arch)), jabstract_params(jget_config(arch))
     assert sorted(axes) == sorted(jaxes) == sorted(params) == sorted(jparams)
     for part in jaxes:
@@ -174,6 +196,32 @@ def test_logical_axes_and_abstract_params_equal_reference(arch):
                 assert len(names[name]) == t.ndim, (part, name)
                 if strip:
                     assert ref_axes[name][0] == "layers"
+
+
+def check_own_tree(cfg, axes, params):
+    """logical_axes and abstract_params of a config the reference lacks: the same
+    parts, layers and leaves, an axis name per dimension, on the meta device,
+    and the published Zamba2's leaves at its widths."""
+    assert sorted(axes) == sorted(params)
+    for part, layer_axes in axes.items():
+        pairs = zip(layer_axes, params[part]) if isinstance(layer_axes, list) else [(layer_axes, params[part])]
+        if isinstance(layer_axes, list):
+            assert len(layer_axes) == len(params[part])
+        for names, layer in pairs:
+            flat = layer if isinstance(layer, dict) else {None: layer}
+            names = names if isinstance(names, dict) else {None: names}
+            assert sorted(flat, key=str) == sorted(names, key=str), part
+            for name, t in flat.items():
+                assert t.device.type == "meta" and len(names[name]) == t.ndim, (part, name)
+                assert t.dtype == (torch.float32 if name in ("A_log", "D_skip") else torch.bfloat16)
+    d, f, gn = cfg.d_model, cfg.d_ff, cfg.ssm.ngroups * cfg.ssm.d_state
+    assert len(params["shared"]) == cfg.n_shared_blocks and len(params["sites"]) == len(cfg.hybrid_sites)
+    assert tuple(params["shared"][1]["wq"].shape) == (2 * d, cfg.n_heads, cfg.resolved_head_dim)
+    assert {k: tuple(v.shape) for k, v in params["sites"][12].items()} == {
+        "lora_in": (d, cfg.adapter_rank), "lora_gate": (cfg.adapter_rank, f),
+        "lora_up": (cfg.adapter_rank, f), "linear": (d, d)}
+    assert tuple(params["blocks"][80]["w_B"].shape) == (d, gn) and axes["sites"][0]["lora_in"] == (
+        "d_model", "lora_rank")
 
 
 def test_abstract_params_allocates_nothing_and_makes_real_ones():

@@ -19,8 +19,6 @@ CARRIED = (
     "cache/shard.py",
     "cache/singleflight.py",
     "checkpoint/__init__.py",
-    "configs/__init__.py",
-    "configs/base.py",
     "configs/granite_moe_3b_a800m.py",
     "configs/internlm2_20b.py",
     "configs/internvl2_76b.py",
@@ -85,6 +83,8 @@ CARRIED = (
 PORTED = (
     "checkpoint/manager.py",
     "checkpoint/serialization.py",
+    "configs/__init__.py",
+    "configs/base.py",
     "core/codec.py",
     "distributed/__init__.py",
     "distributed/sharding.py",

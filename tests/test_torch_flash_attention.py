@@ -27,7 +27,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     INSTANCE_LAUNCHES, KERNEL_LAUNCHES, flash_attention,
 )
 from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref, flash_attention_ref_blocked  # noqa: E402
 
 SHAPES = [  # b, sq, sk, kh, g, d (tests/test_kernels.py:28-34)
     (1, 128, 128, 1, 1, 64),
@@ -184,7 +184,8 @@ def test_instance_is_chosen_from_dtype_and_head_dim_alone():
         assert fk.instance_for(torch.float32, d) == "cuda_cores"
         assert fk.instance_for(torch.bfloat16, d) == ("wgmma" if d in (64, 96, 112, 128)
                                                       else "cuda_cores")
-    assert fk.WGMMA_HEAD_DIMS == (64, 96, 112, 128) and set(fk.INSTANCES) == set(INSTANCE_LAUNCHES)
+    assert fk.instance_for(torch.bfloat16, 224) == "wgmma"  # the published Zamba2's, wgmma alone
+    assert fk.WGMMA_HEAD_DIMS == (64, 96, 112, 128, 224) and set(fk.INSTANCES) == set(INSTANCE_LAUNCHES)
 
 
 def _c_function(source: str, signature: str) -> str:
@@ -275,6 +276,54 @@ def test_on_card_cases_cover_every_served_length():
     assert all(fk.instance_for(torch.bfloat16, c[4]) == "wgmma" for c in cases)
     assert any(c[2] == 1 for c in cases) and any(1 < c[2] < 128 for c in cases)
     assert any(c[2] < c[3] and c[6] > 0 for c in cases) and any(not c[5] for c in cases)
+
+
+@pytest.mark.parametrize("groups,sq,sk,causal,off,d,scale", [
+    (1, 130, 130, True, 0, 64, None), (3, 40, 200, True, 160, 224, 112 ** -0.5),
+    (2, 77, 77, False, 0, 112, None), (1, 1, 300, True, 299, 224, 112 ** -0.5)])
+def test_blocked_plain_version_is_the_plain_version_rounded_in_the_kernels_order(groups, sq, sk, causal, off, d,
+                                                                                 scale):
+    # one block of every key rounds P at the row's max, as round_p=True does;
+    # 64-key blocks round it at the running max, and stay within bf16 of plain
+    gen = torch.Generator().manual_seed(sq + sk + d)
+    q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16)
+               for shape in ((2 * groups, sq, d), (2, sk, d), (2, sk, d)))
+    kw = dict(groups=groups, causal=causal, q_offset=off, scale=scale)
+    whole = flash_attention_ref_blocked(q, k, v, key_block=sk, **kw)
+    torch.testing.assert_close(whole.float(), flash_attention_ref(q, k, v, round_p=True, **kw).float(),
+                               atol=2e-3, rtol=8e-3)
+    blocked = flash_attention_ref_blocked(q, k, v, key_block=64, **kw)
+    assert blocked.dtype == torch.bfloat16 and blocked.shape == q.shape
+    torch.testing.assert_close(blocked.float(), flash_attention_ref(q, k, v, **kw).float(), atol=2e-2, rtol=2e-2)
+
+
+def test_chip_smoke_holds_the_kernel_order_up_to_one_flipped_rounding_of_p():
+    # chip_smoke.held_in_kernel_order lets an element past ROUND_P_TOL by no more
+    # than one bf16 ulp of its row's largest P_j |V_jc| / l, and catches a wrong scale
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn((3, 150, 224), generator=gen).to(torch.bfloat16) for _ in range(3))
+    kw = dict(groups=1, causal=True, scale=smoke.ZAMBA2_SCALE)
+    exact = flash_attention_ref_blocked(q, k, v, key_block=fk.WGMMA_KEY_BLOCK[224], **kw)
+    assert smoke.held_in_kernel_order(exact, q, k, v, **kw) == (0.0, 0)
+    r, i, c = 1, 0, 7  # the first query attends to its own key alone: P = 1 carries the row
+    limit = smoke.ROUND_P_TOL["atol"] + smoke.ROUND_P_TOL["rtol"] * abs(float(exact[r, i, c]))
+    flip = 2.0 ** -7 * abs(float(v[r, 0, c]))
+    for past, ok in ((0.5 * flip, True), (2 * flip, False)):
+        out = exact.float().clone()
+        out[r, i, c] += limit + past
+        if ok:
+            gap, n = smoke.held_in_kernel_order(out, q, k, v, **kw)
+            assert n == 1 and gap == pytest.approx(limit + past, rel=1e-3)
+        else:
+            with pytest.raises(AssertionError, match="flipped rounding"):
+                smoke.held_in_kernel_order(out, q, k, v, **kw)
+    wrong = flash_attention_ref_blocked(q, k, v, key_block=64, groups=1, causal=True, scale=224 ** -0.5)
+    with pytest.raises(AssertionError):
+        smoke.held_in_kernel_order(wrong, q, k, v, **kw)
 
 
 def test_ablation_tool_edits_match_the_source_once():

@@ -91,13 +91,14 @@ ABLATIONS = {
         ("auto your_turn = [&]() { named_barrier_arrive(3 + (c ^ 1), 256); };",
          "auto your_turn = [&]() {};")],
     "two K/V stages in place of three": [
-        ("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
+        ("static constexpr int STAGES = D <= 128 ? 3 : 2;", "static constexpr int STAGES = 2;")],
     "shared-memory attribute set on every launch": [
         ("cudaError_t cerr = allow_smem(kernel, smem, smem_devices);",
          "cudaError_t cerr =\n"
          "        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);")],
     "P.V at D = 112 on m64n128k16, over V's 16 zero columns too": [
-        ("static constexpr int PV_N = D == 112 ? 112 : DP;", "static constexpr int PV_N = DP;")],
+        ("static constexpr int PV_N = D == 112 || D == 224 ? D : DP;",
+         "static constexpr int PV_N = D == 224 ? D : DP;")],
 }
 # the copies that compute what the kernel as shipped computes
 EXACT = ("as shipped", "two K/V stages in place of three",

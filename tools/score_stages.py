@@ -18,9 +18,12 @@ operations alone.
 Prints card seconds by stage, with the kernels that took most of each, the
 shares of the stage groups ``conv`` (``ssm.conv``), ``scan_glue``
 (``ssm.scan`` less K4's two launches), ``norm`` (``ssm.norm_in``,
-``ssm.gate_norm``, ``model.final_norm``), ``head`` (``model.head_ce``) and
-``unstaged`` (``(none)``), and the seconds a batch with and without the
-profiler; writes all of it as JSON to ``--out`` where one is given.
+``ssm.gate_norm``, ``model.final_norm``), ``head`` (``model.head_ce``),
+``unstaged`` (``(none)``) and, in the published Zamba2's cell, ``shared``
+(the shared blocks' five stages ``shared.attn_in``, ``shared.attn``,
+``shared.attn_out``, ``shared.mlp`` and ``shared.linear``), and the seconds a
+batch with and without the profiler; writes all of it as JSON to ``--out``
+where one is given.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ GROUPS = {
     "norm": ("ssm.norm_in", "ssm.gate_norm", "model.final_norm"),
     "head": ("model.head_ce",),
     "unstaged": (NO_STAGE,),
+    "shared": ("shared.attn_in", "shared.attn", "shared.attn_out", "shared.mlp", "shared.linear"),
 }
 TOP = 6  # kernels listed under each stage
 
@@ -96,10 +100,13 @@ def by_stage(ops) -> dict:
 
 def shares(table: dict) -> dict:
     """Percent of all the operations' seconds taken by each of :data:`GROUPS`
-    (``scan_glue`` without K4's launches)."""
+    (``scan_glue`` without K4's launches); ``shared`` only where a shared
+    block ran."""
     total = sum(row["s"] for row in table.values())
     out = {}
     for group, stages in GROUPS.items():
+        if group == "shared" and not any(st in table for st in stages):
+            continue
         s = sum(table[st]["s"] for st in stages if st in table)
         if group == "scan_glue" and "ssm.scan" in table:
             s -= sum(v for k, v in table["ssm.scan"]["kernels"].items() if any(p in k for p in K4))
