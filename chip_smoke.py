@@ -49,7 +49,14 @@ Phases, each fatal on failure:
    bf16, 4 taps) bit for bit against its plain version
    (repro_torch.models.ssm.causal_conv1d), and the kernel's, the plain
    version's and F.conv1d's times for one mixer's three launches beside the
-   byte bound.  The SSD-scan kernel against its plain PyTorch version at the shapes
+   byte bound.  The one-pass RMSNorm kernel at both score cells' shapes
+   (gated: 256 x 2048 rows of 2048 and 16 x 4096 rows of 2 groups of 3584;
+   plain: widths 1024, 3584 and 7168), each called once through its wrapper
+   as the models call it (one launch counted), held against its plain
+   version (models.ssm.gated_norm, models.ops.rms_norm) as held_norm says,
+   and the kernel's, the plain version's and F.rms_norm's times beside the
+   byte bound; zamba2-7b-instruct's gated shape once more in float32, where
+   a kernel that drops eps must fail the check.  The SSD-scan kernel against its plain PyTorch version at the shapes
    of tests/test_kernels.py and the reduced configs' in float32 and bf16,
    its chunk-independence case, and in bf16 the zamba2-7b and mamba2-370m
    head and state sizes and the full-width scoring shape (2e-4 in float32,
@@ -79,7 +86,10 @@ Phases, each fatal on failure:
    and both faulty scans, run on the same inputs, must fail it on every
    layer of more than one chunk; the smallest margin is printed.  The
    scoring pass must launch the convolution kernel 3 times a layer (x, B and
-   C), each launch bit-equal to the plain version on its own inputs;
+   C), each launch bit-equal to the plain version on its own inputs, and
+   the norm kernel 48 + 1 times (norm_in, final_norm) and 48 times gated,
+   each launch held against the plain version on its own inputs (phase 9's
+   restored pass likewise);
 7. hammer: the paper's fdb-hammer benchmark (benchmarks/fdb_hammer_torch.py)
    at its field size of 1 MiB.  (a) run_config drives the tiered codec
    deployment with 4 writer/reader threads, 5 output steps of 10 params x 10
@@ -112,7 +122,12 @@ Phases, each fatal on failure:
    token.  Each model prints its token rates, ms per decode step, peak card
    memory, one profiled decode step, and the kernel's time at its served
    shapes beside scaled_dot_product_attention's and the bound, each launch
-   held against the plain version;
+   held against the plain version.  Serving launches no norm kernel
+   (prefill and decode keep the plain norm).  zamba2-7b-instruct at full
+   width scores one row of 4096 tokens under "pallas": the norm kernel 81 +
+   1 + 13 + 13 times (norm_in, final_norm, the shared blocks' two norms) and
+   81 times gated, each launch held against the plain version on its own
+   inputs;
 9. distributed: a one-rank NCCL process group and a (1, 1) cuda device mesh
    ("data", "model").  Phase 6's last checkpoint of mamba2-370m (bf16
    parameters and float32 optimizer state) is restored onto it through
@@ -254,6 +269,33 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CKPT_EVERY, FAIL_AT = 8, 2048, 6, 3, 4
 # 2048 tokens): one mixer's three calls, x over d_inner and B, C over d_state
 # channels, d_conv taps, bf16
 CONV_FULL = (256, 2048, (2048, 128, 128), 4)
+# the one-pass RMSNorm at the score cells' shapes, bf16: (batch, sequence,
+# groups, group width, gated) -- mamba2-370m's gated norm and norm_in (256 x
+# 2048 tokens), zamba2-7b-instruct's gated norm (2 groups), norm_in and
+# pre-FF norm, and its shared blocks' pre-attention norm over concat(h, x0)
+# (16 x 4096 tokens)
+NORM_SHAPES = ((256, 2048, 1, 2048, True), (16, 4096, 2, 3584, True),
+               (256, 2048, 1, 1024, False), (16, 4096, 1, 3584, False),
+               (16, 4096, 1, 7168, False))
+# zamba2-7b-instruct's gated norm once more in float32, where a kernel that
+# drops eps (a relative change of eps / var in the variance, ~1e-6 here) is
+# tens of float32 ulps off at most elements, past NORM_ULPS and NORM_DIFFER;
+# in bf16 it flips too few roundings for the bf16 check to see it
+NORM_F32 = (16, 4096, 2, 3584, True)
+NORM_EPS = 1e-5
+# zamba2-7b-instruct's score cell's sequence, scored as one row in phase 8
+HYBRID_SCORE_SEQ = 4096
+# the kernel against the plain version, which differ in the order of the
+# float32 sum of squares alone: that moves rsqrt's result by an ulp or so.  In
+# bf16 it flips the rounding of g * r at a few elements in a million (one bf16
+# ulp each; 1.2e-6 to 7.9e-6 on an H100 at the cells' widths).  In float32
+# g * r is the output, so a row whose rsqrt moves moves by an ulp or more in
+# most of its elements: 12-22 % of them, up to 3 float32 ulps, on an H100.
+# Held on a unit scale, so that each bound is one of the normalised value;
+# with the scale, the kernel's output must be its unit-scale output times the
+# scale, rounded as ATen rounds it, bit for bit.
+NORM_ULPS = {torch.bfloat16: 1, torch.float32: 4}
+NORM_DIFFER = {torch.bfloat16: 1e-3, torch.float32: 0.5}
 # held-out loss through the kernel against ssd_chunked, both bf16: ssd_chunked
 # rounds its scores, chunk states and inter-chunk term to bf16 where the
 # kernel keeps float32, in each of 48 layers.  H100 runs measured 2.92e-4 for
@@ -1139,6 +1181,147 @@ def conv_phase(dev, seed: int) -> dict:
             "bound_by": by, "max_abs_err": max(errs)}
 
 
+def norm_work(rows: int, groups: int, width: int, gated: bool, itemsize: int) -> int:
+    """Bytes of one norm of ``rows`` rows of ``groups`` groups of ``width``
+    channels: x (and the gate z) read once, the output written once, the scale
+    read once."""
+    n = rows * groups * width
+    return ((3 if gated else 2) * n + groups * width) * itemsize
+
+
+def plain_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, z: torch.Tensor | None = None,
+               groups: int = 1) -> torch.Tensor:
+    """The plain version of a kernel launch: the models' gated norm, or their
+    norm over each of ``groups`` groups of channels."""
+    from repro_torch.models import ops, ssm
+
+    if z is not None:
+        return ssm.gated_norm(x, z, scale, groups, eps)
+    w = x.shape[-1] // groups
+    return ops.rms_norm(x.reshape(*x.shape[:-1], groups, w), scale.reshape(groups, w),
+                        eps).reshape(x.shape)
+
+
+def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in units in the last place of b's type at b, in float64."""
+    bits = {torch.bfloat16: 8, torch.float32: 24}[b.dtype]
+    _, e = torch.frexp(b.double())
+    return (a.double() - b.double()).abs() / torch.ldexp(torch.ones_like(e, dtype=torch.float64),
+                                                         e - bits)
+
+
+def held_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, z: torch.Tensor | None = None,
+              groups: int = 1, call=None) -> dict:
+    """The norm kernel's launch ``call`` (by default the kernel's own) against
+    :func:`plain_norm` on the same inputs, as NORM_ULPS and NORM_DIFFER say;
+    raises AssertionError if it is not."""
+    from repro_torch.kernels.rms_norm import kernel as nk
+
+    call = call or nk.rms_norm_call
+    ones = torch.ones_like(scale)
+    unit, unit_plain = call(x, ones, eps, z=z, groups=groups), plain_norm(x, ones, eps, z, groups)
+    out, ref = call(x, scale, eps, z=z, groups=groups), plain_norm(x, scale, eps, z, groups)
+    apart, scaled_apart = unit != unit_plain, out != ref  # compared where they differ
+    ulps = float(ulps_apart(unit[apart], unit_plain[apart]).max()) if apart.any() else 0.0
+    err = float((out[scaled_apart].double() - ref[scaled_apart].double()).abs().max()) \
+        if scaled_apart.any() else 0.0
+    got = {"max_ulps": ulps, "differ": int(apart.sum()) / apart.numel(),
+           "differ_scaled": int(scaled_apart.sum()) / apart.numel(), "max_abs_err": err}
+    differ, differ_scaled = got["differ"], got["differ_scaled"]
+    shape = (tuple(x.shape), groups, z is not None, x.dtype)
+    assert out.dtype == ref.dtype and out.shape == ref.shape and out.is_contiguous(), shape
+    assert torch.equal(out, unit * scale), (shape, "output != unit-scale output x scale")
+    assert ulps <= NORM_ULPS[x.dtype], (shape, got)
+    assert differ < NORM_DIFFER[x.dtype] and differ_scaled < NORM_DIFFER[x.dtype], (shape, got)
+    return got
+
+
+def norm_checked(call, held: list):
+    """``call`` (the norm kernel's launch), each launch first held against the
+    plain version on its own inputs (:func:`held_norm`), into ``held``."""
+    def run(x, scale, eps, z=None, groups=1):
+        held.append(held_norm(x, scale, eps, z, groups))
+        return call(x, scale, eps, z=z, groups=groups)
+    return run
+
+
+def norm_phase(dev, seed: int) -> dict:
+    """The one-pass RMSNorm kernel at the score cells' shapes: one call
+    through the wrapper as the models make it (one launch counted, held
+    against the plain version), and the kernel's, the plain version's and
+    (without the gate) F.rms_norm's times beside the byte bound.  Then
+    NORM_F32 in float32, held, and with eps dropped, which must fail."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.rms_norm import kernel as nk
+    from repro_torch.kernels.rms_norm import ops as nops
+
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def inputs(b, s, d, gated, dtype):
+        x, z = (torch.randn((b, s, d), generator=gen, device=dev).mul_(2).to(dtype)
+                if i == 0 or gated else None for i in range(2))
+        return x, z, torch.randn((d,), generator=gen, device=dev).to(dtype)
+
+    rows_out, errs, ulps = [], [], []
+    for b, s, groups, width, gated in NORM_SHAPES:
+        rows, d = b * s, groups * width
+        x, z, scale = inputs(b, s, d, gated, torch.bfloat16)
+        held = []
+        nops.reset_kernel_launches()
+        with mock.patch.object(nops, "rms_norm_call", norm_checked(nk.rms_norm_call, held)):
+            out = nops.rms_norm(x, scale, NORM_EPS, z, groups)
+        want = {"rms_norm": 0, "gated_rms_norm": 0} | {"gated_rms_norm" if gated else "rms_norm": 1}
+        assert nops.KERNEL_LAUNCHES == want and len(held) == 1, (nops.KERNEL_LAUNCHES, len(held))
+        assert out.shape == x.shape and out.dtype == x.dtype, (out.shape, out.dtype)
+        held = held[0]
+        errs.append(held["max_abs_err"])
+        ulps.append(held["max_ulps"])
+        x2, z2 = x.view(rows, d), None if z is None else z.view(rows, d)
+        ms = device_ms(lambda: nk.rms_norm_call(x2, scale, NORM_EPS, z=z2, groups=groups))
+        plain_ms = device_ms(lambda: plain_norm(x2, scale, NORM_EPS, z2, groups), launches=5)
+        ms = statistics.mean([ms, device_ms(lambda: nk.rms_norm_call(x2, scale, NORM_EPS, z=z2,
+                                                                     groups=groups))])
+        # the library's yardstick: one call that normalises and scales, with
+        # no gate and one scale for the whole row
+        library_ms = None if gated or groups > 1 else device_ms(
+            lambda: Fn.rms_norm(x2, (width,), scale, NORM_EPS))
+        nbytes = norm_work(rows, groups, width, gated, 2)
+        bound = nbytes / HBM_RATE * 1e3
+        say(f"[norm] {'gated ' if gated else ''}rms_norm of {b} x {s} rows x {groups} group(s) of "
+            f"{width} bf16, through the wrapper: 1 launch; kernel {ms:.4f} ms ({100 * bound / ms:.2f} % "
+            f"of the bound), plain {plain_ms:.4f} ms, library F.rms_norm "
+            f"{'none (it takes no gate)' if library_ms is None else f'{library_ms:.4f} ms'}; bound "
+            f"{bound:.4f} ms by bytes: "
+            f"{nbytes / 1e9:.3f} GB at {HBM_RATE / 1e12:.2f} TB/s; against the plain version: "
+            f"max {held['max_ulps']:.0f} ulp on a unit scale, {held['differ']:.3g} of the elements "
+            f"differ ({held['differ_scaled']:.3g} with the scale, max |kernel - plain| "
+            f"{held['max_abs_err']:.3g})")
+        assert ms < plain_ms, (ms, plain_ms, "the norm kernel is slower than the plain version")
+        rows_out.append({"rows": rows, "groups": groups, "width": width, "gated": gated, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound, **held})
+        del x, z, scale, x2, z2, out
+    b, s, groups, width, gated = NORM_F32
+    x, z, scale = inputs(b, s, groups * width, gated, torch.float32)
+    f32 = held_norm(x, scale, NORM_EPS, z, groups)
+
+    def no_eps(x, scale, eps, z=None, groups=1):
+        return nk.rms_norm_call(x, scale, 0.0, z=z, groups=groups)
+
+    try:
+        held_norm(x, scale, NORM_EPS, z, groups, call=no_eps)
+    except AssertionError as e:
+        caught = str(e)
+    else:
+        raise AssertionError("the float32 check passed a kernel that drops eps")
+    say(f"[norm] gated rms_norm of {b} x {s} rows x {groups} groups of {width} float32: max "
+        f"{f32['max_ulps']:.0f} ulp on a unit scale (at most {NORM_ULPS[torch.float32]}), "
+        f"{f32['differ']:.3g} of the elements differ (under {NORM_DIFFER[torch.float32]}); with eps "
+        f"dropped the check fails: {caught[:200]}")
+    del x, z, scale
+    return {"shapes": rows_out, "max_abs_err": max(errs), "max_ulps": max(ulps), "float32": f32}
+
+
 def bit_checked(call, plain, errs: list):
     """``call`` (a kernel's launch), held against its plain version ``plain``
     bit for bit on the same inputs at each launch; the largest difference
@@ -1186,6 +1369,7 @@ def train_phase(dev, seed: int) -> dict:
     from repro_torch.core.daos import DaosEngine
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels.causal_conv import ops as cops
+    from repro_torch.kernels.rms_norm import ops as nops
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.models import ssm, train_loss
@@ -1262,6 +1446,7 @@ def train_phase(dev, seed: int) -> dict:
         torch.cuda.synchronize()
         sops.reset_kernel_launches()
         cops.reset_kernel_launches()
+        nops.reset_kernel_launches()
         t0 = time.perf_counter()
         lk, _ = train_loss(params, kernel_cfg, batch)
         lk = float(lk)
@@ -1269,6 +1454,7 @@ def train_phase(dev, seed: int) -> dict:
         launches = sops.KERNEL_LAUNCHES["ssd_scan"]
         by_instance = dict(sops.INSTANCE_LAUNCHES)
         conv_launches = cops.KERNEL_LAUNCHES["causal_conv1d"]
+        norm_launches = dict(nops.KERNEL_LAUNCHES)
         train_loss(params, cfg, batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1281,12 +1467,13 @@ def train_phase(dev, seed: int) -> dict:
                 faults[what] = float(train_loss(params, kernel_cfg, batch)[0])
         # and every layer's kernel launches against the plain versions on that
         # layer's inputs: the scan's within SSD_TOL, each of the three
-        # convolutions' bit for bit
-        layer_err, conv_err = [], []
+        # convolutions' bit for bit, each norm's as held_norm says
+        layer_err, conv_err, norm_held = [], [], []
         with mock.patch.object(sops, "ssd_scan_call",
                                checked(sops.ssd_scan_call, ssd_scan_ref, SSD_TOL, layer_err)), \
                 mock.patch.object(cops, "causal_conv1d_call",
-                                  bit_checked(cops.causal_conv1d_call, ssm.causal_conv1d, conv_err)):
+                                  bit_checked(cops.causal_conv1d_call, ssm.causal_conv1d, conv_err)), \
+                mock.patch.object(nops, "rms_norm_call", norm_checked(nops.rms_norm_call, norm_held)):
             train_loss(params, kernel_cfg, batch)
         # the gate: each layer's launch against the plain version with split
         # operands at SPLIT_TOL, and both faulty scans on the same inputs
@@ -1306,6 +1493,11 @@ def train_phase(dev, seed: int) -> dict:
     say(f"[score] causal_conv1d launches {conv_launches} = {cfg.n_layers} layers x 3 (x, B, C); "
         f"each of the {len(conv_err)} against the plain version on its own inputs: bit-equal, "
         f"max |kernel - plain| {max(conv_err):.3g}")
+    say(f"[score] rms_norm launches {norm_launches} = {cfg.n_layers} norm_in + 1 final_norm and "
+        f"{cfg.n_layers} gated; each of the {len(norm_held)} against the plain version on its own "
+        f"inputs: max {max(h['max_ulps'] for h in norm_held):.0f} ulp on a unit scale, at most "
+        f"{max(h['differ'] for h in norm_held):.3g} of a launch's elements differ, max |kernel - "
+        f"plain| {max(h['max_abs_err'] for h in norm_held):.3g}")
     ratio, layer, fault = gate.margin()
     scan_excess = [rec["scan"] for rec in gate.layers]
     say(f"[score] gate, each of the {len(gate.layers)} layers against the plain version with split "
@@ -1324,13 +1516,17 @@ def train_phase(dev, seed: int) -> dict:
     assert by_instance == {"split": launches, "fwd": 0}, by_instance
     assert len(layer_err) == cfg.n_layers, len(layer_err)
     assert conv_launches == len(conv_err) == 3 * cfg.n_layers, (conv_launches, len(conv_err))
+    assert norm_launches == {"rms_norm": cfg.n_layers + 1, "gated_rms_norm": cfg.n_layers}, norm_launches
+    assert len(norm_held) == 2 * cfg.n_layers + 1, len(norm_held)
     assert len(gate.layers) == cfg.n_layers and lg == lk, (len(gate.layers), lg, lk)
     gate.check()  # the check on the kernel's output: each layer at SPLIT_TOL
     assert all(abs(v - ln) > SCORE_TOL for v in faults.values()), faults
     restore_s = [rec["restore_s"] for rec in trainer.ckpt.timings if rec["op"] == "restore"]
     return {"launches": launches, "step_s": step_med, "losses": losses, "peak": peak,
             "layer_err": max(layer_err), "conv_launches": conv_launches,
-            "conv_err": max(conv_err), "gate_margin": ratio, "cfg": cfg, "fdb": fdb, "run": "mamba2-370m",
+            "conv_err": max(conv_err), "norm_launches": sum(norm_launches.values()),
+            "norm_err": max(h["max_abs_err"] for h in norm_held), "gate_margin": ratio, "cfg": cfg,
+            "fdb": fdb, "run": "mamba2-370m",
             "saved": saved[TRAIN_STEPS], "batch": batch, "kernel_loss": lk,
             "restore_s": restore_s[0]}
 
@@ -1613,6 +1809,7 @@ def serve_family(dev, seed: int, arch: str) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rms_norm import ops as nops
     from repro_torch.models import decode_step, init_cache, prefill
     from repro_torch.serving import Request, ServeEngine
 
@@ -1637,6 +1834,7 @@ def serve_family(dev, seed: int, arch: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fops.reset_kernel_launches()
+    nops.reset_kernel_launches()
     t0 = time.perf_counter()
     done = engine.run()
     torch.cuda.synchronize()
@@ -1652,6 +1850,8 @@ def serve_family(dev, seed: int, arch: str) -> dict:
         assert all(0 <= t < cfg.vocab for t in r.generated), r.rid
     assert st["prefills"] == SERVE_REQUESTS
     assert launches == sites * st["prefills"], (launches, sites, st["prefills"])
+    # prefill and decode keep the plain norm
+    assert nops.KERNEL_LAUNCHES == {"rms_norm": 0, "gated_rms_norm": 0}, nops.KERNEL_LAUNCHES
     want = {name: launches if name == instance else 0 for name in by_instance}
     assert by_instance == want, (by_instance, want)
     prefill_tps = st["prefill_tokens"] / st["prefill_s"]
@@ -1660,7 +1860,7 @@ def serve_family(dev, seed: int, arch: str) -> dict:
     say(f"[families] {arch}: {SERVE_REQUESTS} requests, prompt lengths {lengths}, {SERVE_TOKENS} "
         f"tokens each, max_batch {SERVE_BATCH}, cache_len {SERVE_CACHE}: wall {wall:.3f} s; "
         f"flash_attention launches {launches} = {sites} x {st['prefills']} prefills, by instance "
-        f"{by_instance}; peak card memory {peak / 1e9:.2f} GB")
+        f"{by_instance}; rms_norm launches 0; peak card memory {peak / 1e9:.2f} GB")
     say(f"[families] {arch}: prefill {st['prefill_tokens']} tokens in {st['prefill_s']:.3f} s = "
         f"{prefill_tps:.1f} tok/s; decode {st['decode_tokens']} tokens in {st['decode_steps']} steps, "
         f"{st['decode_s']:.3f} s = {decode_tps:.1f} tok/s ({step_ms:.2f} ms per step)")
@@ -1786,12 +1986,53 @@ def serve_whisper(dev, seed: int) -> dict:
             "k3_sdpa_ms": {name: a["sdpa_ms"] for name, a in at.items()}}
 
 
+def score_hybrid(dev, seed: int) -> dict:
+    """zamba2-7b-instruct at full width, one row of HYBRID_SCORE_SEQ tokens
+    scored under "pallas": the norm kernel launched at every norm of the
+    score cell's path, each launch held against the plain version."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rms_norm import ops as nops
+    from repro_torch.models import init_params, train_loss
+
+    cfg = dataclasses.replace(get_config("zamba2-7b-instruct"), attn_impl="pallas")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(seed), device=dev)
+    toks = torch.randint(1, cfg.vocab, (1, HYBRID_SCORE_SEQ + 1), generator=torch.Generator(dev).manual_seed(seed),
+                         device=dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    held = []
+    nops.reset_kernel_launches()
+    with torch.no_grad(), mock.patch.object(nops, "rms_norm_call", norm_checked(nops.rms_norm_call, held)):
+        loss = float(train_loss(params, cfg, batch)[0])
+    launches = dict(nops.KERNEL_LAUNCHES)
+    sites = len(cfg.hybrid_sites)
+    want = {"rms_norm": cfg.n_layers + 1 + 2 * sites, "gated_rms_norm": cfg.n_layers}
+    say(f"[families] zamba2-7b-instruct ({cfg.n_layers} layers, {sites} shared-block sites, d_model "
+        f"{cfg.d_model}) scores 1 x {HYBRID_SCORE_SEQ} tokens under pallas in "
+        f"{time.perf_counter() - t0:.2f} s with its weights made: loss {loss:.6f}; rms_norm launches "
+        f"{launches} = {cfg.n_layers} norm_in + 1 final_norm + {sites} x 2 shared-block norms and "
+        f"{cfg.n_layers} gated; each of the {len(held)} against the plain version on its own inputs: "
+        f"max {max(h['max_ulps'] for h in held):.0f} ulp on a unit scale, at most "
+        f"{max(h['differ'] for h in held):.3g} of a launch's elements differ")
+    assert np.isfinite(loss), loss
+    assert launches == want == {"rms_norm": 108, "gated_rms_norm": 81}, (launches, want)
+    assert len(held) == sum(want.values()), len(held)
+    del params, toks, batch
+    torch.cuda.empty_cache()
+    return {"norm_launches": sum(launches.values()), "norm_err": max(h["max_abs_err"] for h in held),
+            "loss": loss}
+
+
 def families_phase(dev, seed: int) -> dict:
     """Phase 8: zamba2-7b, granite-moe-3b-a800m and mamba2-370m behind
-    ServeEngine, whisper-tiny through prefill/decode_step, all at full width."""
+    ServeEngine, whisper-tiny through prefill/decode_step, all at full width;
+    then zamba2-7b-instruct's scoring pass (:func:`score_hybrid`)."""
     t0 = time.perf_counter()
     out = {arch: serve_family(dev, seed, arch) for arch in FAMILY_MODELS}
     out["whisper-tiny"] = serve_whisper(dev, seed)
+    out["zamba2-7b-instruct"] = score_hybrid(dev, seed)
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not loaded, f"the port loaded {loaded}"
@@ -1814,6 +2055,7 @@ def distributed_phase(dev, train: dict) -> dict:
     from repro_torch.distributed import (AbstractMesh, PartitionSpec, logical_to_spec, make_rules,
                                          named_shardings, zero_shard_tree)
     from repro_torch.kernels.causal_conv import ops as cops
+    from repro_torch.kernels.rms_norm import ops as nops
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.models import abstract_params, logical_axes, ssm, train_loss
     from repro_torch.training.optimizer import OptState
@@ -1855,24 +2097,32 @@ def distributed_phase(dev, train: dict) -> dict:
         params.copy_from(tree_map(lambda t: t.to_local(), state["params"]))
         del state, leaves
         kernel_cfg = dataclasses.replace(cfg, attn_impl="pallas")
-        conv_err = []
+        conv_err, norm_held = [], []
         with torch.no_grad(), mock.patch.object(
                 cops, "causal_conv1d_call",
-                bit_checked(cops.causal_conv1d_call, ssm.causal_conv1d, conv_err)):
+                bit_checked(cops.causal_conv1d_call, ssm.causal_conv1d, conv_err)), \
+                mock.patch.object(nops, "rms_norm_call", norm_checked(nops.rms_norm_call, norm_held)):
             sops.reset_kernel_launches()
             cops.reset_kernel_launches()
+            nops.reset_kernel_launches()
             loss = float(train_loss(params, kernel_cfg, train["batch"])[0])
             launches = sops.KERNEL_LAUNCHES["ssd_scan"]
             by_instance = dict(sops.INSTANCE_LAUNCHES)
             conv_launches = cops.KERNEL_LAUNCHES["causal_conv1d"]
+            norm_launches = dict(nops.KERNEL_LAUNCHES)
         say(f"[dist] held-out batch scored from the restored parameters (to_local): loss {loss:.6f}, "
             f"phase 6's through the kernel {train['kernel_loss']:.6f}, |diff| "
             f"{abs(loss - train['kernel_loss']):.3g} (tolerance {RESTORED_SCORE_TOL}); ssd_scan "
             f"launches {launches}, by instance {by_instance}; causal_conv1d launches "
-            f"{conv_launches}, each bit-equal to the plain version on its inputs")
+            f"{conv_launches}, each bit-equal to the plain version on its inputs; rms_norm launches "
+            f"{norm_launches}, each within {max(h['max_ulps'] for h in norm_held):.0f} ulp of the "
+            "plain version on its inputs")
         assert by_instance == {"split": cfg.n_layers, "fwd": 0}, by_instance
         assert launches == cfg.n_layers, launches
         assert conv_launches == len(conv_err) == 3 * cfg.n_layers, (conv_launches, len(conv_err))
+        assert norm_launches == {"rms_norm": cfg.n_layers + 1, "gated_rms_norm": cfg.n_layers}, \
+            norm_launches
+        assert len(norm_held) == 2 * cfg.n_layers + 1, len(norm_held)
         assert abs(loss - train["kernel_loss"]) <= RESTORED_SCORE_TOL, (loss, train["kernel_loss"])
         del params
         torch.cuda.empty_cache()
@@ -1916,7 +2166,9 @@ def distributed_phase(dev, train: dict) -> dict:
     seconds = time.perf_counter() - t0
     say(f"[dist] phase 9 in {seconds:.2f} s (restore {restore_s:.2f} s, run_torch.py {harness_s:.2f} s)")
     return {"launches": launches, "conv_launches": conv_launches, "conv_err": max(conv_err),
-            "restore_s": restore_s, "loss": loss, "harness": harness, "seconds": seconds}
+            "norm_launches": sum(norm_launches.values()),
+            "norm_err": max(h["max_abs_err"] for h in norm_held), "restore_s": restore_s, "loss": loss,
+            "harness": harness, "seconds": seconds}
 
 
 def dry_cell(cell: tuple, out_dir: str) -> dict:
@@ -2237,6 +2489,7 @@ def main() -> int:
     from repro_torch.kernels.grib_pack import kernel as gk
     from repro_torch.kernels.grib_pack import ops as gops
     from repro_torch.kernels.grib_pack.ref import field_stats, pack_ref, unpack_ref
+    from repro_torch.kernels.rms_norm import kernel as nk
     from repro_torch.kernels.ssd_scan import kernel as sk
 
     dev = torch.device("cuda", 0)
@@ -2256,7 +2509,7 @@ def main() -> int:
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}"
         f" devices {torch.cuda.device_count()} memory rate used for bounds {HBM_RATE / 1e12:.2f} TB/s")
     t0 = time.perf_counter()
-    libraries = [gk.LIBRARY, fk.LIBRARY, sk.LIBRARY, ck.LIBRARY]
+    libraries = [gk.LIBRARY, fk.LIBRARY, sk.LIBRARY, ck.LIBRARY, nk.LIBRARY]
     libs = _build.build_all(libraries)  # one nvcc per source, all at once
     say(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libraries:  # ptxas's warnings and performance notes, not its -v lines
@@ -2271,6 +2524,11 @@ def main() -> int:
         for mangled, said in k4_ptxas.items():
             n = 128 if "ILi128E" in mangled else 64
             say(f"[build] {kname}<{n}> (ptxas -v): {said}; {smem(n)} bytes of dynamic shared memory")
+    norm_ptxas = ptxas_lines(nk.LIBRARY.build_log, "rms_norm_kernel")
+    assert len(norm_ptxas) == 4, norm_ptxas.keys()  # float32 and bf16, with and without the gate
+    for mangled, said in norm_ptxas.items():
+        dtype = "bf16" if "nv_bfloat16" in mangled else "float32"
+        say(f"[build] rms_norm_kernel<{dtype}, gate {'Lb1' in mangled}> (ptxas -v): {said}")
 
     # ------------------------------------------------------------- 2. kernels
     t0 = time.perf_counter()
@@ -2386,6 +2644,8 @@ def main() -> int:
     # ----------------------------------------------------------------- 6. ssm
     conv = conv_phase(dev, args.seed)
     torch.cuda.empty_cache()
+    norm = norm_phase(dev, args.seed)
+    torch.cuda.empty_cache()
     ssd = ssd_phase(dev, args.seed)
     torch.cuda.empty_cache()
     train = train_phase(dev, args.seed)
@@ -2489,6 +2749,27 @@ def main() -> int:
         "launches_by_path": conv_paths,
         "max_abs_err": max(conv["max_abs_err"], train["conv_err"], dist9["conv_err"]),
         **{k: conv[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
+    # every path that runs the norm kernel: the same two scoring passes
+    norm_paths = {"score (phase 6)": train["norm_launches"],
+                  "score restored (phase 9)": dist9["norm_launches"],
+                  "score zamba2-7b-instruct (phase 8)": families["zamba2-7b-instruct"]["norm_launches"]}
+    assert all(norm_paths.values()), norm_paths
+    gated = norm["shapes"][0]  # mamba2-370m's gated norm, the largest of the score cell
+    kernels.append({
+        "name": "rms_norm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rms_norm/csrc/rms_norm.cu",
+        "replaces": None,  # the reference normalises with jnp (repro.models.ops.rms_norm)
+        "launches": sum(norm_paths.values()),
+        "launches_by_path": norm_paths,
+        "max_abs_err": max(norm["max_abs_err"], train["norm_err"], dist9["norm_err"],
+                           families["zamba2-7b-instruct"]["norm_err"]),
+        **{k: gated[k] for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call gates and normalises; F.rms_norm's
+        # times at the shapes without the gate are under "shapes"
+        "shapes": norm["shapes"],
     })
     say(json.dumps({"kernels": kernels}))
     say(smi)

@@ -8,6 +8,9 @@
 - causal_conv: the Mamba2 mixer's causal depthwise convolution with its bias
   and silu on the channel-last layout, the scoring path's ``ssm.conv`` stage
   (it replaces no TPU kernel)
+- rms_norm: one-pass RMSNorm over groups of channels, with the mixer's
+  ``y * silu(z)`` gate as an optional second input, the scoring path's norms
+  (it replaces no TPU kernel)
 
 Each package mirrors the reference's three files: ``kernel.py`` builds and
 binds the CUDA source under ``csrc/``, ``ops.py`` is the public wrapper that

@@ -18,6 +18,11 @@ the shared block the embedding of the *previous* token as ``x0``
 position its own token's embedding; the port's decode feeds the current
 token's, so that decode continues the forward.
 
+Under ``attn_impl="pallas"`` the train forward's norms of the ssm and
+hybrid layers, of the shared blocks and the final norm of every family go
+through the hand-written one-pass norm; prefill, decode, the encoder and the
+attention families' block norms keep the plain one.
+
 The train forward's embedding, final norm and loss run as named stages
 (:func:`repro_torch.obs.stages.stage`), as do the ssm mixer's parts and the
 published Zamba2's shared block, so a profiler's trace of scoring puts each
@@ -138,35 +143,46 @@ def _is_shared_site(cfg: ModelConfig, i: int) -> bool:
     return bool(every) and i % every == every - 1
 
 
-def _shared_qkv(h, x0, sp, cfg: ModelConfig, positions):
+def _train_norm(cfg: ModelConfig):
+    """The train forward's norm: the hand-written one-pass kernel's wrapper
+    under ``attn_impl="pallas"``, else the plain ``rms_norm``."""
+    if cfg.attn_impl != "pallas":
+        return rms_norm
+    from ..kernels.rms_norm import ops as norm_ops
+
+    return norm_ops.rms_norm
+
+
+def _shared_qkv(h, x0, sp, cfg: ModelConfig, positions, norm=rms_norm):
     """Zamba2's shared block, its attention's inputs: q, k, v over
     concat(h, x0) (2·d), with RoPE."""
-    u = rms_norm(torch.cat([h, x0], dim=-1), sp["attn_norm"], cfg.norm_eps)
+    u = norm(torch.cat([h, x0], dim=-1), sp["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(u, sp, cfg)
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
-def _shared_out(h, out, sp, cfg: ModelConfig):
+def _shared_out(h, out, sp, cfg: ModelConfig, norm=rms_norm):
     """Zamba2's shared block after its attention: output projection and SwiGLU FFN."""
     h = h + torch.einsum("bshk,hkd->bsd", out, sp["wo"])
-    f = swiglu(rms_norm(h, sp["ffn_norm"], cfg.norm_eps), sp["w_gate"], sp["w_up"], sp["w_down"])
+    f = swiglu(norm(h, sp["ffn_norm"], cfg.norm_eps), sp["w_gate"], sp["w_up"], sp["w_down"])
     return h + f
 
 
-def _site_block(h, x0, params, cfg: ModelConfig, site: int, positions) -> torch.Tensor:
+def _site_block(h, x0, params, cfg: ModelConfig, site: int, positions, norm) -> torch.Tensor:
     """The published Zamba2's shared block at ``site``, through the site's
-    linear, added to h: the mixer's input at the site's layer."""
+    linear, added to h: the mixer's input at the site's layer; ``norm`` is
+    the train forward's (:func:`_train_norm`)."""
     block = site % cfg.n_shared_blocks
     sp, ap = params["shared"][block], params["sites"][site]
     with _calls_mu:
         SHARED_BLOCK_CALLS[block] = SHARED_BLOCK_CALLS.get(block, 0) + 1
     with stage("shared.attn_in"):
-        q, k, v = _shared_qkv(h, x0, sp, cfg, positions)
+        q, k, v = _shared_qkv(h, x0, sp, cfg, positions, norm)
     with stage("shared.attn"):
         out = gqa_attention(q, k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
                             scale=cfg.attn_scale or None)
     with stage("shared.attn_out"):
-        t = rms_norm(torch.einsum("bshk,hkd->bsd", out, sp["wo"]), sp["ffn_norm"], cfg.norm_eps)
+        t = norm(torch.einsum("bshk,hkd->bsd", out, sp["wo"]), sp["ffn_norm"], cfg.norm_eps)
     with stage("shared.mlp"):
         a = torch.matmul(t, ap["lora_in"])
         g = torch.matmul(t, sp["w_gate"]) + torch.matmul(a, ap["lora_gate"])
@@ -233,6 +249,7 @@ def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, 
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     unroll = not cfg.scan_layers
+    norm = _train_norm(cfg)
 
     if cfg.family in ("dense", "moe", "vlm"):
         def body(carry, bp):
@@ -263,10 +280,10 @@ def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, 
 
         def body(hh, xs):
             bp, i = xs
-            m = maybe_cond(i in site_of, lambda v: _site_block(v, x0, params, cfg, site_of[i], positions),
+            m = maybe_cond(i in site_of, lambda v: _site_block(v, x0, params, cfg, site_of[i], positions, norm),
                            lambda v: v, hh)
             with stage("ssm.norm_in"):
-                x = rms_norm(m, bp["norm_in"], cfg.norm_eps)
+                x = norm(m, bp["norm_in"], cfg.norm_eps)
             return constrain(hh + mamba_mixer(x, bp, cfg), "batch", "seq_sp", "d_model"), None
 
         h, _ = layer_scan(_remat(body, cfg), h, (params["blocks"], list(range(cfg.n_layers))),
@@ -276,14 +293,14 @@ def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, 
 
         def shared_block(hh):
             sp = params["shared"]
-            q, k, v = _shared_qkv(hh, x0, sp, cfg, positions)
+            q, k, v = _shared_qkv(hh, x0, sp, cfg, positions, norm)
             out = gqa_attention(q, k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-            return constrain(_shared_out(hh, out, sp, cfg), "batch", "seq_sp", "d_model")
+            return constrain(_shared_out(hh, out, sp, cfg, norm), "batch", "seq_sp", "d_model")
 
         def body(hh, xs):
             bp, i = xs
             with stage("ssm.norm_in"):
-                x = rms_norm(hh, bp["norm_in"], cfg.norm_eps)
+                x = norm(hh, bp["norm_in"], cfg.norm_eps)
             hh = hh + mamba_mixer(x, bp, cfg)
             hh = constrain(hh, "batch", "seq_sp", "d_model")
             return maybe_cond(_is_shared_site(cfg, i), shared_block, lambda v: v, hh), None
@@ -294,7 +311,7 @@ def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, 
         raise ValueError(f"unknown family {cfg.family}")
 
     with stage("model.final_norm"):
-        return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
+        return norm(h, params["final_norm"], cfg.norm_eps), aux
 
 
 def lm_logits(params: ModelParams, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:

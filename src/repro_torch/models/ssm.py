@@ -7,7 +7,8 @@ chunk states); ``mamba_mixer`` wraps projections, causal convolutions,
 gating and the output norm, and, as in the reference, ``attn_impl ==
 "pallas"`` selects the hand-written SSD-scan kernel instead of
 ``ssd_chunked`` (and, unlike the reference, the hand-written channel-last
-causal convolution instead of ``causal_conv1d``); its parts run as named stages
+causal convolution instead of ``causal_conv1d`` and the hand-written one-pass
+gated norm instead of ``gated_norm``); its parts run as named stages
 (:func:`repro_torch.obs.stages.stage`) that a profiler's trace shows.
 With ``cfg.ssm.ngroups`` G above 1 (Zamba2), B and C hold G groups of N
 channels and heads [g H/G, (g + 1) H/G) read group g's, and the gated norm
@@ -168,11 +169,15 @@ def mamba_mixer(x: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
         z, xin, B_, C_, dt = _project(x, params)
     if cfg.attn_impl == "pallas":
         from ..kernels.causal_conv import ops as conv_ops
+        from ..kernels.rms_norm import ops as norm_ops
         from ..kernels.ssd_scan import ops as ssd_ops
 
         conv, scan = conv_ops.causal_conv1d, ssd_ops.ssd_scan
+
+        def gate_norm(y, z, scale, groups, eps):
+            return norm_ops.rms_norm(y, scale, eps, z, groups)
     else:
-        conv, scan = causal_conv1d, ssd_chunked
+        conv, scan, gate_norm = causal_conv1d, ssd_chunked, gated_norm
     with stage("ssm.conv"):
         xin = conv(xin, params["conv_x"], params["conv_x_b"])
         B_ = conv(B_, params["conv_B"], params["conv_B_b"])
@@ -195,7 +200,7 @@ def mamba_mixer(x: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
             y = scan(*args, chunk=cfg.ssm.chunk)
         y = y.reshape(b, s, di)
     with stage("ssm.gate_norm"):
-        y = gated_norm(y, z, params["norm"], groups, cfg.norm_eps)
+        y = gate_norm(y, z, params["norm"], groups, cfg.norm_eps)
     with stage("ssm.out_proj"):
         return torch.matmul(y, params["out_proj"])
 

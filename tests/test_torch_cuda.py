@@ -800,3 +800,117 @@ def test_scoring_mamba2_370m_launches_the_conv_kernel_three_times_a_layer(cuda):
             loss = float(train_loss(params, dataclasses.replace(cfg, attn_impl=impl), batch)[0])
         assert np.isfinite(loss)
         assert cc.KERNEL_LAUNCHES == {"causal_conv1d": launches} and 3 * cfg.n_layers == 144
+
+
+# The one-pass RMSNorm (attn_impl="pallas"): the kernel against the plain
+# versions on the card, at the cells' group widths (mamba2-370m's 1024 and
+# 2048, zamba2-7b-instruct's 3584 as one group and as 2 groups of 7168, and
+# 7168), with and without the gate, at one token, one past 256 and 2048.
+# chip_smoke.held_norm says what is held and why (NORM_ULPS, NORM_DIFFER).
+NORM_CASES = ((1, 1024), (1, 2048), (1, 3584), (2, 3584), (1, 7168))  # (groups, group width)
+NORM_LENGTHS = (1, 257, 2048)
+
+
+def norm_inputs(cuda, seed: int, b: int, s: int, d: int, dtype, gated: bool):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x, z = ((torch.randn((b, s, d), generator=gen, device=cuda) * 2).to(dtype) for _ in range(2))
+    scale = torch.randn((d,), generator=gen, device=cuda).to(dtype)
+    return x, (z if gated else None), scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups,width", NORM_CASES)
+@pytest.mark.parametrize("s", NORM_LENGTHS)
+@pytest.mark.parametrize("gated", [False, True])
+def test_norm_kernel_is_within_one_ulp_of_the_plain_version(cuda, dtype, groups, width, s, gated):
+    x, z, scale = norm_inputs(cuda, width + s + groups, 2, s, groups * width, dtype, gated)
+    got = chip_smoke.held_norm(x, scale, 1e-5, z, groups)
+    torch.cuda.synchronize()
+    assert got["max_ulps"] <= chip_smoke.NORM_ULPS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_kernel_takes_any_multiple_of_eight_channels(cuda, dtype):
+    """The narrowest groups, groups that leave threads idle, and groups wider
+    than the registers hold, whose vectors past them are read twice."""
+    for width in (8, 16, 24, 40, 1000, 8200, 20480):
+        for gated in (False, True):
+            x, z, scale = norm_inputs(cuda, width, 3, 5, width, dtype, gated)
+            chip_smoke.held_norm(x, scale, 1e-5, z, 1)
+
+
+def test_norm_wrappers_count_launches_and_refuse_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import rms_norm as rn
+
+    x, z, scale = norm_inputs(cuda, 0, 2, 16, 64, torch.bfloat16, True)
+    rn.reset_kernel_launches()
+    out = rn.rms_norm(x, scale)
+    gated = rn.rms_norm(x, scale, 1e-5, z, 2)
+    assert rn.KERNEL_LAUNCHES == {"rms_norm": 1, "gated_rms_norm": 1}
+    assert out.shape == gated.shape == x.shape and out.dtype == torch.bfloat16
+    rn.reset_kernel_launches()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rn.rms_norm(x.half(), scale.half())
+    with pytest.raises(ValueError, match="scale is torch.float32"):
+        rn.rms_norm(x, scale.float())  # the plain version would promote to float32
+    with pytest.raises(ValueError, match="z is torch.float32"):
+        rn.rms_norm(x, scale, 1e-5, z.float())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rn.rms_norm(x[..., :12], scale[:12])
+    with pytest.raises(ValueError, match="gate of x's shape"):
+        rn.rms_norm(x, scale, 1e-5, z[:1])
+    assert rn.KERNEL_LAUNCHES == {"rms_norm": 0, "gated_rms_norm": 0}
+    cpu = rn.rms_norm(x.cpu(), scale.cpu(), 1e-5, z.cpu(), 2)
+    assert rn.KERNEL_LAUNCHES == {"rms_norm": 0, "gated_rms_norm": 0}
+    assert torch.equal(cpu, tssm.gated_norm(x.cpu(), z.cpu(), scale.cpu(), 2, 1e-5))
+    with pytest.raises(NotImplementedError, match="no VJP"):
+        rn.rms_norm(x.float().requires_grad_(True), scale.float()).sum().backward()
+
+
+def test_norm_wrapper_runs_a_dtensors_rows_through_the_kernel(cuda):
+    """On a one-rank mesh on the card: sharded over its rows, each rank's rows
+    go through the kernel, with the kernel's bits; sharded over its width,
+    the plain version completes the sums and PLAIN_ON_CARD counts it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels import rms_norm as rn
+
+    x, z, scale = norm_inputs(cuda, 1, 2, 16, 64, torch.bfloat16, True)
+    want = rn.rms_norm(x, scale, 1e-5, z, 2)
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1,))
+        rn.reset_kernel_launches()
+        xs, zs = (distribute_tensor(t, mesh, [Shard(0)]) for t in (x, z))
+        got = rn.rms_norm(xs, distribute_tensor(scale, mesh, [Replicate()]), 1e-5, zs, 2)
+        assert isinstance(got, DTensor) and torch.equal(got.full_tensor(), want)
+        assert rn.KERNEL_LAUNCHES == {"rms_norm": 0, "gated_rms_norm": 1}
+        assert rn.PLAIN_ON_CARD == {"rms_norm": 0, "gated_rms_norm": 0}
+        xs, zs = (distribute_tensor(t, mesh, [Shard(2)]) for t in (x, z))
+        got = rn.rms_norm(xs, distribute_tensor(scale, mesh, [Shard(0)]), 1e-5, zs, 2)
+        torch.testing.assert_close(got.full_tensor(), tssm.gated_norm(x, z, scale, 2, 1e-5))
+        assert rn.KERNEL_LAUNCHES == {"rms_norm": 0, "gated_rms_norm": 1}
+        assert rn.PLAIN_ON_CARD == {"rms_norm": 0, "gated_rms_norm": 1}
+    finally:
+        dist.destroy_process_group()
+
+
+def test_scoring_mamba2_370m_launches_the_norm_kernel_at_every_norm(cuda):
+    """A scored batch of mamba2-370m at full width: 48 + 1 plain launches
+    (norm_in, final_norm) and 48 gated under "pallas", none under "naive"."""
+    from repro_torch.kernels import rms_norm as rn
+
+    cfg = get_config("mamba2-370m")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab, (2, 257)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    losses = {}
+    for impl, launches in (("pallas", {"rms_norm": 49, "gated_rms_norm": 48}),
+                           ("naive", {"rms_norm": 0, "gated_rms_norm": 0})):
+        rn.reset_kernel_launches()
+        with torch.no_grad():
+            losses[impl] = float(train_loss(params, dataclasses.replace(cfg, attn_impl=impl), batch)[0])
+        assert np.isfinite(losses[impl])
+        assert rn.KERNEL_LAUNCHES == launches and cfg.n_layers == 48
