@@ -74,6 +74,7 @@ def bench_paper_figures() -> None:
 def bench_kernels(device: str = "cuda") -> None:
     import torch
 
+    from repro_torch.kernels import launches
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.grib_pack import ops as gops
@@ -102,20 +103,19 @@ def bench_kernels(device: str = "cuda") -> None:
             torch.cuda.synchronize(dev)
         return (time.perf_counter() - t0) / reps
 
-    def kernel(name: str, fn, plain_out, tol: dict, reps: int, ops, key: str, derived) -> None:
+    def kernel(name: str, fn, plain_out, tol: dict, reps: int, key: str, derived) -> None:
         """The hand-written kernel's line at the plain line's shape: its
-        instance and launch count from the wrapper's counters, and its
+        instance and launch count from the kernels' launch counter, and its
         largest difference from its plain version's output ``plain_out``,
         which it must be within ``tol`` of."""
-        ops.reset_kernel_launches()
+        launches.reset()
         dt = timed(fn, reps)
-        launches = ops.KERNEL_LAUNCHES[key]
-        by_instance = getattr(ops, "INSTANCE_LAUNCHES", {key: launches})
-        ran = "+".join(k for k, v in by_instance.items() if v)
+        n = launches.snapshot()[key]
+        ran = "+".join(launches.by(key, "instance")) or key
         out = fn()
         torch.testing.assert_close(out.float(), plain_out.float(), **tol)
         err = float((out.float() - plain_out.float()).abs().max())
-        _line(name, 1e6 * dt, f"{derived(dt)} instance={ran} launches={launches} max_abs_err={err:.3g}")
+        _line(name, 1e6 * dt, f"{derived(dt)} instance={ran} launches={n} max_abs_err={err:.3g}")
 
     f32_tol = dict(atol=2e-4, rtol=2e-4)  # tests/test_kernels.py, float32
 
@@ -132,7 +132,7 @@ def bench_kernels(device: str = "cuda") -> None:
     if on_card:
         out = plain().reshape(1, 4, 2, 1024, 64).permute(0, 3, 1, 2, 4)
         kernel("flash_attention_1k", lambda: fops.flash_attention(q, k, v, causal=True), out, f32_tol, 5,
-               fops, "flash_attention", lambda t: f"{flops/t/1e9:.1f}GFLOPs_{dev.type}")
+               "flash_attention", lambda t: f"{flops/t/1e9:.1f}GFLOPs_{dev.type}")
 
     x = randn(2, 512, 8, 32)
     dtv = torch.nn.functional.softplus(randn(2, 512, 8))
@@ -147,7 +147,7 @@ def bench_kernels(device: str = "cuda") -> None:
         out = ssd_scan_ref(xf, dtf, af, B_, C_, df, heads=8, chunk=128)
         out = out.reshape(2, 8, 512, 32).permute(0, 2, 1, 3)
         kernel("ssd_scan_512", lambda: sops.ssd_scan(x, dtv, A, B_, C_, D_, chunk=128), out,
-               f32_tol, 5, sops, "ssd_scan", lambda t: f"kernel_{dev.type}")
+               f32_tol, 5, "ssd_scan", lambda t: f"kernel_{dev.type}")
 
     f = randn(8, 256, 512) * 30 + 250
     plain = lambda: pack_ref(f, *field_stats(f)[::2])  # noqa: E731
@@ -155,7 +155,7 @@ def bench_kernels(device: str = "cuda") -> None:
     _line("grib_pack_8x256x512", 1e6 * dt, f"{f.numel()*4/dt/2**30:.2f}GiBps_{dev.type}")
     if on_card:
         kernel("grib_pack_kernel_8x256x512", lambda: gops.grib_pack(f, nbits=16)[0], plain(),
-               dict(atol=0, rtol=0), 10, gops, "grib_pack", lambda t: f"{f.numel()*4/t/2**30:.2f}GiBps_{dev.type}")
+               dict(atol=0, rtol=0), 10, "grib_pack", lambda t: f"{f.numel()*4/t/2**30:.2f}GiBps_{dev.type}")
 
 
 def bench_ckpt_overlap() -> None:

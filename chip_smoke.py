@@ -47,13 +47,13 @@ Phases, each fatal on failure:
 6. ssm: the mixer's causal-convolution kernel at the score cell's shape
    (mamba2-370m, 256 x 2048 tokens: x over 2048 channels, B and C over 128,
    bf16, 4 taps) bit for bit against its plain version
-   (repro_torch.models.ssm.causal_conv1d), and the kernel's, the plain
+   (repro_torch/kernels/causal_conv/ref.py), and the kernel's, the plain
    version's and F.conv1d's times for one mixer's three launches beside the
    byte bound.  The one-pass RMSNorm kernel at both score cells' shapes
    (gated: 256 x 2048 rows of 2048 and 16 x 4096 rows of 2 groups of 3584;
    plain: widths 1024, 3584 and 7168), each called once through its wrapper
    as the models call it (one launch counted), held against its plain
-   version (models.ssm.gated_norm, models.ops.rms_norm) as held_norm says,
+   version (repro_torch/kernels/rms_norm/ref.py) as held_norm says,
    and the kernel's, the plain version's and F.rms_norm's times beside the
    byte bound; zamba2-7b-instruct's gated shape once more in float32, where
    a kernel that drops eps must fail the check.  The SSD-scan kernel against its plain PyTorch version at the shapes
@@ -199,10 +199,13 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-sys.path[:0] = [str(ROOT / "src"), str(ROOT / "benchmarks")]
+sys.path[:0] = [str(ROOT / "src"), str(ROOT / "benchmarks"), str(ROOT)]
 
 from fdb_hammer_torch import TIERED_CODEC_CONFIG  # noqa: E402
+from perfbench.roofline import attention_bound, ssd_bound, ssd_bytes, ssd_ops  # noqa: E402
+from repro_torch.kernels import launches as launch_count  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import attention_pairs  # noqa: E402
+from repro_torch.kernels.rms_norm.ref import rms_norm as plain_norm  # noqa: E402
 from repro_torch.kernels.ssd_scan.gate import SPLIT_TOL, LayerGate, faulty_scans  # noqa: E402
 from repro_torch.roofline import HW  # noqa: E402
 
@@ -420,6 +423,12 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
+def counted(*names: str) -> dict[str, int]:
+    """The kernel launches counted under ``names`` since the counter's last reset."""
+    snap = launch_count.snapshot()
+    return {name: snap[name] for name in names}
+
+
 def make_fields(f: int, h: int, w: int, seed: int, device) -> torch.Tensor:
     """Smooth harmonics around a base temperature plus noise, on the card;
     every coefficient and the noise come from numpy's default_rng(seed)."""
@@ -511,7 +520,6 @@ def drive_path(x: torch.Tensor, keys: list, *, trace: bool) -> dict:
     from repro_torch.core.codec import (
         CODEC_HEADER_SIZE, kernel_launches, parse_header, reset_kernel_launches,
     )
-    from repro_torch.kernels.grib_pack import ops as gops
 
     cfg = json.loads(json.dumps(TIERED_CODEC_CONFIG))
     cfg["trace"] = trace
@@ -520,7 +528,7 @@ def drive_path(x: torch.Tensor, keys: list, *, trace: bool) -> dict:
         with build_fdb(cfg) as fdb:
             torch.cuda.synchronize()
             reset_kernel_launches()
-            gops.reset_kernel_launches()
+            launch_count.reset()
             t0 = time.perf_counter()
             fdb.archive_fields(keys, x)
             fdb.flush()
@@ -529,7 +537,7 @@ def drive_path(x: torch.Tensor, keys: list, *, trace: bool) -> dict:
             got = fdb.retrieve_fields("step=0")
             arrays = got.arrays()
             t_retrieve = time.perf_counter() - t0
-            launches = dict(gops.KERNEL_LAUNCHES)
+            launches = counted("grib_pack", "grib_unpack")
             codec_counts = kernel_launches()
 
             assert codec_counts == {"pack": 2, "unpack": 2}, codec_counts  # one pack per tier
@@ -566,14 +574,9 @@ def drive_path(x: torch.Tensor, keys: list, *, trace: bool) -> dict:
             "codec_counts": codec_counts, "wire": wire, "spans": spans}
 
 
-def attention_bound(bh: int, bk: int, sq: int, sk: int, d: int, itemsize: int,
-                    causal: bool, q_offset: int = 0) -> tuple[float, str]:
-    """Least time in ms: q, k, v read once and o written once over HBM, or
-    4*d operations per attended pair at the bf16 tensor-core rate."""
-    nbytes = (2 * bh * sq + 2 * bk * sk) * d * itemsize
-    ops = 4 * d * attention_pairs(sq, sk, causal, q_offset) * bh
-    t_bytes, t_ops = nbytes / HBM_RATE, ops / BF16_PEAK
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+def in_ms(bound: tuple[float, str]) -> tuple[float, str]:
+    """A bound of ``perfbench/roofline.py`` (seconds, what bounds it) in ms."""
+    return bound[0] * 1e3, bound[1]
 
 
 def held_in_kernel_order(out, q, k, v, *, groups: int, causal: bool, q_offset: int = 0,
@@ -699,7 +702,7 @@ def attention_phase(dev, seed: int) -> dict:
         lib_err = float((library()[0].float() - call().float()).abs().max())
         timing = {"ms": device_ms(call), "call_ms": call_ms(call),
                   "plain_ms": device_ms(plain, launches=5), "library_ms": device_ms(library)}
-        bound, by = attention_bound(kh * g, kh, s, s, d, 2, True)
+        bound, by = in_ms(attention_bound(kh * g, kh, s, s, d, 2, True))
         flops = 4 * d * attention_pairs(s, s, True, 0) * kh * g
         tflops = flops / timing["ms"] / 1e9
         say(f"[attention] {label} q ({kh * g}, {s}, {d}) bf16 causal, scale "
@@ -759,7 +762,6 @@ def serve_phase(dev, seed: int) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models import decode_step, init_cache, init_params, prefill
     from repro_torch.serving import Request, ServeEngine
 
@@ -790,13 +792,13 @@ def serve_phase(dev, seed: int) -> dict:
     for r in reqs:
         engine.submit(r)
     torch.cuda.synchronize()
-    fops.reset_kernel_launches()
+    launch_count.reset()
     t0 = time.perf_counter()
     done = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fops.KERNEL_LAUNCHES["flash_attention"]
-    by_instance = dict(fops.INSTANCE_LAUNCHES)
+    launches = launch_count.snapshot()["flash_attention"]
+    by_instance = launch_count.by("flash_attention", "instance")
 
     st = engine.stats
     assert len(done) == SERVE_REQUESTS and all(r.done for r in reqs)
@@ -805,7 +807,7 @@ def serve_phase(dev, seed: int) -> dict:
         assert all(0 <= t < cfg.vocab for t in r.generated), r.rid
     assert st["prefills"] == SERVE_REQUESTS
     assert launches == cfg.n_layers * st["prefills"], (launches, st["prefills"])
-    assert by_instance == {"wgmma": launches, "cuda_cores": 0}, by_instance
+    assert by_instance == {"wgmma": launches}, by_instance
     say(f"[serve] {SERVE_REQUESTS} requests, prompt lengths {lengths}, {SERVE_TOKENS} tokens each, "
         f"max_batch {SERVE_BATCH}, cache_len {SERVE_CACHE}: wall {wall:.3f} s; "
         f"flash_attention launches {launches} = {cfg.n_layers} layers x {st['prefills']} prefills, "
@@ -904,29 +906,6 @@ def ssd_flat(x, dt, A, B, C, D):
 
     xf, dtf, af, df = flatten(x, dt, A, D)
     return xf.contiguous(), dtf.contiguous(), af, B, C, df
-
-
-def ssd_ops(bh: int, s: int, p: int, n: int, q: int, bg: int) -> int:
-    """Operations the SSD scan needs, two per multiply-add: C.B^T over the
-    causal (i >= j) pairs of each chunk, once per batch entry, since its heads
-    share B and C; scores.x over the same pairs per batch-head; and per
-    batch-head C.state in every chunk but the first (its state is zero) and
-    the state update in every chunk but the last (nothing reads it)."""
-    pairs, chunks = q * (q + 1) // 2, s // q
-    return 2 * (pairs * n * bg * chunks + pairs * p * bh * chunks + 2 * q * n * p * bh * (chunks - 1))
-
-
-def ssd_bytes(bh: int, s: int, p: int, n: int, bg: int, itemsize: int) -> int:
-    """x, dt, A, D, B, C read once and y written once."""
-    return (2 * bh * s * p + 2 * bg * s * n) * itemsize + bh * s * 4 + 2 * bh * 4
-
-
-def ssd_bound(bh: int, s: int, p: int, n: int, q: int, bg: int, itemsize: int) -> tuple[float, str]:
-    """Least time in ms: :func:`ssd_bytes` over HBM, or :func:`ssd_ops` at the
-    bf16 tensor-core rate."""
-    t_bytes = ssd_bytes(bh, s, p, n, bg, itemsize) / HBM_RATE
-    t_ops = ssd_ops(bh, s, p, n, q, bg) / BF16_PEAK
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def split_launch_work(bh: int, s: int, p: int, n: int, q: int,
@@ -1068,7 +1047,7 @@ def ssd_phase(dev, seed: int) -> dict:
     t_kernel.append(device_ms(call))
     timing = {"ms": statistics.mean(t_kernel), "call_ms": call_ms(call),
               "plain_ms": device_ms(plain, launches=5), "chunked_ms": t_chunked}
-    bound, by = ssd_bound(b * h, s, p, n, chunk, b, 2)
+    bound, by = in_ms(ssd_bound(b * h, s, p, n, chunk, b, 2))
     flops, nbytes = ssd_ops(b * h, s, p, n, chunk, b), ssd_bytes(b * h, s, p, n, b, 2)
     scratch = sum(t.numel() * t.element_size() for t in (scan.cum, scan.h))
     work = split_launch_work(b * h, s, p, n, chunk, b)
@@ -1132,7 +1111,7 @@ def conv_phase(dev, seed: int) -> dict:
     import torch.nn.functional as Fn
 
     from repro_torch.kernels.causal_conv import kernel as ck
-    from repro_torch.models import ssm
+    from repro_torch.kernels.causal_conv import ref as cref
 
     b, s, widths, k = CONV_FULL
     gen = torch.Generator(dev).manual_seed(seed)
@@ -1140,7 +1119,7 @@ def conv_phase(dev, seed: int) -> dict:
                     for shape in ((b, s, c), (k, c), (c,))) for c in widths]
     errs = []
     for args in inputs:
-        out, ref = ck.causal_conv1d_call(*args), ssm.causal_conv1d(*args)
+        out, ref = ck.causal_conv1d_call(*args), cref.causal_conv1d(*args)
         errs.append(float((out.float() - ref.float()).abs().max()))
         assert torch.equal(out, ref), f"conv kernel != plain at {tuple(out.shape)} (max {errs[-1]:.3g})"
         del out, ref
@@ -1155,7 +1134,7 @@ def conv_phase(dev, seed: int) -> dict:
 
     def plain():
         for args in inputs:
-            ssm.causal_conv1d(*args)
+            cref.causal_conv1d(*args)
 
     def library():
         for xt, wt, bias in channel_first:
@@ -1189,19 +1168,6 @@ def norm_work(rows: int, groups: int, width: int, gated: bool, itemsize: int) ->
     return ((3 if gated else 2) * n + groups * width) * itemsize
 
 
-def plain_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, z: torch.Tensor | None = None,
-               groups: int = 1) -> torch.Tensor:
-    """The plain version of a kernel launch: the models' gated norm, or their
-    norm over each of ``groups`` groups of channels."""
-    from repro_torch.models import ops, ssm
-
-    if z is not None:
-        return ssm.gated_norm(x, z, scale, groups, eps)
-    w = x.shape[-1] // groups
-    return ops.rms_norm(x.reshape(*x.shape[:-1], groups, w), scale.reshape(groups, w),
-                        eps).reshape(x.shape)
-
-
 def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """|a - b| in units in the last place of b's type at b, in float64."""
     bits = {torch.bfloat16: 8, torch.float32: 24}[b.dtype]
@@ -1213,7 +1179,8 @@ def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def held_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, z: torch.Tensor | None = None,
               groups: int = 1, call=None) -> dict:
     """The norm kernel's launch ``call`` (by default the kernel's own) against
-    :func:`plain_norm` on the same inputs, as NORM_ULPS and NORM_DIFFER say;
+    the plain version (``plain_norm``, kernels/rms_norm/ref.py) on the same
+    inputs, as NORM_ULPS and NORM_DIFFER say;
     raises AssertionError if it is not."""
     from repro_torch.kernels.rms_norm import kernel as nk
 
@@ -1268,11 +1235,11 @@ def norm_phase(dev, seed: int) -> dict:
         rows, d = b * s, groups * width
         x, z, scale = inputs(b, s, d, gated, torch.bfloat16)
         held = []
-        nops.reset_kernel_launches()
+        launch_count.reset()
         with mock.patch.object(nops, "rms_norm_call", norm_checked(nk.rms_norm_call, held)):
             out = nops.rms_norm(x, scale, NORM_EPS, z, groups)
-        want = {"rms_norm": 0, "gated_rms_norm": 0} | {"gated_rms_norm" if gated else "rms_norm": 1}
-        assert nops.KERNEL_LAUNCHES == want and len(held) == 1, (nops.KERNEL_LAUNCHES, len(held))
+        want = {"gated_rms_norm" if gated else "rms_norm": 1}
+        assert launch_count.snapshot() == want and len(held) == 1, (launch_count.snapshot(), len(held))
         assert out.shape == x.shape and out.dtype == x.dtype, (out.shape, out.dtype)
         held = held[0]
         errs.append(held["max_abs_err"])
@@ -1372,7 +1339,7 @@ def train_phase(dev, seed: int) -> dict:
     from repro_torch.kernels.rms_norm import ops as nops
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
-    from repro_torch.models import ssm, train_loss
+    from repro_torch.models import train_loss
     from repro_torch.training import Trainer
 
     cfg = dataclasses.replace(get_config("mamba2-370m"), attn_impl="naive", remat="full")
@@ -1444,17 +1411,14 @@ def train_phase(dev, seed: int) -> dict:
     with torch.no_grad():
         train_loss(params, kernel_cfg, batch)  # warm-up
         torch.cuda.synchronize()
-        sops.reset_kernel_launches()
-        cops.reset_kernel_launches()
-        nops.reset_kernel_launches()
+        launch_count.reset()
         t0 = time.perf_counter()
         lk, _ = train_loss(params, kernel_cfg, batch)
         lk = float(lk)
         kernel_s = time.perf_counter() - t0
-        launches = sops.KERNEL_LAUNCHES["ssd_scan"]
-        by_instance = dict(sops.INSTANCE_LAUNCHES)
-        conv_launches = cops.KERNEL_LAUNCHES["causal_conv1d"]
-        norm_launches = dict(nops.KERNEL_LAUNCHES)
+        launches, conv_launches = counted("ssd_scan", "causal_conv1d").values()
+        by_instance = launch_count.by("ssd_scan", "instance")
+        norm_launches = counted("rms_norm", "gated_rms_norm")
         train_loss(params, cfg, batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1472,7 +1436,7 @@ def train_phase(dev, seed: int) -> dict:
         with mock.patch.object(sops, "ssd_scan_call",
                                checked(sops.ssd_scan_call, ssd_scan_ref, SSD_TOL, layer_err)), \
                 mock.patch.object(cops, "causal_conv1d_call",
-                                  bit_checked(cops.causal_conv1d_call, ssm.causal_conv1d, conv_err)), \
+                                  bit_checked(cops.causal_conv1d_call, cops.ref.causal_conv1d, conv_err)), \
                 mock.patch.object(nops, "rms_norm_call", norm_checked(nops.rms_norm_call, norm_held)):
             train_loss(params, kernel_cfg, batch)
         # the gate: each layer's launch against the plain version with split
@@ -1513,7 +1477,7 @@ def train_phase(dev, seed: int) -> dict:
                    for i, rec in enumerate(gate.layers)))
     assert math.isfinite(lk) and math.isfinite(ln), (lk, ln)
     assert launches == cfg.n_layers, launches
-    assert by_instance == {"split": launches, "fwd": 0}, by_instance
+    assert by_instance == {"split": launches}, by_instance
     assert len(layer_err) == cfg.n_layers, len(layer_err)
     assert conv_launches == len(conv_err) == 3 * cfg.n_layers, (conv_launches, len(conv_err))
     assert norm_launches == {"rms_norm": cfg.n_layers + 1, "gated_rms_norm": cfg.n_layers}, norm_launches
@@ -1567,7 +1531,6 @@ def hammer_phase(dev) -> dict:
     remote sweep and the workflow example, with every check of the phase."""
     import fdb_hammer_torch as fh
     from repro_torch.core.codec import kernel_launches, reset_kernel_launches
-    from repro_torch.kernels.grib_pack import ops as gops
 
     gib = 1024 ** 3
     spec = fh.HammerSpec(**HAMMER_SPEC)
@@ -1585,14 +1548,14 @@ def hammer_phase(dev) -> dict:
             seen[mode] = out
             if mode == "retrieve":  # the counts of the hammer's own run, then the check
                 torch.cuda.synchronize()
-                seen["launches"] = dict(gops.KERNEL_LAUNCHES)
+                seen["launches"] = counted("grib_pack", "grib_unpack")
                 seen["codec"] = kernel_launches()
                 seen["verify"] = verify_hammer(fh, fdb, cell, dev)
             return out
 
         torch.cuda.synchronize()
         reset_kernel_launches()
-        gops.reset_kernel_launches()
+        launch_count.reset()
         t0 = time.perf_counter()
         with mock.patch.object(fh, "run_hammer", measured):
             row = fh.run_config(TIERED_CODEC_CONFIG, spec, io_modes=(io,))[0]
@@ -1808,8 +1771,6 @@ def serve_family(dev, seed: int, arch: str) -> dict:
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.rms_norm import ops as nops
     from repro_torch.models import decode_step, init_cache, prefill
     from repro_torch.serving import Request, ServeEngine
 
@@ -1833,14 +1794,14 @@ def serve_family(dev, seed: int, arch: str) -> dict:
         engine.submit(r)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fops.reset_kernel_launches()
-    nops.reset_kernel_launches()
+    launch_count.reset()
     t0 = time.perf_counter()
     done = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fops.KERNEL_LAUNCHES["flash_attention"]
-    by_instance = dict(fops.INSTANCE_LAUNCHES)
+    launches = launch_count.snapshot()["flash_attention"]
+    by_instance = launch_count.by("flash_attention", "instance")
+    norm_launches = counted("rms_norm", "gated_rms_norm")
     peak = torch.cuda.max_memory_allocated()
 
     st = engine.stats
@@ -1851,9 +1812,8 @@ def serve_family(dev, seed: int, arch: str) -> dict:
     assert st["prefills"] == SERVE_REQUESTS
     assert launches == sites * st["prefills"], (launches, sites, st["prefills"])
     # prefill and decode keep the plain norm
-    assert nops.KERNEL_LAUNCHES == {"rms_norm": 0, "gated_rms_norm": 0}, nops.KERNEL_LAUNCHES
-    want = {name: launches if name == instance else 0 for name in by_instance}
-    assert by_instance == want, (by_instance, want)
+    assert norm_launches == {"rms_norm": 0, "gated_rms_norm": 0}, norm_launches
+    assert by_instance == ({instance: launches} if instance else {}), (by_instance, instance)
     prefill_tps = st["prefill_tokens"] / st["prefill_s"]
     decode_tps = st["decode_tokens"] / st["decode_s"]
     step_ms = st["decode_s"] / st["decode_steps"] * 1e3
@@ -1875,7 +1835,7 @@ def serve_family(dev, seed: int, arch: str) -> dict:
         kernel_s = sum(sites * a["ms"] for a in at) / 1e3
         out.update(k3_ms=sum(a["ms"] for a in at) / len(at), k3_sdpa_ms=sum(a["sdpa_ms"] for a in at) / len(at),
                    k3_err=max(a["err"] for a in at), k3_s=kernel_s)
-        bounds = [attention_bound(kh * g, kh, n, n, hd, 2, True) for n in lengths]
+        bounds = [in_ms(attention_bound(kh * g, kh, n, n, hd, 2, True)) for n in lengths]
         say(f"[families] {arch}: K3 ({instance}, head dim {hd}) / scaled_dot_product_attention ms "
             "(bound ms by) at each served length: "
             + "; ".join(f"{n}: {a['ms']:.4f} / {a['sdpa_ms']:.4f} ({b:.5f} by {by})"
@@ -1902,7 +1862,6 @@ def serve_whisper(dev, seed: int) -> dict:
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models import decode_step, init_cache, prefill
 
     cfg = dataclasses.replace(get_config("whisper-tiny"), attn_impl="pallas")
@@ -1934,19 +1893,19 @@ def serve_whisper(dev, seed: int) -> dict:
         generate(prompts[0][:, :WHISPER_PROMPTS[0]])  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fops.reset_kernel_launches()
+        launch_count.reset()
         t_prefill = t_decode = 0.0
         for tokens in prompts:
             gen_tokens, tp_, td_, cache = generate(tokens)
             t_prefill, t_decode = t_prefill + tp_, t_decode + td_
             assert gen_tokens.shape == (WHISPER_BATCH, SERVE_TOKENS)
             assert int(gen_tokens.min()) >= 0 and int(gen_tokens.max()) < cfg.vocab
-        launches = fops.KERNEL_LAUNCHES["flash_attention"]
-        by_instance = dict(fops.INSTANCE_LAUNCHES)
+        launches = launch_count.snapshot()["flash_attention"]
+        by_instance = launch_count.by("flash_attention", "instance")
         peak = torch.cuda.max_memory_allocated()
         per_prefill = cfg.encoder_layers + 2 * cfg.n_layers  # encoder, self, cross
         assert launches == per_prefill * WHISPER_PREFILLS, launches
-        assert by_instance == {"wgmma": launches, "cuda_cores": 0}, by_instance
+        assert by_instance == {"wgmma": launches}, by_instance
         n_prefill = WHISPER_BATCH * sum(lengths)
         n_decode = WHISPER_BATCH * (SERVE_TOKENS - 1) * WHISPER_PREFILLS
         step_ms = t_decode / ((SERVE_TOKENS - 1) * WHISPER_PREFILLS) * 1e3
@@ -2003,10 +1962,10 @@ def score_hybrid(dev, seed: int) -> dict:
                          device=dev)
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
     held = []
-    nops.reset_kernel_launches()
+    launch_count.reset()
     with torch.no_grad(), mock.patch.object(nops, "rms_norm_call", norm_checked(nops.rms_norm_call, held)):
         loss = float(train_loss(params, cfg, batch)[0])
-    launches = dict(nops.KERNEL_LAUNCHES)
+    launches = counted("rms_norm", "gated_rms_norm")
     sites = len(cfg.hybrid_sites)
     want = {"rms_norm": cfg.n_layers + 1 + 2 * sites, "gated_rms_norm": cfg.n_layers}
     say(f"[families] zamba2-7b-instruct ({cfg.n_layers} layers, {sites} shared-block sites, d_model "
@@ -2056,8 +2015,7 @@ def distributed_phase(dev, train: dict) -> dict:
                                          named_shardings, zero_shard_tree)
     from repro_torch.kernels.causal_conv import ops as cops
     from repro_torch.kernels.rms_norm import ops as nops
-    from repro_torch.kernels.ssd_scan import ops as sops
-    from repro_torch.models import abstract_params, logical_axes, ssm, train_loss
+    from repro_torch.models import abstract_params, logical_axes, train_loss
     from repro_torch.training.optimizer import OptState
     from repro_torch.tree import leaf_groups, tree_map
 
@@ -2100,16 +2058,13 @@ def distributed_phase(dev, train: dict) -> dict:
         conv_err, norm_held = [], []
         with torch.no_grad(), mock.patch.object(
                 cops, "causal_conv1d_call",
-                bit_checked(cops.causal_conv1d_call, ssm.causal_conv1d, conv_err)), \
+                bit_checked(cops.causal_conv1d_call, cops.ref.causal_conv1d, conv_err)), \
                 mock.patch.object(nops, "rms_norm_call", norm_checked(nops.rms_norm_call, norm_held)):
-            sops.reset_kernel_launches()
-            cops.reset_kernel_launches()
-            nops.reset_kernel_launches()
+            launch_count.reset()
             loss = float(train_loss(params, kernel_cfg, train["batch"])[0])
-            launches = sops.KERNEL_LAUNCHES["ssd_scan"]
-            by_instance = dict(sops.INSTANCE_LAUNCHES)
-            conv_launches = cops.KERNEL_LAUNCHES["causal_conv1d"]
-            norm_launches = dict(nops.KERNEL_LAUNCHES)
+            launches, conv_launches = counted("ssd_scan", "causal_conv1d").values()
+            by_instance = launch_count.by("ssd_scan", "instance")
+            norm_launches = counted("rms_norm", "gated_rms_norm")
         say(f"[dist] held-out batch scored from the restored parameters (to_local): loss {loss:.6f}, "
             f"phase 6's through the kernel {train['kernel_loss']:.6f}, |diff| "
             f"{abs(loss - train['kernel_loss']):.3g} (tolerance {RESTORED_SCORE_TOL}); ssd_scan "
@@ -2117,7 +2072,7 @@ def distributed_phase(dev, train: dict) -> dict:
             f"{conv_launches}, each bit-equal to the plain version on its inputs; rms_norm launches "
             f"{norm_launches}, each within {max(h['max_ulps'] for h in norm_held):.0f} ulp of the "
             "plain version on its inputs")
-        assert by_instance == {"split": cfg.n_layers, "fwd": 0}, by_instance
+        assert by_instance == {"split": cfg.n_layers}, by_instance
         assert launches == cfg.n_layers, launches
         assert conv_launches == len(conv_err) == 3 * cfg.n_layers, (conv_launches, len(conv_err))
         assert norm_launches == {"rms_norm": cfg.n_layers + 1, "gated_rms_norm": cfg.n_layers}, \
@@ -2301,13 +2256,12 @@ def launch_phase(dev, seed: int, smi: str) -> dict:
                 errs.append(float((out[:, rows].float() - ref.float()).abs().max()))
             return out
 
-        fops.reset_kernel_launches()
+        launch_count.reset()
         with mock.patch.object(fops, "flash_attention_call", held):
             logits, _ = fn(params, tokens, cache)
-        launches = fops.KERNEL_LAUNCHES["flash_attention"]
-        by_instance = dict(fops.INSTANCE_LAUNCHES)
-        assert launches == cfg.n_layers and by_instance == {"wgmma": cfg.n_layers, "cuda_cores": 0}, \
-            (launches, by_instance)
+        launches = launch_count.snapshot()["flash_attention"]
+        by_instance = launch_count.by("flash_attention", "instance")
+        assert launches == cfg.n_layers and by_instance == {"wgmma": cfg.n_layers}, (launches, by_instance)
         direct, _ = prefill(params, cfg, tokens, init_cache(cfg, sc.global_batch, sc.seq_len, device=dev))
         assert torch.equal(logits, direct), "the built prefill's logits != prefill()'s"
         del direct
@@ -2390,12 +2344,12 @@ def launch_phase(dev, seed: int, smi: str) -> dict:
         fn, _, ins, _, _ = build_prefill(cfg, mesh, sc)
         args = shard_args((params, tokens, init_cache(cfg, sc.global_batch, sc.seq_len, device=dev)), ins)
         first = len(errs)
-        fops.reset_kernel_launches()
+        launch_count.reset()
         with mock.patch.object(fops, "flash_attention_call", held):
             logits, _ = fn(*args)
-        moe_launches = fops.KERNEL_LAUNCHES["flash_attention"]
-        by_instance = dict(fops.INSTANCE_LAUNCHES)
-        assert moe_launches == cfg.n_layers and by_instance == {"wgmma": cfg.n_layers, "cuda_cores": 0}, \
+        moe_launches = launch_count.snapshot()["flash_attention"]
+        by_instance = launch_count.by("flash_attention", "instance")
+        assert moe_launches == cfg.n_layers and by_instance == {"wgmma": cfg.n_layers}, \
             (moe_launches, by_instance)
         direct, _ = prefill(params, cfg, tokens, init_cache(cfg, sc.global_batch, sc.seq_len, device=dev))
         logits = logits.to_local()

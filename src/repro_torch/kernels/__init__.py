@@ -15,8 +15,11 @@
 Each package mirrors the reference's three files: ``kernel.py`` builds and
 binds the CUDA source under ``csrc/``, ``ops.py`` is the public wrapper that
 dispatches (a CPU tensor goes to the plain version, a CUDA tensor to the
-kernel) and counts kernel launches, and ``ref.py`` is the plain PyTorch
-version.  The kernels have no backward, as the reference's have no VJP
-(:mod:`._autograd`).  Nothing is compiled when a module is imported: :mod:`._build`
-builds a kernel's library with ``nvcc`` at its first launch.
+kernel) and counts kernel launches in :mod:`.launches`, the one counter of
+them all, and ``ref.py`` is the plain PyTorch version, on the wrapper's
+signature.  The models import the plain versions from here, and nothing here
+imports :mod:`repro_torch.models`.  The kernels have no backward, as the
+reference's have no VJP (:mod:`._autograd`).  Nothing is compiled when a
+module is imported: :mod:`._build` builds a kernel's library with ``nvcc`` at
+its first launch.
 """

@@ -1,4 +1,4 @@
-from . import ops
-from .ops import KERNEL_LAUNCHES, causal_conv1d, reset_kernel_launches
+from . import ops, ref
+from .ops import causal_conv1d
 
-__all__ = ["ops", "KERNEL_LAUNCHES", "causal_conv1d", "reset_kernel_launches"]
+__all__ = ["ops", "ref", "causal_conv1d"]

@@ -11,7 +11,7 @@
 // It replaces no TPU kernel: the JAX package convolves with
 // jax.lax.conv_general_dilated (src/repro/models/ssm.py, causal_conv1d) and
 // leaves the layout to XLA.  It was added because the plain PyTorch version
-// (repro_torch.models.ssm.causal_conv1d) was the largest stage of scoring
+// (../ref.py, causal_conv1d) was the largest stage of scoring
 // mamba2-370m on the card, 30 % of its time at 19x its byte bound: it
 // transposes (B, S, C) to (B, C, S), pads it, runs ATen's generic depthwise
 // kernel, adds the bias and applies silu in three more passes, and leaves

@@ -6,8 +6,8 @@ flattened to the kernel's (B*K*G, Sq, d) and (B*K, Sk, d), and the result
 comes back as (B, Sq, K, G, d).  A CPU tensor goes to the plain version in
 :mod:`.ref`, a CUDA tensor to the hand-written kernel in :mod:`.kernel` (or
 the launch raises).  Neither has a backward: the reference kernel has no
-VJP.  :data:`KERNEL_LAUNCHES` counts launches of the CUDA kernel only, and
-:data:`INSTANCE_LAUNCHES` the same launches by the instance that ran them.
+VJP.  Each launch of the CUDA kernel is counted in :mod:`..launches` under
+``flash_attention``, by the ``instance`` that ran it and by its ``head_dim``.
 
 Tensors that hold no data of their own reach the kernel through an operator
 that tracing sees, ``torch.ops.repro_torch.flash_attention``: fake and meta
@@ -17,42 +17,24 @@ into the local tensors each rank computes, which then take the path of a
 plain tensor.  Its flop count, 4·d per attended (query, key) pair, is
 registered with ``torch.utils.flop_counter``.  A plain CUDA tensor calls the
 kernel directly, without the operator's dispatch.  The softmax scale is
-1/sqrt(d) unless a caller gives another (Zamba2's (d / 2)^-0.5);
-:data:`HEAD_DIM_LAUNCHES` counts the kernel's launches by head dim.
+1/sqrt(d) unless a caller gives another (Zamba2's (d / 2)^-0.5).
 """
 
 from __future__ import annotations
 
 import math
-import threading
 
 import torch
 from torch.distributed.tensor import Replicate, Shard
 from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
+from .. import launches
 from .._autograd import forward_only
-from .kernel import INSTANCES, flash_attention_call, instance_for
+from .kernel import flash_attention_call, instance_for
 from .ref import flash_attention_ref
 
-__all__ = ["HEAD_DIM_LAUNCHES", "INSTANCE_LAUNCHES", "KERNEL_LAUNCHES", "attention_pairs",
-           "flash_attention", "reset_kernel_launches"]
-
-#: launches of the CUDA kernel (the plain CPU version is not counted)
-KERNEL_LAUNCHES = {"flash_attention": 0}
-#: the same launches, by the kernel instance that ran them
-INSTANCE_LAUNCHES = dict.fromkeys(INSTANCES, 0)
-#: the same launches, by head dim
-HEAD_DIM_LAUNCHES: dict[int, int] = {}
-_launch_mu = threading.Lock()
-
-
-def reset_kernel_launches() -> None:
-    with _launch_mu:
-        KERNEL_LAUNCHES["flash_attention"] = 0
-        for name in INSTANCE_LAUNCHES:
-            INSTANCE_LAUNCHES[name] = 0
-        HEAD_DIM_LAUNCHES.clear()
+__all__ = ["attention_pairs", "flash_attention"]
 
 
 def _attend(qf, kf, vf, groups: int, causal: bool, q_offset: int, scale: float) -> torch.Tensor:
@@ -64,10 +46,7 @@ def _attend(qf, kf, vf, groups: int, causal: bool, q_offset: int, scale: float) 
     out = flash_attention_call(qf.contiguous(), kf.contiguous(), vf.contiguous(),
                                groups=groups, causal=causal, q_offset=q_offset, scale=scale)
     d = qf.shape[-1]
-    with _launch_mu:
-        KERNEL_LAUNCHES["flash_attention"] += 1
-        INSTANCE_LAUNCHES[instance_for(qf.dtype, d)] += 1
-        HEAD_DIM_LAUNCHES[d] = HEAD_DIM_LAUNCHES.get(d, 0) + 1
+    launches.count("flash_attention", instance=instance_for(qf.dtype, d), head_dim=d)
     return out
 
 

@@ -4,44 +4,27 @@ Dispatch follows the tensor: a CPU tensor goes to the plain version in
 :mod:`.ref`, a CUDA tensor to the hand-written kernel in :mod:`.kernel`
 (or the launch raises).  ``device=None`` means
 :func:`repro_torch.device.default_device`, and the input is moved there
-first.  :data:`KERNEL_LAUNCHES` counts launches of the CUDA kernels only.
+first.  Each launch of a CUDA kernel is counted in :mod:`..launches` under
+``grib_pack`` or ``grib_unpack``.
 """
 
 from __future__ import annotations
-
-import threading
 
 import numpy as np
 import torch
 
 from ...device import resolve_device
+from .. import launches
 from .kernel import grib_pack_call, grib_unpack_call
 from .ref import field_stats, pack_ref, unpack_ref
 
 __all__ = [
-    "KERNEL_LAUNCHES",
     "grib_pack",
     "grib_unpack",
     "pack_to_bytes",
     "payload_dtype",
-    "reset_kernel_launches",
     "unpack_from_bytes",
 ]
-
-#: launches of each CUDA kernel (the plain CPU version is not counted)
-KERNEL_LAUNCHES = {"grib_pack": 0, "grib_unpack": 0}
-_launch_mu = threading.Lock()
-
-
-def _count_launch(name: str) -> None:
-    with _launch_mu:
-        KERNEL_LAUNCHES[name] += 1
-
-
-def reset_kernel_launches() -> None:
-    with _launch_mu:
-        for name in KERNEL_LAUNCHES:
-            KERNEL_LAUNCHES[name] = 0
 
 
 def payload_dtype(nbits: int) -> np.dtype:
@@ -80,7 +63,7 @@ def grib_pack(x, *, nbits: int = 16, device=None):
         codes = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     else:
         codes = grib_pack_call(x, ref, inv_scale, nbits=nbits)
-        _count_launch("grib_pack")
+        launches.count("grib_pack")
     return codes, ref, scale
 
 
@@ -97,7 +80,7 @@ def grib_unpack(codes, ref, scale, *, device=None):
     if codes.numel() == 0:
         return torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
     out = grib_unpack_call(codes, ref, scale)
-    _count_launch("grib_unpack")
+    launches.count("grib_unpack")
     return out
 
 

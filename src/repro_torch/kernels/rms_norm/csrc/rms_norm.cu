@@ -8,13 +8,14 @@
 // x, z and out (rows, G W), scale (G W,), all contiguous and of one type
 // (float32 or bf16); each row splits into G groups of W channels, W a
 // multiple of 8, and each group is normalised over its own W channels.  G = 1
-// is the plain norm of every layer (ops.rms_norm); the gate is the Mamba2
-// mixer's output norm (ssm.gated_norm: rms_norm(y * silu(z)), G = ngroups).
+// is the plain norm of every layer; the gate is the Mamba2 mixer's output
+// norm (rms_norm(y * silu(z)), G = ngroups).  The plain version of both, on
+// the wrapper's signature, is ../ref.py (rms_norm(x, scale, eps, z, groups)).
 //
 // It replaces no TPU kernel: the JAX package normalises with jnp
 // (src/repro/models/ops.py, rms_norm) and leaves the fusion to XLA.  It was
-// added because the plain PyTorch version (repro_torch.models.ops.rms_norm)
-// is six passes over HBM (upcast, square, mean, rsqrt product, cast, scale),
+// added because the plain PyTorch version (../ref.py, rms_norm) is six
+// passes over HBM (upcast, square, mean, rsqrt product, cast, scale),
 // eight with the gate, and the norms were the largest stages of scoring on
 // the card: 43 % of mamba2-370m's time at 10-13x their byte bound.
 //

@@ -1,4 +1,4 @@
 from . import ops, ref
-from .ops import INSTANCE_LAUNCHES, KERNEL_LAUNCHES, reset_kernel_launches, ssd_scan
+from .ops import ssd_scan
 
-__all__ = ["ops", "ref", "INSTANCE_LAUNCHES", "KERNEL_LAUNCHES", "reset_kernel_launches", "ssd_scan"]
+__all__ = ["ops", "ref", "ssd_scan"]

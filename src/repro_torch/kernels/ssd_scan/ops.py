@@ -9,35 +9,21 @@ heads: the heads of group g are the g-th run of H/G, so x's flattening
 already lines them up and only B and C are copied.  A CPU tensor
 goes to the plain version in :mod:`.ref`, a CUDA tensor to the hand-written
 kernel in :mod:`.kernel` (or the launch raises).  Neither has a backward:
-the reference kernel has no VJP.  :data:`KERNEL_LAUNCHES` counts calls of
-the CUDA kernel only (the split instance's call is two launches), and
-:data:`INSTANCE_LAUNCHES` the same calls by the instance that ran them.
+the reference kernel has no VJP.  Each call of the CUDA kernel (the split
+instance's call is two launches) is counted in :mod:`..launches` under
+``ssd_scan``, and by the ``instance`` that ran it.
 """
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
+from .. import launches
 from .._autograd import forward_only
-from .kernel import INSTANCES, instance_for, ssd_scan_call
+from .kernel import instance_for, ssd_scan_call
 from .ref import ssd_scan_ref
 
-__all__ = ["INSTANCE_LAUNCHES", "KERNEL_LAUNCHES", "flatten", "ssd_scan", "reset_kernel_launches"]
-
-#: calls of the CUDA kernel (the plain CPU version is not counted)
-KERNEL_LAUNCHES = {"ssd_scan": 0}
-#: the same calls, by the kernel instance that ran them
-INSTANCE_LAUNCHES = dict.fromkeys(INSTANCES, 0)
-_launch_mu = threading.Lock()
-
-
-def reset_kernel_launches() -> None:
-    with _launch_mu:
-        KERNEL_LAUNCHES["ssd_scan"] = 0
-        for name in INSTANCE_LAUNCHES:
-            INSTANCE_LAUNCHES[name] = 0
+__all__ = ["flatten", "ssd_scan"]
 
 
 def _scan(x, dt, A, B_, C_, D_, heads: int, chunk: int) -> torch.Tensor:
@@ -46,9 +32,7 @@ def _scan(x, dt, A, B_, C_, D_, heads: int, chunk: int) -> torch.Tensor:
     out = ssd_scan_call(x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
                         B_.contiguous(), C_.contiguous(), D_.float().contiguous(),
                         heads=heads, chunk=chunk)
-    with _launch_mu:
-        KERNEL_LAUNCHES["ssd_scan"] += 1
-        INSTANCE_LAUNCHES[instance_for(x.dtype, x.shape[-1], B_.shape[-1])] += 1
+    launches.count("ssd_scan", instance=instance_for(x.dtype, x.shape[-1], B_.shape[-1]))
     return out
 
 

@@ -20,8 +20,9 @@ token's, so that decode continues the forward.
 
 Under ``attn_impl="pallas"`` the train forward's norms of the ssm and
 hybrid layers, of the shared blocks and the final norm of every family go
-through the hand-written one-pass norm; prefill, decode, the encoder and the
-attention families' block norms keep the plain one.
+through the hand-written one-pass norm, which :func:`.ssm.train_ops` chooses;
+prefill, decode, the encoder and the attention families' block norms keep
+the plain one.
 
 The train forward's embedding, final norm and loss run as named stages
 (:func:`repro_torch.obs.stages.stage`), as do the ssm mixer's parts and the
@@ -57,7 +58,7 @@ from .init import ModelParams, init_params, torch_dtype  # noqa: F401 (re-export
 from .moe import moe_ffn
 from .ops import decode_attention, gqa_attention, length_starts, rms_norm, rope, swiglu
 from .scan import layer_scan, maybe_cond
-from .ssm import init_ssm_state, mamba_decode_step, mamba_mixer, mamba_prefill
+from .ssm import init_ssm_state, mamba_decode_step, mamba_mixer, mamba_prefill, train_ops
 
 __all__ = [
     "AUX_COEF",
@@ -143,16 +144,6 @@ def _is_shared_site(cfg: ModelConfig, i: int) -> bool:
     return bool(every) and i % every == every - 1
 
 
-def _train_norm(cfg: ModelConfig):
-    """The train forward's norm: the hand-written one-pass kernel's wrapper
-    under ``attn_impl="pallas"``, else the plain ``rms_norm``."""
-    if cfg.attn_impl != "pallas":
-        return rms_norm
-    from ..kernels.rms_norm import ops as norm_ops
-
-    return norm_ops.rms_norm
-
-
 def _shared_qkv(h, x0, sp, cfg: ModelConfig, positions, norm=rms_norm):
     """Zamba2's shared block, its attention's inputs: q, k, v over
     concat(h, x0) (2·d), with RoPE."""
@@ -171,7 +162,7 @@ def _shared_out(h, out, sp, cfg: ModelConfig, norm=rms_norm):
 def _site_block(h, x0, params, cfg: ModelConfig, site: int, positions, norm) -> torch.Tensor:
     """The published Zamba2's shared block at ``site``, through the site's
     linear, added to h: the mixer's input at the site's layer; ``norm`` is
-    the train forward's (:func:`_train_norm`)."""
+    the train forward's (:func:`.ssm.train_ops`)."""
     block = site % cfg.n_shared_blocks
     sp, ap = params["shared"][block], params["sites"][site]
     with _calls_mu:
@@ -249,7 +240,7 @@ def forward_hidden(params: ModelParams, cfg: ModelConfig, inputs: torch.Tensor, 
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     unroll = not cfg.scan_layers
-    norm = _train_norm(cfg)
+    norm = train_ops(cfg).norm
 
     if cfg.family in ("dense", "moe", "vlm"):
         def body(carry, bp):

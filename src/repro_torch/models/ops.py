@@ -5,7 +5,9 @@ name in ``repro.models.ops`` with the same cast order: bf16 compute with
 float32 softmax and norm accumulations.  ``impl`` selects between the naive
 S^2 attention, the chunked online-softmax attention in plain PyTorch, and
 the hand-written flash-attention kernel (``"pallas"``, the reference's name
-for its kernel path).
+for its kernel path).  :func:`rms_norm` is the norm kernel's plain version,
+:func:`repro_torch.kernels.rms_norm.ref.rms_norm`, which also takes the Mamba2
+mixer's gate and a group count.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 
 from ..distributed.sharding import constrain, finish_partial, map_shards
+from ..kernels.flash_attention import ops as fa_ops
+from ..kernels.rms_norm.ref import rms_norm
 
 __all__ = [
     "rms_norm",
@@ -27,19 +31,6 @@ __all__ = [
     "causal_mask_bias",
     "length_starts",
 ]
-
-
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Normalise in float32, cast back, then scale in the model dtype."""
-    if isinstance(x, DTensor):  # partial sums completed first; a sharded width's sum too
-        x = finish_partial(x)
-        if any(p.is_shard(x.ndim - 1) for p in x.placements):
-            x32 = x.float()
-            var = finish_partial(torch.sum(x32 * x32, dim=-1, keepdim=True)) / x.shape[-1]
-            return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
-    x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
 def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -214,8 +205,6 @@ def gqa_attention(
     n_kv = k.shape[2]
     qg = _split_gqa(q, n_kv)
     if impl == "pallas":
-        from ..kernels.flash_attention import ops as fa_ops
-
         out = fa_ops.flash_attention(qg, k, v, causal=causal, q_offset=q_offset, scale=scale)
     elif impl == "chunked":
         out = _chunked_attention(qg, k, v, causal=causal, q_offset=q_offset, chunk=chunk,

@@ -8,7 +8,10 @@ gating and the output norm, and, as in the reference, ``attn_impl ==
 "pallas"`` selects the hand-written SSD-scan kernel instead of
 ``ssd_chunked`` (and, unlike the reference, the hand-written channel-last
 causal convolution instead of ``causal_conv1d`` and the hand-written one-pass
-gated norm instead of ``gated_norm``); its parts run as named stages
+gated norm instead of the plain ``rms_norm``): :func:`train_ops` makes that
+choice for the mixer and the train forward alike.  ``causal_conv1d`` and
+``rms_norm`` are the kernels' plain versions (``kernels/causal_conv/ref.py``,
+``kernels/rms_norm/ref.py``).  The mixer's parts run as named stages
 (:func:`repro_torch.obs.stages.stage`) that a profiler's trace shows.
 With ``cfg.ssm.ngroups`` G above 1 (Zamba2), B and C hold G groups of N
 channels and heads [g H/G, (g + 1) H/G) read group g's, and the gated norm
@@ -21,16 +24,22 @@ the kernel returns no state, as at ``repro/models/model.py:355,387``), and
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..distributed.sharding import constrain, map_shards
+from ..kernels.causal_conv import ops as conv_ops
+from ..kernels.causal_conv.ref import causal_conv1d
+from ..kernels.rms_norm import ops as norm_ops
+from ..kernels.ssd_scan import ops as ssd_ops
 from ..obs.stages import stage
 from .ops import rms_norm
 
-__all__ = ["ssd_chunked", "causal_conv1d", "gated_norm", "mamba_mixer", "mamba_prefill",
+__all__ = ["ssd_chunked", "causal_conv1d", "TrainOps", "train_ops", "mamba_mixer", "mamba_prefill",
            "mamba_decode_step", "init_ssm_state"]
 
 
@@ -115,40 +124,28 @@ def _per_group(x, dt, A, B_, C_, D_, *, chunk: int, h0, return_state: bool):
     return (y, torch.cat(states, dim=1)) if return_state else y
 
 
-def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, groups: int,
-               eps: float) -> torch.Tensor:
-    """rms_norm(y * silu(z)) over each of ``groups`` groups of channels (Zamba2's
-    gated norm); one group is the whole width, as in the reference."""
-    g = y * F.silu(z)
-    if groups == 1:
-        return rms_norm(g, scale, eps)
-    *lead, di = g.shape
-    return rms_norm(g.reshape(*lead, groups, di // groups), scale.reshape(groups, di // groups),
-                    eps).reshape(*lead, di)
-
-
 #: the SSD scan's independent axes: batch rows and heads (B and C are shared
 #: by the heads of a row)
 _SSD_ROLES = ({"batch": 0, "heads": 2}, {"batch": 0, "heads": 2}, {"heads": 0}, {"batch": 0},
               {"batch": 0}, {"heads": 0})
 
 
-#: the convolution's independent axes: batch rows and channels of x, w and bias
-CONV_ROLES = ({"batch": 0, "chan": 2}, {"chan": 1}, {"chan": 0})
+class TrainOps(NamedTuple):
+    """The train forward's norm, causal convolution and SSD scan, each on
+    the signature of its plain version."""
+
+    norm: Callable
+    conv: Callable
+    scan: Callable
 
 
-def causal_conv1d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv. x: (B,S,C), w: (K,C) -> (B,S,C), silu applied.
-
-    ``F.conv1d`` with one group per channel over a left pad of K-1, weight
-    ``w.T[:, None, :]``; like JAX's convolution it is a cross-correlation, so
-    neither flips the kernel."""
-    if isinstance(x, DTensor):  # independent per batch row and channel: each rank its shards
-        return map_shards(causal_conv1d, (x, w, bias), CONV_ROLES, CONV_ROLES[0])
-    k, c = w.shape
-    xp = F.pad(x.transpose(1, 2), (k - 1, 0))  # (B,C,S+K-1)
-    out = F.conv1d(xp, w.T[:, None, :].to(x.dtype), groups=c).transpose(1, 2)
-    return F.silu(out + bias.to(x.dtype))
+def train_ops(cfg: ModelConfig) -> TrainOps:
+    """The hand-written kernels' wrappers under ``attn_impl="pallas"``, else
+    the plain versions.  The wrappers are read from their ``ops`` modules at
+    each call, so what a module attribute holds then is what runs."""
+    if cfg.attn_impl == "pallas":
+        return TrainOps(norm_ops.rms_norm, conv_ops.causal_conv1d, ssd_ops.ssd_scan)
+    return TrainOps(rms_norm, causal_conv1d, ssd_chunked)
 
 
 def _project(x: torch.Tensor, params):
@@ -167,17 +164,7 @@ def mamba_mixer(x: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
     di, hds, p = cfg.d_inner, cfg.ssm_heads, cfg.ssm.head_dim
     with stage("ssm.in_proj"):
         z, xin, B_, C_, dt = _project(x, params)
-    if cfg.attn_impl == "pallas":
-        from ..kernels.causal_conv import ops as conv_ops
-        from ..kernels.rms_norm import ops as norm_ops
-        from ..kernels.ssd_scan import ops as ssd_ops
-
-        conv, scan = conv_ops.causal_conv1d, ssd_ops.ssd_scan
-
-        def gate_norm(y, z, scale, groups, eps):
-            return norm_ops.rms_norm(y, scale, eps, z, groups)
-    else:
-        conv, scan, gate_norm = causal_conv1d, ssd_chunked, gated_norm
+    norm, conv, scan = train_ops(cfg)
     with stage("ssm.conv"):
         xin = conv(xin, params["conv_x"], params["conv_x_b"])
         B_ = conv(B_, params["conv_B"], params["conv_B_b"])
@@ -200,7 +187,7 @@ def mamba_mixer(x: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
             y = scan(*args, chunk=cfg.ssm.chunk)
         y = y.reshape(b, s, di)
     with stage("ssm.gate_norm"):
-        y = gate_norm(y, z, params["norm"], groups, cfg.norm_eps)
+        y = norm(y, params["norm"], cfg.norm_eps, z, groups)
     with stage("ssm.out_proj"):
         return torch.matmul(y, params["out_proj"])
 

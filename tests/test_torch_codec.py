@@ -15,7 +15,7 @@ from proptest import Rand, forall  # noqa: E402
 from repro.core import codec as jcodec  # noqa: E402
 from repro_torch.core import codec as tcodec  # noqa: E402
 from repro_torch.device import default_device, set_default_device  # noqa: E402
-from repro_torch.kernels import grib_pack as tgp  # noqa: E402
+from repro_torch.kernels import launches  # noqa: E402
 from repro_torch.kernels.grib_pack.ref import unpack_ref  # noqa: E402
 
 NBITS_SWEEP = (8, 16, 24)
@@ -147,14 +147,14 @@ class TestEncodeDecode:
         ragged = [temperature_fields(rng, 1, 8, 128)[0] for _ in range(3)]
         ragged += [temperature_fields(rng, 1, 16, 128)[0] for _ in range(2)]
         tcodec.reset_kernel_launches()
-        tgp.reset_kernel_launches()
+        launches.reset()
         payloads = tcodec.encode_fields(ragged)
         assert tcodec.kernel_launches()["pack"] == 2
         tcodec.reset_kernel_launches()
         tcodec.decode_payloads(payloads)
         assert tcodec.kernel_launches()["unpack"] == 2
         # on the CPU the plain version runs: no CUDA kernel was launched
-        assert tgp.KERNEL_LAUNCHES == {"grib_pack": 0, "grib_unpack": 0}
+        assert launches.snapshot() == {}
 
     def test_decode_is_batchsplit_independent(self):
         payloads = tcodec.encode_fields(temperature_fields(np.random.default_rng(9), 6, 16, 128))

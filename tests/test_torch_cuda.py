@@ -20,7 +20,7 @@ import dataclasses  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import codec  # noqa: E402
 from repro_torch.device import default_device, set_default_device  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, launches  # noqa: E402
 from repro_torch.kernels import causal_conv as cc  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grib_pack as gp  # noqa: E402
@@ -66,11 +66,11 @@ def bits(t: torch.Tensor) -> np.ndarray:
 @pytest.mark.parametrize("nbits", NBITS_ALL)
 def test_kernels_equal_plain_version(cuda, shape, nbits):
     x = torch.from_numpy(temperature_fields(np.random.default_rng(nbits), *shape)).to(cuda)
-    gp.reset_kernel_launches()
+    launches.reset()
     codes, ref, scale = gp.grib_pack(x, nbits=nbits)
     out = gp.grib_unpack(codes, ref, scale)
     torch.cuda.synchronize()
-    assert gp.KERNEL_LAUNCHES == {"grib_pack": 1, "grib_unpack": 1}
+    assert launches.snapshot() == {"grib_pack": 1, "grib_unpack": 1}
     _, _, inv = field_stats(x, nbits)
     assert torch.equal(codes, pack_ref(x, ref, inv, nbits))
     assert np.array_equal(bits(out), bits(unpack_ref(codes, ref, scale)))
@@ -113,12 +113,12 @@ def test_kernels_refuse_bad_inputs(cuda):
 @pytest.mark.parametrize("nbits", NBITS_ALL)
 def test_card_payloads_equal_cpu_payloads(cuda, nbits):
     x = temperature_fields(np.random.default_rng(60 + nbits), 3, 37, 64)
-    gp.reset_kernel_launches()
+    launches.reset()
     codec.reset_kernel_launches()
     on_card = codec.encode_fields(torch.from_numpy(x).to(cuda), nbits=nbits)
     decoded = codec.decode_payloads(on_card)
     assert codec.kernel_launches() == {"pack": 1, "unpack": 1}
-    assert gp.KERNEL_LAUNCHES == {"grib_pack": 1, "grib_unpack": 1}
+    assert launches.snapshot() == {"grib_pack": 1, "grib_unpack": 1}
     assert on_card == codec.encode_fields(x, nbits=nbits, device="cpu")
     for a, b in zip(decoded, codec.decode_payloads(on_card, device="cpu")):
         assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
@@ -201,10 +201,11 @@ def test_wgmma_instance_at_head_dim_224(cuda, sq, sk, causal, off, scale):
 def test_flash_wrapper_counts_launches_by_head_dim_and_takes_a_scale(cuda):
     q = torch.randn((1, 300, 4, 1, 224), device=cuda).bfloat16()
     k = torch.randn((1, 300, 4, 224), device=cuda).bfloat16()
-    fa.reset_kernel_launches()
+    launches.reset()
     out = fa.flash_attention(q, k, k, causal=True, scale=112 ** -0.5)
     fa.flash_attention(q[..., :112].contiguous(), k[..., :112].contiguous(), k[..., :112].contiguous())
-    assert fa.HEAD_DIM_LAUNCHES == {224: 1, 112: 1} and fa.INSTANCE_LAUNCHES["wgmma"] == 2
+    assert launches.by("flash_attention", "head_dim") == {224: 1, 112: 1}
+    assert launches.by("flash_attention", "instance") == {"wgmma": 2}
     cpu = fa.flash_attention(q.cpu().float(), k.cpu().float(), k.cpu().float(), causal=True, scale=112 ** -0.5)
     torch.testing.assert_close(out.float().cpu(), cpu, atol=2e-2, rtol=2e-2)
     with pytest.raises(ValueError, match="positive finite scale"):
@@ -214,8 +215,8 @@ def test_flash_wrapper_counts_launches_by_head_dim_and_takes_a_scale(cuda):
     with pytest.raises(ValueError, match="head dim 224"):  # float32 at 224: no instance
         fk.flash_attention_call(torch.zeros((2, 8, 224), device=cuda), torch.zeros((2, 8, 224), device=cuda),
                                 torch.zeros((2, 8, 224), device=cuda), groups=1, causal=True)
-    fa.reset_kernel_launches()
-    assert fa.HEAD_DIM_LAUNCHES == {}
+    launches.reset()
+    assert launches.by("flash_attention", "head_dim") == {}
 
 
 def test_wgmma_instance_reads_unaligned_views(cuda):
@@ -233,18 +234,18 @@ def test_flash_wrapper_counts_each_launch(cuda):
     rng = np.random.default_rng(0)
     q = torch.from_numpy(rng.standard_normal((1, 40, 2, 4, 64), dtype=np.float32)).to(cuda)
     k = torch.from_numpy(rng.standard_normal((1, 40, 2, 64), dtype=np.float32)).to(cuda)
-    fa.reset_kernel_launches()
+    launches.reset()
     out = fa.flash_attention(q, k, k, causal=True)
-    assert fa.KERNEL_LAUNCHES == {"flash_attention": 1}
-    assert fa.INSTANCE_LAUNCHES == {"wgmma": 0, "cuda_cores": 1}
+    assert launches.snapshot()["flash_attention"] == 1
+    assert launches.by("flash_attention", "instance") == {"cuda_cores": 1}
     cpu = fa.flash_attention(q.cpu(), k.cpu(), k.cpu(), causal=True)
-    assert fa.KERNEL_LAUNCHES == {"flash_attention": 1}
+    assert launches.snapshot()["flash_attention"] == 1
     torch.testing.assert_close(out.cpu(), cpu, atol=2e-4, rtol=2e-4)
     fa.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16(), causal=True)
-    assert fa.KERNEL_LAUNCHES == {"flash_attention": 2}
-    assert fa.INSTANCE_LAUNCHES == {"wgmma": 1, "cuda_cores": 1}
-    fa.reset_kernel_launches()
-    assert fa.INSTANCE_LAUNCHES == {"wgmma": 0, "cuda_cores": 0}
+    assert launches.snapshot()["flash_attention"] == 2
+    assert launches.by("flash_attention", "instance") == {"wgmma": 1, "cuda_cores": 1}
+    launches.reset()
+    assert launches.snapshot() == {}
 
 
 @pytest.mark.parametrize("d", fk.WGMMA_HEAD_DIMS)
@@ -317,11 +318,11 @@ def test_serving_on_the_card_launches_the_kernel_per_layer_and_matches_the_cpu(c
         eng = ServeEngine(params.to(dev), cfg, max_batch=2, cache_len=96)
         for p in prompts:
             eng.submit(Request(prompt=p, max_new_tokens=6))
-        fa.reset_kernel_launches()
+        launches.reset()
         gens[dev] = [r.generated for r in sorted(eng.run(), key=lambda r: r.rid)]
-        launches = fa.KERNEL_LAUNCHES["flash_attention"]
-        assert launches == (cfg.n_layers * len(prompts) if dev == "cuda" else 0)
-        assert fa.INSTANCE_LAUNCHES == {"wgmma": 0, "cuda_cores": launches}  # float32
+        n = launches.snapshot()["flash_attention"]
+        assert n == (cfg.n_layers * len(prompts) if dev == "cuda" else 0)
+        assert launches.by("flash_attention", "instance") == ({"cuda_cores": n} if n else {})  # float32
     assert gens["cuda"] == gens["cpu"]
 
 
@@ -360,7 +361,7 @@ def test_every_family_decodes_on_the_card_as_on_the_cpu(cuda, arch, sites):
         p = params.to(dev)
         kw = {"enc_frames": torch.from_numpy(frames).to(dev)} if cfg.is_encoder_decoder else {}
         cache = init_cache(cfg, 2, 24, enc_len=40 if kw else 0, device=dev)
-        fa.reset_kernel_launches()
+        launches.reset()
         with torch.inference_mode():
             logits, cache = prefill(p, cfg, torch.from_numpy(prompt).to(dev), cache, **kw)
             out, toks = [logits.cpu()], []
@@ -368,7 +369,7 @@ def test_every_family_decodes_on_the_card_as_on_the_cpu(cuda, arch, sites):
                 toks.append(logits[:, : cfg.vocab].argmax(-1).cpu())
                 logits, cache = decode_step(p, cfg, toks[-1][:, None].to(dev), cache)
                 out.append(logits.cpu())
-        assert fa.KERNEL_LAUNCHES["flash_attention"] == (sites if dev == "cuda" else 0)
+        assert launches.snapshot()["flash_attention"] == (sites if dev == "cuda" else 0)
         runs[dev] = (out, toks)
     for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
         torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
@@ -413,22 +414,22 @@ def test_ssd_wrapper_counts_each_launch(cuda):
     x, dt, a, bb, cc, d = ssd_inputs(cuda, 0, 2, 64, 3, 16, 8, torch.float32)
     x4 = x.reshape(2, 3, 64, 16).permute(0, 2, 1, 3)
     dt4 = dt.reshape(2, 3, 64).permute(0, 2, 1)
-    ss.reset_kernel_launches()
+    launches.reset()
     out = ss.ssd_scan(x4, dt4, a[:3, 0], bb, cc, d[:3, 0], chunk=32)
-    assert ss.KERNEL_LAUNCHES == {"ssd_scan": 1}
-    assert ss.INSTANCE_LAUNCHES == {"split": 0, "fwd": 1}
+    assert launches.snapshot()["ssd_scan"] == 1
+    assert launches.by("ssd_scan", "instance") == {"fwd": 1}
     cpu = ss.ssd_scan(*(t.cpu() for t in (x4, dt4, a[:3, 0], bb, cc, d[:3, 0])), chunk=32)
-    assert ss.KERNEL_LAUNCHES == {"ssd_scan": 1}
+    assert launches.snapshot()["ssd_scan"] == 1
     torch.testing.assert_close(out.cpu(), cpu, atol=2e-4, rtol=2e-4)
     # bf16 at head dim 64, state 128: the split instance, one call of two launches
     x, dt, a, bb, cc, d = ssd_inputs(cuda, 0, 2, 64, 3, 64, 128, torch.bfloat16)
     x4 = x.reshape(2, 3, 64, 64).permute(0, 2, 1, 3)
     ss.ssd_scan(x4, dt4, a[:3, 0], bb, cc, d[:3, 0], chunk=32)
     ss.ssd_scan(x4.float(), dt4, a[:3, 0], bb.float(), cc.float(), d[:3, 0], chunk=32)
-    assert ss.KERNEL_LAUNCHES == {"ssd_scan": 3}
-    assert ss.INSTANCE_LAUNCHES == {"split": 1, "fwd": 2}
-    ss.reset_kernel_launches()
-    assert ss.INSTANCE_LAUNCHES == {"split": 0, "fwd": 0} and ss.KERNEL_LAUNCHES == {"ssd_scan": 0}
+    assert launches.snapshot()["ssd_scan"] == 3
+    assert launches.by("ssd_scan", "instance") == {"split": 1, "fwd": 2}
+    launches.reset()
+    assert launches.snapshot() == {}
 
 
 # The split instance (bf16, head dim 64, state 64 or 128): every chunk length
@@ -577,10 +578,10 @@ def test_grouped_scan_reads_each_groups_b_and_c(cuda, rows, s):
               for _ in range(2))
     xs = x.reshape(rows, h, s, 64).permute(0, 2, 1, 3)  # the model's (B, S, H, P)
     dts = dt.reshape(rows, h, s).permute(0, 2, 1)
-    ss.reset_kernel_launches()
+    launches.reset()
     y = ss.ssd_scan(xs, dts, a[:h, 0], bb, cc, d[:h, 0], chunk=256)
     torch.cuda.synchronize()
-    assert ss.INSTANCE_LAUNCHES == {"split": 1, "fwd": 0}
+    assert launches.by("ssd_scan", "instance") == {"split": 1}
     hg = h // g
     for r in range(rows):
         for grp in range(g):
@@ -708,10 +709,10 @@ def test_ssm_scoring_on_the_card_launches_the_kernel_per_layer_and_matches_the_c
     for dev in ("cpu", "cuda"):
         batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
                  "targets": torch.from_numpy(toks[:, 1:]).to(dev)}
-        ss.reset_kernel_launches()
+        launches.reset()
         with torch.no_grad():
             losses[dev] = float(train_loss(params.to(dev), cfg, batch)[0])
-        assert ss.KERNEL_LAUNCHES["ssd_scan"] == (cfg.n_layers if dev == "cuda" else 0)
+        assert launches.snapshot()["ssd_scan"] == (cfg.n_layers if dev == "cuda" else 0)
     assert losses["cuda"] == pytest.approx(losses["cpu"], abs=1e-4)
 
 
@@ -743,7 +744,7 @@ def assert_bit_equal(out: torch.Tensor, ref: torch.Tensor) -> None:
 def test_conv_kernel_equals_plain_version(cuda, dtype, c, s):
     x, w, bias = conv_inputs(cuda, c + s, 3, s, c, 4, dtype)
     out = ck.causal_conv1d_call(x, w, bias)
-    ref = tssm.causal_conv1d(x, w, bias)
+    ref = cc.ref.causal_conv1d(x, w, bias)
     torch.cuda.synchronize()
     assert_bit_equal(out, ref)
 
@@ -755,22 +756,22 @@ def test_conv_kernel_refuses_other_tap_counts(cuda, k):
     with pytest.raises(ValueError, match="K = 4"):
         ck.causal_conv1d_call(x, w, bias)
     cpu = (x.cpu(), w.cpu(), bias.cpu())
-    assert torch.equal(cc.causal_conv1d(*cpu), tssm.causal_conv1d(*cpu))
+    assert torch.equal(cc.causal_conv1d(*cpu), cc.ref.causal_conv1d(*cpu))
 
 
 def test_conv_kernel_takes_any_multiple_of_its_four_channels(cuda):
     for dtype in (torch.float32, torch.bfloat16):
         for c in (4, 12, 20):
             x, w, bias = conv_inputs(cuda, c, 2, 67, c, 4, dtype)
-            assert_bit_equal(ck.causal_conv1d_call(x, w, bias), tssm.causal_conv1d(x, w, bias))
+            assert_bit_equal(ck.causal_conv1d_call(x, w, bias), cc.ref.causal_conv1d(x, w, bias))
 
 
 def test_conv_wrapper_counts_launches_and_refuses_what_the_kernel_does_not_take(cuda):
     x, w, bias = conv_inputs(cuda, 0, 2, 16, 16, 4, torch.bfloat16)
-    cc.reset_kernel_launches()
+    launches.reset()
     out = cc.causal_conv1d(x, w.float(), bias.float())  # weights cast to x's type, as plain
-    assert cc.KERNEL_LAUNCHES == {"causal_conv1d": 1}
-    assert_bit_equal(out, tssm.causal_conv1d(x, w.float(), bias.float()))
+    assert launches.snapshot() == {"causal_conv1d": 1}
+    assert_bit_equal(out, cc.ref.causal_conv1d(x, w.float(), bias.float()))
     x10, w10, b10 = conv_inputs(cuda, 1, 2, 16, 10, 4, torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 4"):
         cc.causal_conv1d(x10, w10, b10)
@@ -779,9 +780,9 @@ def test_conv_wrapper_counts_launches_and_refuses_what_the_kernel_does_not_take(
         cc.causal_conv1d(x5, w5, b5)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         cc.causal_conv1d(x.half(), w.half(), bias.half())
-    assert cc.KERNEL_LAUNCHES == {"causal_conv1d": 1}
+    assert launches.snapshot() == {"causal_conv1d": 1}
     cpu = cc.causal_conv1d(x.cpu(), w.cpu(), bias.cpu())
-    assert cc.KERNEL_LAUNCHES == {"causal_conv1d": 1}
+    assert launches.snapshot() == {"causal_conv1d": 1}
     assert cpu.shape == out.shape
     with pytest.raises(NotImplementedError, match="no VJP"):
         cc.causal_conv1d(x.float().requires_grad_(True), w.float(), bias.float()).sum().backward()
@@ -794,12 +795,12 @@ def test_scoring_mamba2_370m_launches_the_conv_kernel_three_times_a_layer(cuda):
     params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
     toks = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab, (2, 257)).astype(np.int32)).to(cuda)
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
-    for impl, launches in (("pallas", 144), ("naive", 0)):
-        cc.reset_kernel_launches()
+    for impl, want in (("pallas", 144), ("naive", 0)):
+        launches.reset()
         with torch.no_grad():
             loss = float(train_loss(params, dataclasses.replace(cfg, attn_impl=impl), batch)[0])
         assert np.isfinite(loss)
-        assert cc.KERNEL_LAUNCHES == {"causal_conv1d": launches} and 3 * cfg.n_layers == 144
+        assert launches.snapshot()["causal_conv1d"] == want and 3 * cfg.n_layers == 144
 
 
 # The one-pass RMSNorm (attn_impl="pallas"): the kernel against the plain
@@ -843,12 +844,12 @@ def test_norm_wrappers_count_launches_and_refuse_what_the_kernel_does_not_take(c
     from repro_torch.kernels import rms_norm as rn
 
     x, z, scale = norm_inputs(cuda, 0, 2, 16, 64, torch.bfloat16, True)
-    rn.reset_kernel_launches()
+    launches.reset()
     out = rn.rms_norm(x, scale)
     gated = rn.rms_norm(x, scale, 1e-5, z, 2)
-    assert rn.KERNEL_LAUNCHES == {"rms_norm": 1, "gated_rms_norm": 1}
+    assert launches.snapshot() == {"rms_norm": 1, "gated_rms_norm": 1}
     assert out.shape == gated.shape == x.shape and out.dtype == torch.bfloat16
-    rn.reset_kernel_launches()
+    launches.reset()
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         rn.rms_norm(x.half(), scale.half())
     with pytest.raises(ValueError, match="scale is torch.float32"):
@@ -859,10 +860,10 @@ def test_norm_wrappers_count_launches_and_refuse_what_the_kernel_does_not_take(c
         rn.rms_norm(x[..., :12], scale[:12])
     with pytest.raises(ValueError, match="gate of x's shape"):
         rn.rms_norm(x, scale, 1e-5, z[:1])
-    assert rn.KERNEL_LAUNCHES == {"rms_norm": 0, "gated_rms_norm": 0}
+    assert launches.snapshot() == {}
     cpu = rn.rms_norm(x.cpu(), scale.cpu(), 1e-5, z.cpu(), 2)
-    assert rn.KERNEL_LAUNCHES == {"rms_norm": 0, "gated_rms_norm": 0}
-    assert torch.equal(cpu, tssm.gated_norm(x.cpu(), z.cpu(), scale.cpu(), 2, 1e-5))
+    assert launches.snapshot() == {}
+    assert torch.equal(cpu, rn.ref.rms_norm(x.cpu(), scale.cpu(), 1e-5, z.cpu(), 2))
     with pytest.raises(NotImplementedError, match="no VJP"):
         rn.rms_norm(x.float().requires_grad_(True), scale.float()).sum().backward()
 
@@ -870,7 +871,8 @@ def test_norm_wrappers_count_launches_and_refuse_what_the_kernel_does_not_take(c
 def test_norm_wrapper_runs_a_dtensors_rows_through_the_kernel(cuda):
     """On a one-rank mesh on the card: sharded over its rows, each rank's rows
     go through the kernel, with the kernel's bits; sharded over its width,
-    the plain version completes the sums and PLAIN_ON_CARD counts it."""
+    the plain version completes the sums, counted under
+    gated_rms_norm.plain_on_card."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
@@ -882,17 +884,15 @@ def test_norm_wrapper_runs_a_dtensors_rows_through_the_kernel(cuda):
     dist.init_process_group("nccl", store=dist.HashStore(), world_size=1, rank=0)
     try:
         mesh = init_device_mesh("cuda", (1,))
-        rn.reset_kernel_launches()
+        launches.reset()
         xs, zs = (distribute_tensor(t, mesh, [Shard(0)]) for t in (x, z))
         got = rn.rms_norm(xs, distribute_tensor(scale, mesh, [Replicate()]), 1e-5, zs, 2)
         assert isinstance(got, DTensor) and torch.equal(got.full_tensor(), want)
-        assert rn.KERNEL_LAUNCHES == {"rms_norm": 0, "gated_rms_norm": 1}
-        assert rn.PLAIN_ON_CARD == {"rms_norm": 0, "gated_rms_norm": 0}
+        assert launches.snapshot() == {"gated_rms_norm": 1}
         xs, zs = (distribute_tensor(t, mesh, [Shard(2)]) for t in (x, z))
         got = rn.rms_norm(xs, distribute_tensor(scale, mesh, [Shard(0)]), 1e-5, zs, 2)
-        torch.testing.assert_close(got.full_tensor(), tssm.gated_norm(x, z, scale, 2, 1e-5))
-        assert rn.KERNEL_LAUNCHES == {"rms_norm": 0, "gated_rms_norm": 1}
-        assert rn.PLAIN_ON_CARD == {"rms_norm": 0, "gated_rms_norm": 1}
+        torch.testing.assert_close(got.full_tensor(), rn.ref.rms_norm(x, scale, 1e-5, z, 2))
+        assert launches.snapshot() == {"gated_rms_norm": 1, "gated_rms_norm.plain_on_card": 1}
     finally:
         dist.destroy_process_group()
 
@@ -900,17 +900,15 @@ def test_norm_wrapper_runs_a_dtensors_rows_through_the_kernel(cuda):
 def test_scoring_mamba2_370m_launches_the_norm_kernel_at_every_norm(cuda):
     """A scored batch of mamba2-370m at full width: 48 + 1 plain launches
     (norm_in, final_norm) and 48 gated under "pallas", none under "naive"."""
-    from repro_torch.kernels import rms_norm as rn
-
     cfg = get_config("mamba2-370m")
     params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
     toks = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab, (2, 257)).astype(np.int32)).to(cuda)
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
     losses = {}
-    for impl, launches in (("pallas", {"rms_norm": 49, "gated_rms_norm": 48}),
-                           ("naive", {"rms_norm": 0, "gated_rms_norm": 0})):
-        rn.reset_kernel_launches()
+    for impl, want in (("pallas", (49, 48)), ("naive", (0, 0))):
+        launches.reset()
         with torch.no_grad():
             losses[impl] = float(train_loss(params, dataclasses.replace(cfg, attn_impl=impl), batch)[0])
         assert np.isfinite(losses[impl])
-        assert rn.KERNEL_LAUNCHES == launches and cfg.n_layers == 48
+        n = launches.snapshot()
+        assert (n["rms_norm"], n["gated_rms_norm"]) == want and cfg.n_layers == 48

@@ -22,10 +22,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attention.ops import flash_attention as jflash  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.device import default_device, set_default_device  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_attention import (  # noqa: E402
-    INSTANCE_LAUNCHES, KERNEL_LAUNCHES, flash_attention,
-)
+from repro_torch.kernels import _build, launches  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref, flash_attention_ref_blocked  # noqa: E402
 
@@ -185,7 +183,7 @@ def test_instance_is_chosen_from_dtype_and_head_dim_alone():
         assert fk.instance_for(torch.bfloat16, d) == ("wgmma" if d in (64, 96, 112, 128)
                                                       else "cuda_cores")
     assert fk.instance_for(torch.bfloat16, 224) == "wgmma"  # the published Zamba2's, wgmma alone
-    assert fk.WGMMA_HEAD_DIMS == (64, 96, 112, 128, 224) and set(fk.INSTANCES) == set(INSTANCE_LAUNCHES)
+    assert fk.WGMMA_HEAD_DIMS == (64, 96, 112, 128, 224)
 
 
 def _c_function(source: str, signature: str) -> str:
@@ -215,11 +213,10 @@ def test_c_entry_points_take_the_head_dims_the_routing_sends_them():
 
 
 def test_cpu_tensors_take_the_plain_version_uncounted():
-    KERNEL_LAUNCHES["flash_attention"] = 0
+    launches.reset()
     _, (q, k, v) = inputs(5, 1, 16, 16, 1, 2, 16)
     flash_attention(q, k, v)
-    assert KERNEL_LAUNCHES == {"flash_attention": 0}
-    assert INSTANCE_LAUNCHES == {"wgmma": 0, "cuda_cores": 0}
+    assert launches.snapshot() == {}  # by instance and head dim too
 
 
 def test_negative_q_offset_is_refused():

@@ -19,6 +19,7 @@ from repro_torch.device import default_device, set_default_device  # noqa: E402
 from repro_torch.kernels import grib_pack as tgp  # noqa: E402
 from repro_torch.kernels.grib_pack import kernel as tkernel  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import launches  # noqa: E402
 from repro_torch.kernels.grib_pack import ref as tref  # noqa: E402
 
 NBITS_ALL = (1, 8, 16, 24, 31)
@@ -268,12 +269,12 @@ class TestPackToBytes:
 
 class TestDispatch:
     def test_cpu_tensors_take_the_plain_version_uncounted(self):
-        tgp.reset_kernel_launches()
+        launches.reset()
         x = temperature_fields(np.random.default_rng(5), 2, 8, 16)
         codes, ref, scale = tgp.grib_pack(x)
         tgp.grib_unpack(codes, ref, scale)
         assert codes.device.type == "cpu"
-        assert tgp.KERNEL_LAUNCHES == {"grib_pack": 0, "grib_unpack": 0}
+        assert launches.snapshot() == {}
 
     def test_without_cuda_the_default_device_raises(self):
         if torch.cuda.is_available():

@@ -1,8 +1,9 @@
 """The one-pass RMSNorm kernel's wrapper on the CPU, and where the models call it.
 
-A CPU tensor goes to the plain versions (``models.ops.rms_norm`` and
-``models.ssm.gated_norm``) themselves, so the wrapper equals them bit for bit
-and counts no launch; shapes the kernel does not take raise on every device,
+A CPU tensor goes to the plain version (``kernels/rms_norm/ref.py``, which
+``models.ops.rms_norm`` is) itself, so the wrapper equals it bit for bit and
+counts no launch; the plain version gates and splits into groups as the
+mixer's gated norm did before it moved there; shapes the kernel does not take raise on every device,
 and the wrapper has no backward.  Under ``attn_impl="pallas"`` the train
 forward reaches the wrapper at every norm the kernel serves (the mixers'
 gated norms, ``ssm.norm_in``, the shared blocks' two norms, the final norm);
@@ -20,11 +21,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.device import default_device, set_default_device  # noqa: E402
+from repro_torch.kernels import launches  # noqa: E402
 from repro_torch.kernels import rms_norm as rn  # noqa: E402
 from repro_torch.models import decode_step, init_cache, init_params, prefill, train_loss  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import ops as tops  # noqa: E402
-from repro_torch.models import ssm as tssm  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -48,18 +49,22 @@ def norm_inputs(seed: int, shape: tuple, dtype):
 @pytest.mark.parametrize("width", [8, 1024, 3584, 7168])
 def test_wrappers_are_the_plain_versions_on_the_cpu(dtype, groups, width):
     """Group widths of the cells (1024, 3584, 7168) and the narrowest the
-    kernel takes; the same bits as the plain versions, no launch counted."""
+    kernel takes; the same bits as the plain version, no launch counted; and
+    the plain version gated over groups is the gate, then each group's norm."""
     y, z, scale = norm_inputs(width + groups, (2, 5, groups * width), dtype)
-    rn.reset_kernel_launches()
+    launches.reset()
     gated = rn.rms_norm(y, scale, 1e-5, z, groups)
     plain = rn.rms_norm(y, scale, 1e-6)
     grouped = rn.rms_norm(y, scale, 1e-6, groups=groups)
-    assert rn.KERNEL_LAUNCHES == {"rms_norm": 0, "gated_rms_norm": 0}
+    assert launches.snapshot() == {}
     assert gated.dtype == dtype and gated.shape == y.shape
-    assert torch.equal(gated, tssm.gated_norm(y, z, scale, groups, 1e-5))
+    assert torch.equal(gated, rn.ref.rms_norm(y, scale, 1e-5, z, groups))
     assert torch.equal(plain, tops.rms_norm(y, scale, 1e-6))
+    assert torch.equal(grouped, rn.ref.rms_norm(y, scale, 1e-6, groups=groups))
     g = y.reshape(2, 5, groups, width)
     assert torch.equal(grouped, tops.rms_norm(g, scale.reshape(groups, width), 1e-6).reshape(y.shape))
+    gz = (y * torch.nn.functional.silu(z)).reshape(2, 5, groups, width)
+    assert torch.equal(gated, tops.rms_norm(gz, scale.reshape(groups, width), 1e-5).reshape(y.shape))
 
 
 def test_wrappers_have_no_backward():
@@ -159,8 +164,8 @@ def test_prefill_and_decode_keep_the_plain_norms(monkeypatch):
 def test_a_dtensor_goes_to_the_plain_versions(monkeypatch):
     """On a one-rank gloo mesh.  Sharded over its width, a DTensor goes to
     the plain versions, which complete the sum of squares across shards; the
-    kernel's path is not taken (and on the CPU nothing is counted in
-    PLAIN_ON_CARD).  Sharded over its rows, or replicated, each rank's rows
+    kernel's path is not taken (and on the CPU nothing is counted under
+    rms_norm.plain_on_card).  Sharded over its rows, or replicated, each rank's rows
     take the kernel's path (here its plain version) through map_shards."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -180,7 +185,7 @@ def test_a_dtensor_goes_to_the_plain_versions(monkeypatch):
     monkeypatch.setattr(rn.ops, "_norm", kernel_path)
     dist.init_process_group("gloo", store=dist.HashStore(), world_size=1, rank=0)
     try:
-        rn.reset_kernel_launches()
+        launches.reset()
         mesh = init_device_mesh("cpu", (1,))
         ys, zs = (distribute_tensor(t, mesh, [Shard(2)]) for t in (y, z))
         ss = distribute_tensor(scale, mesh, [Shard(0)])
@@ -188,8 +193,8 @@ def test_a_dtensor_goes_to_the_plain_versions(monkeypatch):
         gated = rn.rms_norm(ys, ss, 1e-5, zs)
         assert isinstance(out, DTensor) and isinstance(gated, DTensor)
         torch.testing.assert_close(out.full_tensor(), tops.rms_norm(y, scale))
-        torch.testing.assert_close(gated.full_tensor(), tssm.gated_norm(y, z, scale, 1, 1e-5))
-        assert rn.PLAIN_ON_CARD == {"rms_norm": 0, "gated_rms_norm": 0}
+        torch.testing.assert_close(gated.full_tensor(), rn.ref.rms_norm(y, scale, 1e-5, z))
+        assert launches.snapshot() == {}
         reached.append(None)  # from here on the kernel's path is expected
         for placement in (Shard(0), Shard(1), Replicate()):
             ys, zs = (distribute_tensor(t, mesh, [placement]) for t in (y, z))
@@ -197,10 +202,10 @@ def test_a_dtensor_goes_to_the_plain_versions(monkeypatch):
             out = rn.rms_norm(ys, ss, 1e-5, groups=2)
             gated = rn.rms_norm(ys, ss, 1e-5, zs, 2)
             assert isinstance(out, DTensor) and out.placements == (placement,)
-            assert torch.equal(gated.full_tensor(), tssm.gated_norm(y, z, scale, 2, 1e-5))
+            assert torch.equal(gated.full_tensor(), rn.ref.rms_norm(y, scale, 1e-5, z, 2))
             assert torch.equal(out.full_tensor(),
                                tops.rms_norm(y.reshape(2, 3, 2, 16), scale.reshape(2, 16)).reshape(y.shape))
         assert reached[1:] == [y.shape] * 6, reached
-        assert rn.KERNEL_LAUNCHES == {"rms_norm": 0, "gated_rms_norm": 0}
+        assert launches.snapshot() == {}
     finally:
         dist.destroy_process_group()

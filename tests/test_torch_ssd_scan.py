@@ -5,10 +5,11 @@ kernel's flattened shapes) is held against the reference's Pallas kernel in
 interpret mode, its O(S) recurrence and its ``ssd_chunked``, at the shapes
 and tolerances of ``tests/test_kernels.py:74-112``; so are the plain versions
 of the split instance's two launches, composed.  The port's own
-``ssd_chunked`` and ``causal_conv1d`` are held against the reference's at
+``ssd_chunked`` and ``causal_conv1d`` (the convolution kernel's plain
+version, ``kernels/causal_conv/ref.py``) are held against the reference's at
 1e-5 in float32, and ``mamba_mixer`` at 1e-4 (its gradient under "naive"
-too); the convolution kernel's wrapper is the plain ``causal_conv1d`` on the
-CPU, bit for bit.  Inputs come from a numpy seed.
+too); the convolution kernel's wrapper is that plain version on the CPU, bit
+for bit.  Inputs come from a numpy seed.
 """
 
 import dataclasses
@@ -32,7 +33,7 @@ from repro.models import init_params as jinit_params  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.device import default_device, set_default_device  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, launches  # noqa: E402
 from repro_torch.kernels import causal_conv as cc  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
@@ -210,9 +211,9 @@ def test_wrapper_matches_reference_wrapper(dtype):
     """ops.ssd_scan keeps the reference's transposes and broadcasts."""
     b, s, h, p, n, chunk = SHAPES[1]
     inputs = ssd_inputs(10, b, s, h, p, n)
-    ss.reset_kernel_launches()
+    launches.reset()
     got = ss.ssd_scan(*to_torch(dtype, *inputs), chunk=chunk)
-    assert ss.KERNEL_LAUNCHES == {"ssd_scan": 0}  # the plain version is not counted
+    assert launches.snapshot() == {}  # the plain version is not counted
     want = jssd_scan(*to_jax(dtype, *inputs), chunk=chunk, interpret=True)
     assert got.shape == (b, s, h, p)
     np.testing.assert_allclose(as_np(got), as_np(want), **kernel_tol(dtype))
@@ -333,7 +334,7 @@ def test_state_pass_starts_from_zero_and_decays_by_the_chunk_total():
 ])
 def test_instance_is_chosen_from_dtype_head_dim_and_state_size(dtype, p, n, instance):
     assert sk.instance_for(dtype, p, n) == instance
-    assert instance in sk.INSTANCES and ss.INSTANCE_LAUNCHES.keys() == set(sk.INSTANCES)
+    assert instance in sk.INSTANCES
 
 
 def test_fwd_instance_dispatches_every_head_dim_the_wrapper_admits():
@@ -559,6 +560,8 @@ def test_ssd_chunked_matches_reference(with_h0):
 
 
 def test_causal_conv1d_matches_reference():
+    """The plain version, which models.ssm.causal_conv1d is, against the reference's."""
+    assert tssm.causal_conv1d is cc.ref.causal_conv1d
     rng = np.random.default_rng(15)
     x = rng.standard_normal((2, 11, 6), dtype=np.float32)
     w = rng.standard_normal((4, 6), dtype=np.float32)
@@ -577,17 +580,17 @@ def test_causal_conv1d_matches_reference():
 @pytest.mark.parametrize("b,s,c,k", [(2, 11, 16, 4), (1, 1, 8, 4), (3, 2, 24, 4), (2, 3, 8, 3),
                                      (2, 40, 64, 2)])
 def test_conv_kernel_wrapper_is_the_plain_version_on_the_cpu(dtype, b, s, c, k):
-    """A CPU tensor goes to ssm.causal_conv1d itself, sequences shorter than
+    """A CPU tensor goes to the plain version itself, sequences shorter than
     the window included: the same bits, and no launch counted."""
     rng = np.random.default_rng(17)
     x = torch.from_numpy(rng.standard_normal((b, s, c), dtype=np.float32)).to(getattr(torch, dtype))
     w = torch.from_numpy(rng.standard_normal((k, c), dtype=np.float32))  # cast to x's type by both
     bias = torch.from_numpy(rng.standard_normal(c, dtype=np.float32))
-    cc.reset_kernel_launches()
+    launches.reset()
     got = cc.causal_conv1d(x, w, bias)
-    assert cc.KERNEL_LAUNCHES == {"causal_conv1d": 0}
+    assert launches.snapshot() == {}
     assert got.dtype == x.dtype and got.shape == (b, s, c)
-    assert torch.equal(got, tssm.causal_conv1d(x, w, bias))
+    assert torch.equal(got, cc.ref.causal_conv1d(x, w, bias))
 
 
 def test_conv_kernel_has_no_backward_on_the_cpu():
@@ -597,7 +600,7 @@ def test_conv_kernel_has_no_backward_on_the_cpu():
     x = torch.from_numpy(rng.standard_normal((2, 9, 16), dtype=np.float32)).requires_grad_(True)
     w, bias = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)) for shape in ((4, 16), 16))
     y = cc.causal_conv1d(x, w, bias)
-    assert y.requires_grad and torch.equal(y, tssm.causal_conv1d(x, w, bias))
+    assert y.requires_grad and torch.equal(y, cc.ref.causal_conv1d(x, w, bias))
     with pytest.raises(NotImplementedError, match="no VJP"):
         y.sum().backward()
 
@@ -615,9 +618,9 @@ def test_mamba_mixer_trains_through_the_plain_conv():
     want = jax.grad(lambda p: jssm.mamba_mixer(jnp.asarray(x), p, jcfg).sum())(jbp)
     names = ("conv_x", "conv_x_b", "conv_B", "conv_B_b", "conv_C", "conv_C_b")
     params = {k: v.detach().clone().requires_grad_(k in names) for k, v in tp["blocks"][0].tree().items()}
-    cc.reset_kernel_launches()
+    launches.reset()
     tssm.mamba_mixer(torch.from_numpy(x), params, cfg).sum().backward()
-    assert cc.KERNEL_LAUNCHES == {"causal_conv1d": 0}
+    assert launches.snapshot() == {}
     for name in names:
         assert params[name].grad.abs().max() > 1.0
         np.testing.assert_allclose(params[name].grad.numpy(), np.asarray(want[name]), **MIXER)

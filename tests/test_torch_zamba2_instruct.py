@@ -115,11 +115,11 @@ def test_gated_norm_normalises_each_group():
     rng = np.random.default_rng(1)
     y, z = (torch.from_numpy(rng.standard_normal((2, 3, 12), dtype=np.float32)) for _ in range(2))
     w = torch.from_numpy(rng.uniform(0.5, 1.5, 12).astype(np.float32))
-    got = tssm.gated_norm(y, z, w, 3, 1e-5)
+    got = tssm.rms_norm(y, w, 1e-5, z=z, groups=3)  # the mixer's plain gated norm
     g = (y * torch.nn.functional.silu(z)).reshape(2, 3, 3, 4)
     want = (g * torch.rsqrt(g.pow(2).mean(-1, keepdim=True) + 1e-5)).reshape(2, 3, 12) * w
     torch.testing.assert_close(got, want)
-    one = tssm.gated_norm(y, z, w, 1, 1e-5)
+    one = tssm.rms_norm(y, w, 1e-5, z=z)
     assert (one - got).abs().max() > 1e-2  # over the whole width it is another norm
 
 

@@ -43,7 +43,7 @@ CHILD = r"""
 import json, statistics, sys, time
 sys.path.insert(0, sys.argv[1])
 import torch
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launches
 from repro_torch.kernels.flash_attention import kernel as fk, ops
 shape, reps = json.loads(sys.argv[2]), int(sys.argv[3])
 dev = torch.device("cuda", 0)
@@ -84,8 +84,8 @@ for _ in range(max(1, reps // 20)):
 print(json.dumps({"idle_ms": statistics.median(idle), "host_us": statistics.median(host),
                   "device_ms": statistics.median(device),
                   "kernel_call_us": statistics.median(kernel_call),
-                  "launches": ops.KERNEL_LAUNCHES["flash_attention"],
-                  "instances": {k: n for k, n in ops.INSTANCE_LAUNCHES.items() if n}}))
+                  "launches": launches.snapshot()["flash_attention"],
+                  "instances": launches.by("flash_attention", "instance")}))
 """
 
 
