@@ -69,7 +69,11 @@ Phases, each fatal on failure:
    full-width shape beside the bound, and the time of each of the split
    instance's two launches beside the bytes and operations it must move and
    do, and the C_i . B_j^T tiles the last one makes (once for each group of
-   heads).
+   heads).  The split instance reading x and writing y in the mixer's (B, S,
+   H, P) layout beside the same inputs flattened to (B*H, S, P), at
+   mamba2-370m's 32 heads (state 128) and zamba2-7b-instruct's 112 heads in 2
+   groups (state 64): cum, h and y bit for bit, and each launch's time in
+   both layouts.
    Then mamba2-370m at full width (48 layers, bf16, random weights from
    --seed made on the card) trains through Trainer with async checkpoints
    to the emulated DAOS FDB: 6 steps of 8 x 2048 tokens, a checkpoint every
@@ -80,7 +84,9 @@ Phases, each fatal on failure:
    pass with a faulty scan in the kernel's place must lie more than 3e-4
    from ssd_chunked's, each
    layer's launch must agree with the plain version on that layer's inputs,
-   and every launch must have run the split instance.  The per-layer gate
+   and every launch must have run the split instance on the mixer's (B, S,
+   H, P) x, with no copy of x or y (the counter's layout "bshp").  The
+   per-layer gate
    (repro_torch.kernels.ssd_scan.gate) holds each layer's launch against the
    plain version with split operands on that layer's inputs at one bf16 ulp,
    and both faulty scans, run on the same inputs, must fail it on every
@@ -127,7 +133,7 @@ Phases, each fatal on failure:
    width scores one row of 4096 tokens under "pallas": the norm kernel 81 +
    1 + 13 + 13 times (norm_in, final_norm, the shared blocks' two norms) and
    81 times gated, each launch held against the plain version on its own
-   inputs;
+   inputs, and the SSD-scan kernel 81 times on the mixer's (B, S, H, P) x;
 9. distributed: a one-rank NCCL process group and a (1, 1) cuda device mesh
    ("data", "model").  Phase 6's last checkpoint of mamba2-370m (bf16
    parameters and float32 optimizer state) is restored onto it through
@@ -259,6 +265,11 @@ SSD_CASES = [  # (batch, seq, heads, head dim, state, chunk), float32 and bf16
     (2, 128, 4, 16, 16, 32),  # reduced configs: head dim 16, state 16, chunk 32
 ]
 SSD_FULL = (8, 2048, 32, 64, 128, 256)  # mamba2-370m scoring: batch 8 x 2048 tokens
+# the split instance in the mixer's (B, S, H, P) layout beside the flat one,
+# at each score cell's shape, its whole batch: (batch, seq, heads, state,
+# groups of B and C, chunk)
+SSD_LAYOUTS = {"mamba2-370m": (256, 2048, 32, 128, 1, 256),
+               "zamba2-7b-instruct": (16, 4096, 112, 64, 2, 256)}
 # the full-size heads in bf16, as the models run them: float32 sums of a
 # 256-row chunk's terms reach a few hundred, and two summation orders then
 # differ by more than 2e-4 near zero
@@ -979,6 +990,46 @@ def split_launch_errors(scan, flat, heads: int, chunk: int) -> dict[str, float]:
     return errs
 
 
+def split_layouts(gen, dev) -> dict[str, dict[str, dict[str, float]]]:
+    """The split instance reading x and writing y in the mixer's (B, S, H, P)
+    layout against the same inputs flattened to (B*H, S, P), at each score
+    cell's shape (:data:`SSD_LAYOUTS`): the same bits of cum, h and y; each
+    launch's time in both layouts, timed flat, bshp, bshp, flat, printed and
+    returned by cell, layout and launch."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    times = {}
+    for name, (b, s, h, n, g, chunk) in SSD_LAYOUTS.items():
+        x, dt, A, _, _, D = ssd_inputs(gen, b, s, h, 64, n, torch.bfloat16, dev)
+        B, C = (torch.randn((b * g, s, n), generator=gen, device=dev).bfloat16() for _ in range(2))
+        xf, dtf, af, _, _, df = ssd_flat(x, dt, A, B, C, D)
+        scans = {"flat": sk.SplitScan(xf, dtf, af, B, C, df, heads=h // g, chunk=chunk),
+                 "bshp": sk.SplitScan(x, dtf, af, B, C, df, heads=h // g, chunk=chunk)}
+        for scan in scans.values():
+            scan.run()
+        torch.cuda.synchronize()
+        flat, bshp = scans["flat"], scans["bshp"]
+        assert bshp.out.shape == x.shape and bshp.out.is_contiguous(), name
+        assert torch.equal(bshp.cum, flat.cum) and torch.equal(bshp.h, flat.h), name
+        assert torch.equal(bshp.out, flat.out.reshape(b, h, s, 64).permute(0, 2, 1, 3)), \
+            f"{name}: the split instance's (B, S, H, P) output differs from its flat one"
+        ms: dict[str, dict[str, list[float]]] = {lay: {"ssd_chunk_state": [], "ssd_chunk_scan": []}
+                                                 for lay in scans}
+        for lay in ("flat", "bshp", "bshp", "flat"):
+            ms[lay]["ssd_chunk_state"].append(device_ms(scans[lay].chunk_state))
+            ms[lay]["ssd_chunk_scan"].append(device_ms(scans[lay].chunk_scan))
+        times[name] = {lay: {k: statistics.mean(v) for k, v in by.items()} for lay, by in ms.items()}
+        t = times[name]
+        say(f"[ssm] split instance at {name}'s shape, x ({b}, {s}, {h}, 64), B and C ({b * g}, {s}, "
+            f"{n}), chunk {chunk}: cum, h and y of the (B, S, H, P) layout bit-equal to the flat "
+            f"layout's; " + ", ".join(
+                f"{k} bshp {t['bshp'][k]:.4f} ms, flat {t['flat'][k]:.4f} ms "
+                f"({100 * (t['bshp'][k] / t['flat'][k] - 1):+.2f} %)" for k in t["flat"])
+            + " (means of two turns, flat bshp bshp flat)")
+        del scans, flat, bshp, x, xf
+    return times
+
+
 def ssd_phase(dev, seed: int) -> dict:
     """The SSD-scan kernel's instances against their plain versions, and their times."""
     from repro_torch.kernels.ssd_scan import kernel as sk
@@ -1033,13 +1084,15 @@ def ssd_phase(dev, seed: int) -> dict:
     flat = ssd_flat(x, dt, A, B, C, D)
     instance = sk.instance_for(torch.bfloat16, p, n)
     assert instance == "split", instance
-    call = lambda: sk.ssd_scan_call(*flat, heads=h, chunk=chunk)  # noqa: E731
+    # the kernel as the main path calls it, on the mixer's (B, S, H, P) x
+    call = lambda: sk.ssd_scan_call(x, *flat[1:], heads=h, chunk=chunk)  # noqa: E731
     plain = lambda: ssd_scan_ref(*flat, heads=h, chunk=chunk)  # noqa: E731
     chunked = lambda: ssd_chunked(x, dt, A, B, C, D, chunk=chunk)  # noqa: E731
-    scan = sk.SplitScan(*flat, heads=h, chunk=chunk)
+    scan = sk.SplitScan(x, *flat[1:], heads=h, chunk=chunk)
     scan.run()
     launch_ms = {"ssd_chunk_state": device_ms(scan.chunk_state),
                  "ssd_chunk_scan": device_ms(scan.chunk_scan)}
+    split_layouts(gen, dev)
     # the kernel, then the yardstick, then the kernel again: a single pair
     # could straddle a change of clocks
     t_kernel = [device_ms(call)]
@@ -1073,7 +1126,7 @@ def ssd_phase(dev, seed: int) -> dict:
     say(f"[ssm] ssd_chunk_scan's C_i . B_j^T tiles (64 x 64 x {n}): {made} made, once for each group "
         f"of {group} heads ({2 * made * 64 * 64 * n / 1e9:.2f} GFLOP); once per head would be "
         f"{b * h * tiles} ({2 * b * h * tiles * 64 * 64 * n / 1e9:.2f} GFLOP)")
-    say(f"[ssm] ssd_scan full width x ({b * h}, {s}, {p}) B ({b}, {s}, {n}) bf16 chunk {chunk}, "
+    say(f"[ssm] ssd_scan full width x ({b}, {s}, {h}, {p}) B ({b}, {s}, {n}) bf16 chunk {chunk}, "
         f"instance {instance}: kernel {timing['ms']:.4f} ms ({t_kernel[0]:.4f} and {t_kernel[1]:.4f} "
         f"around ssd_chunked; {100 * bound / timing['ms']:.2f} % of the bound; "
         f"{flops / timing['ms'] / 1e9:.1f} TFLOP/s of the work the scan needs; one call from idle "
@@ -1418,6 +1471,7 @@ def train_phase(dev, seed: int) -> dict:
         kernel_s = time.perf_counter() - t0
         launches, conv_launches = counted("ssd_scan", "causal_conv1d").values()
         by_instance = launch_count.by("ssd_scan", "instance")
+        by_layout = launch_count.by("ssd_scan", "layout")
         norm_launches = counted("rms_norm", "gated_rms_norm")
         train_loss(params, cfg, batch)
         torch.cuda.synchronize()
@@ -1448,7 +1502,7 @@ def train_phase(dev, seed: int) -> dict:
         f"kernel {lk:.6f} ({kernel_s:.3f} s), through ssd_chunked {ln:.6f} ({naive_s:.3f} s); "
         f"|diff| {abs(lk - ln):.3g} (printed; the per-layer gate below holds the kernel); "
         f"ssd_scan launches {launches} = "
-        f"{cfg.n_layers} layers x 1 pass, by instance {by_instance}")
+        f"{cfg.n_layers} layers x 1 pass, by instance {by_instance}, by layout of x {by_layout}")
     say("[score] faulty scans in the kernel's place, |loss - ssd_chunked's| (each must exceed "
         f"{SCORE_TOL}): " + "; ".join(f"{k} {v:.6f}, {abs(v - ln):.3g}" for k, v in faults.items()))
     say(f"[score] each of the {len(layer_err)} layers' launches against the plain version on its "
@@ -1478,6 +1532,7 @@ def train_phase(dev, seed: int) -> dict:
     assert math.isfinite(lk) and math.isfinite(ln), (lk, ln)
     assert launches == cfg.n_layers, launches
     assert by_instance == {"split": launches}, by_instance
+    assert by_layout == {"bshp": launches}, by_layout  # no scan copies x or y
     assert len(layer_err) == cfg.n_layers, len(layer_err)
     assert conv_launches == len(conv_err) == 3 * cfg.n_layers, (conv_launches, len(conv_err))
     assert norm_launches == {"rms_norm": cfg.n_layers + 1, "gated_rms_norm": cfg.n_layers}, norm_launches
@@ -1966,6 +2021,7 @@ def score_hybrid(dev, seed: int) -> dict:
     with torch.no_grad(), mock.patch.object(nops, "rms_norm_call", norm_checked(nops.rms_norm_call, held)):
         loss = float(train_loss(params, cfg, batch)[0])
     launches = counted("rms_norm", "gated_rms_norm")
+    scans = launch_count.by("ssd_scan", "layout")
     sites = len(cfg.hybrid_sites)
     want = {"rms_norm": cfg.n_layers + 1 + 2 * sites, "gated_rms_norm": cfg.n_layers}
     say(f"[families] zamba2-7b-instruct ({cfg.n_layers} layers, {sites} shared-block sites, d_model "
@@ -1974,9 +2030,11 @@ def score_hybrid(dev, seed: int) -> dict:
         f"{launches} = {cfg.n_layers} norm_in + 1 final_norm + {sites} x 2 shared-block norms and "
         f"{cfg.n_layers} gated; each of the {len(held)} against the plain version on its own inputs: "
         f"max {max(h['max_ulps'] for h in held):.0f} ulp on a unit scale, at most "
-        f"{max(h['differ'] for h in held):.3g} of a launch's elements differ")
+        f"{max(h['differ'] for h in held):.3g} of a launch's elements differ; ssd_scan launches "
+        f"by layout of x {scans}")
     assert np.isfinite(loss), loss
     assert launches == want == {"rms_norm": 108, "gated_rms_norm": 81}, (launches, want)
+    assert scans == {"bshp": cfg.n_layers} == {"bshp": 81}, scans  # no scan copies x or y
     assert len(held) == sum(want.values()), len(held)
     del params, toks, batch
     torch.cuda.empty_cache()
@@ -2064,15 +2122,17 @@ def distributed_phase(dev, train: dict) -> dict:
             loss = float(train_loss(params, kernel_cfg, train["batch"])[0])
             launches, conv_launches = counted("ssd_scan", "causal_conv1d").values()
             by_instance = launch_count.by("ssd_scan", "instance")
+            by_layout = launch_count.by("ssd_scan", "layout")
             norm_launches = counted("rms_norm", "gated_rms_norm")
         say(f"[dist] held-out batch scored from the restored parameters (to_local): loss {loss:.6f}, "
             f"phase 6's through the kernel {train['kernel_loss']:.6f}, |diff| "
             f"{abs(loss - train['kernel_loss']):.3g} (tolerance {RESTORED_SCORE_TOL}); ssd_scan "
-            f"launches {launches}, by instance {by_instance}; causal_conv1d launches "
+            f"launches {launches}, by instance {by_instance}, by layout {by_layout}; causal_conv1d launches "
             f"{conv_launches}, each bit-equal to the plain version on its inputs; rms_norm launches "
             f"{norm_launches}, each within {max(h['max_ulps'] for h in norm_held):.0f} ulp of the "
             "plain version on its inputs")
         assert by_instance == {"split": cfg.n_layers}, by_instance
+        assert by_layout == {"bshp": cfg.n_layers}, by_layout
         assert launches == cfg.n_layers, launches
         assert conv_launches == len(conv_err) == 3 * cfg.n_layers, (conv_launches, len(conv_err))
         assert norm_launches == {"rms_norm": cfg.n_layers + 1, "gated_rms_norm": cfg.n_layers}, \

@@ -91,6 +91,30 @@ inline int encode_bf16_3d(CUtensorMap* map, const void* base, int cols, int rows
     return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR_BASE + (int)r;
 }
 
+// A 4-D map over a contiguous bf16 tensor (batches, rows, heads, cols), heads
+// interleaved along each row, innermost first as (cols, heads, rows,
+// batches), read in boxes of 64 columns x box_rows rows of one head of one
+// batch entry with the 128-byte swizzle: the box lands in shared memory as a
+// box of encode_bf16_3d does.  Rows keep their own dimension, so a box that
+// reaches past `rows` is filled with zeros and never reads the next batch
+// entry's rows.  heads = 1 is the layout of encode_bf16_3d, with batches in
+// the place of its heads.  Returns 0, or ENCODE_ERROR_BASE + the CUresult.
+inline int encode_bf16_4d(CUtensorMap* map, const void* base, int cols, int heads, int rows,
+                          int batches, int box_rows) {
+    EncodeTiledFn fn = encode_tiled_fn();
+    if (fn == nullptr) return ENCODE_ERROR_BASE + (int)CUDA_ERROR_NOT_FOUND;
+    const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)heads, (cuuint64_t)rows,
+                                (cuuint64_t)batches};
+    const cuuint64_t strides[3] = {(cuuint64_t)cols * 2, (cuuint64_t)heads * cols * 2,
+                                   (cuuint64_t)rows * heads * cols * 2};
+    const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+    const cuuint32_t elem[4] = {1, 1, 1, 1};
+    CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                    strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR_BASE + (int)r;
+}
+
 // ---------------------------------------------------------------- device side
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -159,6 +183,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
         "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
         "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
         "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// The same for a 4-D map, at (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+        "r"(c3)
         : "memory");
 }
 

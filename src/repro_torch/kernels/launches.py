@@ -4,7 +4,10 @@ A wrapper counts each launch of its CUDA kernel under the kernel's name
 (``grib_pack``, ``grib_unpack``, ``flash_attention``, ``ssd_scan``,
 ``causal_conv1d``, and ``rms_norm`` or ``gated_rms_norm`` by whether the gate
 ran), and under ``(name, part, value)`` for each part it names: K3 and K4
-their ``instance``, K3 its ``head_dim``.  The plain versions are not counted.
+their ``instance``, K3 its ``head_dim``, K4 the ``layout`` it read x in
+(``"bshp"`` or ``"flat"``).  K4's count is kept by its launch function,
+``ssd_scan.kernel.ssd_scan_call``, where both are decided, so a direct call
+counts too.  The plain versions are not counted.
 One more key is not a launch: ``rms_norm.plain_on_card`` (and
 ``gated_rms_norm.plain_on_card``) counts the DTensors on the card whose
 groups were split across ranks, so that the plain version normalised them.

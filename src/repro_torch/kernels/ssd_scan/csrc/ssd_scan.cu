@@ -20,9 +20,18 @@
 // The exponent of a pair above the diagonal is never taken (the Pallas body
 // masks it to -inf before exp, which gives 0), so exp never overflows.
 //
-// Layout: x and out (BH, S, P), dt (BH, S), A and D (BH,), B and C (BH/heads,
-// S, N) shared by the heads of one batch entry (the Pallas index map
-// b // heads), all contiguous.
+// Layout: dt (BH, S), A and D (BH,), B and C (BH/heads, S, N) shared by the
+// heads of one batch entry (the Pallas index map b // heads), all contiguous.
+// x and out are (BH, S, P) in ssd_scan_fwd.  The split instance reads x and
+// writes out in the mixer's (B, S, H, P) layout: element (bh, s, p) of head h
+// = bh % H of sequence b = bh / H lies at ((b S + s) H + h) P + p, the H heads
+// of a sequence row interleaved, each row of a head 128 contiguous bytes.  H,
+// the heads of a sequence row (`hrow` below), is a value of the launch, not
+// of the instance: H = 1 is the flat (BH, S, P) layout.  Its TMA maps of x
+// are 4-D, (P, H, S, B), so S keeps its own dimension and a box that runs
+// past the end of a sequence reads zeros, never the next sequence's rows.
+// The heads of one B and C row (`heads`) and H need not agree: Zamba2's
+// 112 heads a row take B and C in 2 groups of 56.
 //
 // ---- 1. ssd_scan_fwd
 // One block of 256 threads owns one (batch, head) and walks its chunks in
@@ -144,7 +153,13 @@
 //     epilogues in step), and 1, 4 and 8 heads a block here (the ablation
 //     tool times each);
 //   - lane 0 of the producer warp issues the TMA loads: each B tile once,
-//     then every head's x tiles through the ring;
+//     then every head's x tiles through the ring.  A consumer thread fences
+//     the proxies (fence.proxy.async) between its ldmatrix reads of an x
+//     stage and its arrival on the stage's empty barrier: without it the
+//     next TMA write into the stage could overtake the reads, and at N 64
+//     and a large grid (64 x 32 heads x 2048 rows, or Zamba2's cell) a few
+//     chunks' states a launch came out wrong, in whole 16-row slices of p
+//     (one warp's A rows), always of a block's first head;
 //   - the consumer walks its heads.  A = (w x)^T comes from the x tile by
 //     ldmatrix.trans (the scores . x pattern of ssd_chunk_scan, with x in
 //     place of the scores), is scaled by w_j in float32 and split into three
@@ -554,7 +569,7 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
                const __grid_constant__ CUtensorMap tm_c, const bf16* __restrict__ x,
                const float* __restrict__ dt, const float* __restrict__ cum,
                const float* __restrict__ h, const float* __restrict__ dskip, bf16* __restrict__ y,
-               int s, int q, int heads, int group) {
+               int s, int q, int heads, int group, int hrow) {
     using namespace hopper;
     using L = ScanSmem<N>;
     constexpr int NB = L::NB;
@@ -628,8 +643,8 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
                         const int st = nx % XS;
                         mbar_wait(&bar.x_empty[k][st], ((nx / XS) & 1) ^ 1);
                         mbar_arrive_expect_tx(&bar.x_full[k][st], BLOCK);
-                        tma_load_3d(sm + L::X + (k * XS + st) * BLOCK, &tm_x, &bar.x_full[k][st], 0,
-                                    crow + j * TILE, bh);
+                        tma_load_4d(sm + L::X + (k * XS + st) * BLOCK, &tm_x, &bar.x_full[k][st], 0,
+                                    bh % hrow, crow + j * TILE, bh / hrow);
                     }
                 }
             }
@@ -716,7 +731,8 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
 
         for (int hh = k; hh < nh; hh += 2, ++u) {
             const int bh = bg * heads + h0 + hh;
-            const size_t row0 = (size_t)bh * s + crow;  // the chunk's first row in x and y
+            // the chunk's first row of the head in x and y; the head's rows lie hrow apart
+            const size_t row0 = ((size_t)(bh / hrow) * s + crow) * hrow + bh % hrow;
             const bool last = w == nwin - 1;             // the head's sums end in this window
             named_barrier(2 + k, 128);  // every thread is done with unit u - 1's buffer
             stage_unit(u + 1);
@@ -910,7 +926,7 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
                 const int i = half ? ib8 : ia;
                 if (i >= q) continue;
                 const float ec = expf(half ? cb : ca);
-                const size_t at_row = (row0 + i) * P;
+                const size_t at_row = (row0 + (size_t)i * hrow) * P;
 #pragma unroll
                 for (int jj = 0; jj < 8; ++jj) {
                     const int p = 8 * jj + col0;
@@ -1030,7 +1046,7 @@ __global__ void __launch_bounds__(STATE_THREADS, 2)
 ssd_chunk_state(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_b,
                 const float* __restrict__ dt, const float* __restrict__ a, float* __restrict__ cum,
                 float* __restrict__ h, float* __restrict__ states, int* __restrict__ sync, int s,
-                int q, int heads, int group) {
+                int q, int heads, int group, int hrow) {
     using namespace hopper;
     using L = StateSmem<N>;
     constexpr int NB = L::NB;
@@ -1087,7 +1103,8 @@ ssd_chunk_state(const __grid_constant__ CUtensorMap tm_x, const __grid_constant_
                 const int st = nx % STATE_XS;
                 mbar_wait(&bar.x_empty[st], ((nx / STATE_XS) & 1) ^ 1);
                 mbar_arrive_expect_tx(&bar.x_full[st], BLOCK);
-                tma_load_3d(sm + L::X + st * BLOCK, &tm_x, &bar.x_full[st], 0, crow + j * TILE, bh);
+                tma_load_4d(sm + L::X + st * BLOCK, &tm_x, &bar.x_full[st], 0, bh % hrow, crow + j * TILE,
+                            bh / hrow);
             }
         }
         return;
@@ -1178,7 +1195,11 @@ ssd_chunk_state(const __grid_constant__ CUtensorMap tm_x, const __grid_constant_
             }
         }
         if (part == SPT - 1) {
-            mbar_arrive(&bar.x_empty[st]);  // the tile is in registers
+            // the tile is in registers.  ldmatrix read it through the generic
+            // proxy and the next TMA load writes the stage through the async
+            // one: without the fence that write could overtake the reads
+            fence_proxy_async();
+            mbar_arrive(&bar.x_empty[st]);
             ++nx;
         }
     };
@@ -1274,9 +1295,9 @@ ssd_chunk_state(const __grid_constant__ CUtensorMap tm_x, const __grid_constant_
     }
 }
 
-bool takes(int n, int q, int s, int bh, int heads) {
+bool takes(int n, int q, int s, int bh, int heads, int hrow) {
     return (n == 64 || n == 128) && q >= 1 && q <= MAX_CHUNK && s % q == 0 && heads >= 1 &&
-           bh >= 1 && bh % heads == 0;
+           bh >= 1 && bh % heads == 0 && hrow >= 1 && bh % hrow == 0;
 }
 
 // Heads of a launch-1 block: a group of STATE_GROUP when the chunk's B tiles
@@ -1308,10 +1329,10 @@ long long state_blocks(int bh, int s, int q, int heads) {
 template <int N>
 cudaError_t chunk_state(const void* x, const void* dt, const void* a, const void* b, void* cum,
                         void* h, void* states, void* sync, int bh, int s, int q, int heads,
-                        cudaStream_t stream, int* encode_err) {
+                        int hrow, cudaStream_t stream, int* encode_err) {
     const int bg = bh / heads;
     CUtensorMap tm_x, tm_b;
-    int err = hopper::encode_bf16_3d(&tm_x, x, P, s, bh, TILE);
+    int err = hopper::encode_bf16_4d(&tm_x, x, P, hrow, s, bh / hrow, TILE);
     if (err == 0) err = hopper::encode_bf16_3d(&tm_b, b, N, s, bg, TILE);
     if (err != 0) {
         *encode_err = err;
@@ -1329,7 +1350,7 @@ cudaError_t chunk_state(const void* x, const void* dt, const void* a, const void
     kernel<<<(unsigned)state_blocks(bh, s, q, heads), STATE_THREADS, smem, stream>>>(
         tm_x, tm_b, static_cast<const float*>(dt), static_cast<const float*>(a),
         static_cast<float*>(cum), static_cast<float*>(h), static_cast<float*>(states),
-        static_cast<int*>(sync), s, q, heads, state_group(q));
+        static_cast<int*>(sync), s, q, heads, state_group(q), hrow);
     return cudaGetLastError();
 }
 
@@ -1346,10 +1367,10 @@ long long scan_blocks(int bh, int s, int q, int heads) {
 template <int N>
 cudaError_t chunk_scan(const void* x, const void* dt, const void* cum, const void* h,
                        const void* b, const void* c, const void* d, void* y, int bh, int s, int q,
-                       int heads, cudaStream_t stream, int* encode_err) {
+                       int heads, int hrow, cudaStream_t stream, int* encode_err) {
     const int bg = bh / heads;
     CUtensorMap tm_x, tm_b, tm_c;
-    int err = hopper::encode_bf16_3d(&tm_x, x, P, s, bh, TILE);
+    int err = hopper::encode_bf16_4d(&tm_x, x, P, hrow, s, bh / hrow, TILE);
     if (err == 0) err = hopper::encode_bf16_3d(&tm_b, b, N, s, bg, TILE);
     if (err == 0) err = hopper::encode_bf16_3d(&tm_c, c, N, s, bg, TILE);
     if (err != 0) {
@@ -1366,7 +1387,7 @@ cudaError_t chunk_scan(const void* x, const void* dt, const void* cum, const voi
     kernel<<<blocks, SCAN_THREADS, smem, stream>>>(
         tm_x, tm_b, tm_c, static_cast<const bf16*>(x), static_cast<const float*>(dt),
         static_cast<const float*>(cum), static_cast<const float*>(h), static_cast<const float*>(d),
-        static_cast<bf16*>(y), s, q, heads, group);
+        static_cast<bf16*>(y), s, q, heads, group, hrow);
     return cudaGetLastError();
 }
 
@@ -1396,8 +1417,10 @@ int ssd_scan_fwd_launch(int dtype, int p, const void* x, const void* dt, const v
 }
 
 // The split instance: bf16 x, B, C and out, P = 64, N = 64 or 128; x, B and
-// C 16-byte aligned.  Each returns a cudaError_t: 0 on success,
-// cudaErrorInvalidValue for a state size, chunk or layout it does not take.
+// C 16-byte aligned.  x and out hold hrow heads interleaved along each
+// sequence row, (BH / hrow, S, hrow, P); hrow = 1 is (BH, S, P).  Each
+// returns a cudaError_t: 0 on success, cudaErrorInvalidValue for a state
+// size, chunk or layout it does not take.
 //
 // Launch 1: cum (BH, S) and h (BH, S/q, N, P), float32, the state entering
 // each chunk.  states, when not null, also gets each chunk's own state S_c,
@@ -1408,16 +1431,18 @@ int ssd_scan_fwd_launch(int dtype, int p, const void* x, const void* dt, const v
 // the CUresult of a tensor-map encode that failed.
 int ssd_chunk_state_launch(int n, const void* x, const void* dt, const void* a, const void* b,
                            void* cum, void* h, void* states, void* sync, int bh, int s, int q,
-                           int heads, void* stream) {
-    if (!sp::takes(n, q, s, bh, heads) || sp::state_blocks(bh, s, q, heads) >= (1ll << 31) ||
+                           int heads, int hrow, void* stream) {
+    if (!sp::takes(n, q, s, bh, heads, hrow) || sp::state_blocks(bh, s, q, heads) >= (1ll << 31) ||
         (long long)bh * (s / q) >= (1ll << 31) - 1) {
         return cudaErrorInvalidValue;
     }
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int encode_err = 0;
     const cudaError_t err =
-        n == 64 ? sp::chunk_state<64>(x, dt, a, b, cum, h, states, sync, bh, s, q, heads, st, &encode_err)
-                : sp::chunk_state<128>(x, dt, a, b, cum, h, states, sync, bh, s, q, heads, st, &encode_err);
+        n == 64 ? sp::chunk_state<64>(x, dt, a, b, cum, h, states, sync, bh, s, q, heads, hrow, st,
+                                      &encode_err)
+                : sp::chunk_state<128>(x, dt, a, b, cum, h, states, sync, bh, s, q, heads, hrow, st,
+                                       &encode_err);
     return encode_err != 0 ? encode_err : (int)err;
 }
 
@@ -1442,21 +1467,21 @@ int ssd_chunk_state_blocks_per_sm(int n) {
     return err == cudaSuccess ? blocks : -1;
 }
 
-// Launch 2: out (BH, S, P) bf16.  x, B and C are read through TMA maps: their
-// bases 16-byte aligned (rows of P = 64 and N = 64 or 128 bf16 keep every
+// Launch 2: out bf16, in x's layout.  x, B and C are read through TMA maps:
+// their bases 16-byte aligned (rows of P = 64 and N = 64 or 128 bf16 keep every
 // stride a multiple of 16 bytes).  Returns 0, a cudaError_t, or
 // hopper::ENCODE_ERROR_BASE + the CUresult of a tensor-map encode that failed.
 int ssd_chunk_scan_launch(int n, const void* x, const void* dt, const void* cum, const void* h,
                           const void* b, const void* c, const void* d, void* y, int bh, int s,
-                          int q, int heads, void* stream) {
-    if (!sp::takes(n, q, s, bh, heads) || sp::scan_blocks(bh, s, q, heads) >= (1ll << 31)) {
+                          int q, int heads, int hrow, void* stream) {
+    if (!sp::takes(n, q, s, bh, heads, hrow) || sp::scan_blocks(bh, s, q, heads) >= (1ll << 31)) {
         return cudaErrorInvalidValue;
     }
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int encode_err = 0;
     const cudaError_t err =
-        n == 64 ? sp::chunk_scan<64>(x, dt, cum, h, b, c, d, y, bh, s, q, heads, st, &encode_err)
-                : sp::chunk_scan<128>(x, dt, cum, h, b, c, d, y, bh, s, q, heads, st, &encode_err);
+        n == 64 ? sp::chunk_scan<64>(x, dt, cum, h, b, c, d, y, bh, s, q, heads, hrow, st, &encode_err)
+                : sp::chunk_scan<128>(x, dt, cum, h, b, c, d, y, bh, s, q, heads, hrow, st, &encode_err);
     return encode_err != 0 ? encode_err : (int)err;
 }
 

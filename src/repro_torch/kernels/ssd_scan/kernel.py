@@ -18,6 +18,7 @@ from pathlib import Path
 
 import torch
 
+from .. import launches
 from .._build import CudaLibrary
 
 __all__ = ["HEAD_DIMS", "INSTANCES", "LIBRARY", "MAX_CHUNK", "SPLIT_HEAD_DIM", "SPLIT_STATE_DIMS",
@@ -50,13 +51,13 @@ def _bind(lib: ctypes.CDLL) -> None:
         c_int, c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int, ptr,
     ]
     lib.ssd_chunk_state_launch.argtypes = [
-        c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, ptr,
+        c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int, ptr,
     ]
     lib.ssd_chunk_state_group.argtypes = [c_int]
     lib.ssd_chunk_state_smem.argtypes = [c_int]
     lib.ssd_chunk_state_blocks_per_sm.argtypes = [c_int]
     lib.ssd_chunk_scan_launch.argtypes = [
-        c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, ptr,
+        c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int, c_int, c_int, ptr,
     ]
     lib.ssd_chunk_scan_group.argtypes = [c_int]
     lib.ssd_chunk_scan_smem.argtypes = [c_int]
@@ -77,14 +78,21 @@ def _check(x, dt, A, B_, C_, D_, heads: int, chunk: int) -> tuple[int, int, int,
     """Raise on inputs no instance takes; (BH, S, P, N, Q)."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan takes CUDA tensors, got one on {x.device}")
+    return check_shapes(x, dt, A, B_, C_, D_, heads, chunk)
+
+
+def check_shapes(x, dt, A, B_, C_, D_, heads: int, chunk: int) -> tuple[int, int, int, int, int]:
+    """The checks of :func:`_check` that need no card: raise on inputs no
+    instance takes; (BH, S, P, N, Q).  x is (BH, S, P), or (B, S, H, P) with
+    BH = B H."""
     if x.dtype not in _DTYPES:
         raise ValueError(f"ssd_scan takes x, B and C in float32 or bfloat16, got {x.dtype}")
-    if x.ndim != 3 or dt.ndim != 2 or B_.ndim != 3 or B_.shape != C_.shape:
+    if x.ndim not in (3, 4) or dt.ndim != 2 or B_.ndim != 3 or B_.shape != C_.shape:
         raise ValueError(
-            f"ssd_scan takes x (BH, S, P), dt (BH, S) and B, C (BG, S, N), got "
+            f"ssd_scan takes x (BH, S, P) or (B, S, H, P), dt (BH, S) and B, C (BG, S, N), got "
             f"{tuple(x.shape)}, {tuple(dt.shape)}, {tuple(B_.shape)}, {tuple(C_.shape)}"
         )
-    bh, s, p = x.shape
+    bh, s, p = heads_per_row(x) * x.shape[0], x.shape[1], x.shape[-1]
     bg, sb, n = B_.shape
     if heads < 1 or bg * heads != bh or sb != s or tuple(dt.shape) != (bh, s):
         raise ValueError(
@@ -115,11 +123,19 @@ def _check(x, dt, A, B_, C_, D_, heads: int, chunk: int) -> tuple[int, int, int,
     return bh, s, p, n, q
 
 
+def heads_per_row(x: torch.Tensor) -> int:
+    """The heads interleaved along each sequence row of x: H of a (B, S, H,
+    P) x, 1 of a flat (BH, S, P) one."""
+    return x.shape[2] if x.ndim == 4 else 1
+
+
 class SplitScan:
     """The split instance's two launches over one set of inputs, with their
     scratch: :meth:`chunk_state` fills :attr:`cum` (BH, S) and :attr:`h` (BH,
     chunks, N, P), the state entering each chunk, both float32, and
-    :meth:`chunk_scan` fills :attr:`out` (BH, S, P) bf16.  Each launches one
+    :meth:`chunk_scan` fills :attr:`out` bf16 in x's layout: (BH, S, P), or
+    the mixer's (B, S, H, P), which the kernels read and write where it lies
+    (head bh's row s at [bh // H, s, bh % H]).  Each launches one
     kernel on the current stream and raises if it fails; :meth:`run` launches
     the two in order.  :attr:`sync` holds the first launch's ticket and the
     chunks' flags, zeroed by each launch on its stream: an instance runs on
@@ -137,6 +153,7 @@ class SplitScan:
         self.x, self.B, self.C = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, B_, C_))
         self.dt, self.A, self.D = dt, A, D_
         self.bh, self.s, self.n, self.q, self.heads = bh, s, n, q, heads
+        self.hrow = heads_per_row(x)
         nc = s // q
         self.cum = torch.empty((bh, s), dtype=torch.float32, device=x.device)
         self.h = torch.empty((bh, nc, n, p), dtype=torch.float32, device=x.device)
@@ -163,13 +180,13 @@ class SplitScan:
         self._launch("ssd_chunk_state", self._lib.ssd_chunk_state_launch, self.x.data_ptr(),
                      self.dt.data_ptr(), self.A.data_ptr(), self.B.data_ptr(), self.cum.data_ptr(),
                      self.h.data_ptr(), None if states is None else states.data_ptr(),
-                     self.sync.data_ptr(), self.bh, self.s, self.q, self.heads)
+                     self.sync.data_ptr(), self.bh, self.s, self.q, self.heads, self.hrow)
 
     def chunk_scan(self) -> None:
         self._launch("ssd_chunk_scan", self._lib.ssd_chunk_scan_launch, self.x.data_ptr(),
                      self.dt.data_ptr(), self.cum.data_ptr(), self.h.data_ptr(), self.B.data_ptr(),
                      self.C.data_ptr(), self.D.data_ptr(), self.out.data_ptr(), self.bh, self.s,
-                     self.q, self.heads)
+                     self.q, self.heads, self.hrow)
 
     def run(self) -> torch.Tensor:
         self.chunk_state()
@@ -178,7 +195,7 @@ class SplitScan:
 
 
 def ssd_scan_call(
-    x: torch.Tensor,   # (BH, S, P)
+    x: torch.Tensor,   # (BH, S, P), or (B, S, H, P) with BH = B H
     dt: torch.Tensor,  # (BH, S) float32
     A: torch.Tensor,   # (BH, 1) float32
     B_: torch.Tensor,  # (BG, S, N)  BG = BH // heads (B/C shared across heads)
@@ -189,10 +206,28 @@ def ssd_scan_call(
     chunk: int = 256,
 ) -> torch.Tensor:
     """Launch the kernel's instance for (x.dtype, P, N) on CUDA tensors ->
-    (BH, S, P) in x's dtype."""
+    x's dtype and layout.  The split instance reads a (B, S, H, P) x where it
+    lies; ssd_scan_fwd reads the flat layout, so such an x is flattened for
+    it.  Each call is counted in :mod:`..launches` under ``ssd_scan``, by the
+    ``instance`` that ran it and by the ``layout`` that instance read x in:
+    ``"bshp"`` or ``"flat"``."""
     bh, s, p, n, q = _check(x, dt, A, B_, C_, D_, heads, chunk)
-    if instance_for(x.dtype, p, n) == "split":
-        return SplitScan(x, dt, A, B_, C_, D_, heads=heads, chunk=chunk).run()
+    instance = instance_for(x.dtype, p, n)
+    if instance == "split":
+        out = SplitScan(x, dt, A, B_, C_, D_, heads=heads, chunk=chunk).run()
+    elif x.ndim == 3:
+        out = _fwd(x, dt, A, B_, C_, D_, heads, n, q)
+    else:
+        flat = _fwd(x.permute(0, 2, 1, 3).reshape(bh, s, p), dt, A, B_, C_, D_, heads, n, q)
+        out = flat.reshape(x.shape[0], x.shape[2], s, p).permute(0, 2, 1, 3).contiguous()
+    launches.count("ssd_scan", instance=instance,
+                   layout="bshp" if instance == "split" and x.ndim == 4 else "flat")
+    return out
+
+
+def _fwd(x, dt, A, B_, C_, D_, heads: int, n: int, q: int) -> torch.Tensor:
+    """ssd_scan_fwd on a flat (BH, S, P) x."""
+    bh, s, p = x.shape
     out = torch.empty_like(x)
     lib = LIBRARY.load()
     with torch.cuda.device(x.device):  # the C side launches on the current device

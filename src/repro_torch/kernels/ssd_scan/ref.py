@@ -2,7 +2,9 @@
 
 ``ssd_sequential_ref`` is the direct O(S) recurrence, the ground truth, as
 in ``repro.kernels.ssd_scan.ref``.  ``ssd_scan_ref`` is the plain version of
-the hand-written kernel: it takes the kernel's flattened shapes and computes
+the hand-written kernel: it takes the kernel's shapes (x flattened to (BH,
+S, P), or the mixer's (B, S, H, P), which it flattens and gives back as it
+came) and computes
 what the Pallas kernel body computes (``repro.kernels.ssd_scan.kernel``), not
 what the oracle computes: every operand in float32, an inclusive cumsum of
 ``dt*a`` per chunk, the exponent masked to ``-inf`` before ``exp``, a carried
@@ -87,7 +89,7 @@ def ssd_sequential_ref(
 
 
 def ssd_scan_ref(
-    x: torch.Tensor,   # (BH, S, P)
+    x: torch.Tensor,   # (BH, S, P), or (B, S, H, P) with BH = B H
     dt: torch.Tensor,  # (BH, S)
     A: torch.Tensor,   # (BH, 1)
     B_: torch.Tensor,  # (BG, S, N)  BG = BH // heads
@@ -98,6 +100,11 @@ def ssd_scan_ref(
     chunk: int,
     split_bf16: bool = False,
 ) -> torch.Tensor:
+    if x.ndim == 4:
+        b, s, h, p = x.shape
+        out = ssd_scan_ref(x.permute(0, 2, 1, 3).reshape(b * h, s, p), dt, A, B_, C_, D_,
+                           heads=heads, chunk=chunk, split_bf16=split_bf16)
+        return out.reshape(b, h, s, p).permute(0, 2, 1, 3)
     rnd = split_bf16_round if split_bf16 else (lambda v: v)
     bh, s, p = x.shape
     n = B_.shape[-1]

@@ -185,6 +185,7 @@ def mamba_mixer(x: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
             y = map_shards(scan, args, _SSD_ROLES, _SSD_ROLES[0], chunk=cfg.ssm.chunk)
         else:
             y = scan(*args, chunk=cfg.ssm.chunk)
+        # a view of the split instance's (B, S, H, P) output, a copy of a flat one
         y = y.reshape(b, s, di)
     with stage("ssm.gate_norm"):
         y = norm(y, params["norm"], cfg.norm_eps, z, groups)

@@ -418,6 +418,7 @@ def test_ssd_wrapper_counts_each_launch(cuda):
     out = ss.ssd_scan(x4, dt4, a[:3, 0], bb, cc, d[:3, 0], chunk=32)
     assert launches.snapshot()["ssd_scan"] == 1
     assert launches.by("ssd_scan", "instance") == {"fwd": 1}
+    assert launches.by("ssd_scan", "layout") == {"flat": 1}
     cpu = ss.ssd_scan(*(t.cpu() for t in (x4, dt4, a[:3, 0], bb, cc, d[:3, 0])), chunk=32)
     assert launches.snapshot()["ssd_scan"] == 1
     torch.testing.assert_close(out.cpu(), cpu, atol=2e-4, rtol=2e-4)
@@ -428,6 +429,7 @@ def test_ssd_wrapper_counts_each_launch(cuda):
     ss.ssd_scan(x4.float(), dt4, a[:3, 0], bb.float(), cc.float(), d[:3, 0], chunk=32)
     assert launches.snapshot()["ssd_scan"] == 3
     assert launches.by("ssd_scan", "instance") == {"split": 1, "fwd": 2}
+    assert launches.by("ssd_scan", "layout") == {"bshp": 1, "flat": 2}
     launches.reset()
     assert launches.snapshot() == {}
 
@@ -500,6 +502,28 @@ def test_chunk_state_gives_the_same_bits_back_to_back(cuda):
     cum, h = sr.ssd_chunk_state_pass_ref(*args[:4], heads=32, chunk=256, split_bf16=True)
     torch.testing.assert_close(runs[0][0], cum, **SCRATCH_TOL)
     torch.testing.assert_close(runs[0][1], h, **SCRATCH_TOL)
+
+
+# A block of ssd_chunk_state reads each x stage by ldmatrix (the generic
+# proxy) before the next TMA load (the async proxy) refills it.  Without a
+# proxy fence between the two, at N 64 and a grid this large (64 x 32 heads
+# x 8 chunks, three blocks an SM) a few chunk states of most launches came
+# out wrong, in whole warps' 16-row slices of p; every launch's chunk
+# states here are held against the plain function and must be the same bits
+@pytest.mark.parametrize("n", sk.SPLIT_STATE_DIMS)
+def test_chunk_state_reads_each_x_stage_before_it_is_refilled(cuda, n):
+    args = ssd_inputs(cuda, n + 15, 64, 2048, 32, 64, n, torch.bfloat16)
+    scan = sk.SplitScan(*args, heads=32, chunk=256)
+    _, want = sr.ssd_chunk_state_ref(*args[:4], heads=32, chunk=256, split_bf16=True)
+    states = torch.empty_like(want)
+    runs = []
+    for _ in range(6):
+        scan.chunk_state(states)
+        runs.append(states.clone())
+    torch.cuda.synchronize()
+    for got in runs:
+        torch.testing.assert_close(got, want, **SCRATCH_TOL)
+        assert torch.equal(got, runs[0])
 
 
 def test_two_split_scans_on_two_streams_at_once(cuda):
@@ -641,6 +665,67 @@ def test_split_instance_reads_unaligned_views(cuda):
     assert xv.data_ptr() % 16 != 0
     out = sk.ssd_scan_call(xv, dt, a, bb, cc, d, heads=2, chunk=64)
     assert torch.equal(out, sk.ssd_scan_call(x, dt, a, bb, cc, d, heads=2, chunk=64))
+
+
+# The wrapper hands the split instance the mixer's (B, S, H, P) x where it
+# lies and returns the kernel's (B, S, H, P) output: the kernel reads x and
+# writes y with the heads interleaved along each sequence row.  Bit for bit
+# the flat path's (x flattened, the flat launch, its output permuted back):
+# (batch, seq, heads, state, groups of B and C, chunk, x 16-byte aligned)
+LAYOUT_CASES = {
+    "mamba2-370m's heads": (2, 2048, 32, 128, 1, 256, True),
+    "zamba2-7b-instruct's groups": (1, 4096, 112, 64, 2, 256, True),
+    "a sequence shorter than a chunk": (2, 100, 32, 128, 1, 256, True),
+    # ragged tiles in every chunk, and the last tile past the sequence's end
+    "a chunk not a multiple of 64": (2, 100, 9, 64, 1, 20, True),
+    "an x not 16-byte aligned": (2, 256, 32, 128, 1, 128, False),
+}
+
+
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
+def test_wrapper_reads_the_mixers_layout_bit_equal_to_the_flat_path(cuda, case):
+    b, s, h, n, g, chunk, aligned = LAYOUT_CASES[case]
+    gen = torch.Generator(cuda).manual_seed(s + h + n + chunk)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+    x = normal(b, s, h, 64).bfloat16()
+    dt = torch.nn.functional.softplus(normal(b, s, h))
+    A, D = -torch.exp(normal(h)), normal(h)
+    B, C = (normal(*((b, s, n) if g == 1 else (b, s, g, n))).bfloat16() for _ in range(2))
+    if not aligned:  # a view one element into its storage
+        xv = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+        xv.copy_(x)
+        x = xv
+    assert (x.data_ptr() % 16 == 0) == aligned
+    launches.reset()
+    got = ss.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    assert launches.by("ssd_scan", "layout") == {"bshp": 1}
+    assert launches.by("ssd_scan", "instance") == {"split": 1}
+    assert got.shape == (b, s, h, 64) and got.is_contiguous() and got.dtype == torch.bfloat16
+    xf, dtf, af, df = ss.ops.flatten(x, dt, A, D)
+    if g > 1:
+        B, C = (t.permute(0, 2, 1, 3).reshape(b * g, s, n).contiguous() for t in (B, C))
+    want = sk.ssd_scan_call(xf.contiguous(), dtf.contiguous(), af.contiguous(), B, C, df.contiguous(),
+                            heads=h // g, chunk=chunk)
+    torch.cuda.synchronize()
+    assert launches.by("ssd_scan", "layout") == {"bshp": 1, "flat": 1}  # the direct flat call's
+    assert torch.equal(got, want.reshape(b, h, s, 64).permute(0, 2, 1, 3))
+
+
+def test_kernel_call_flattens_the_mixers_layout_for_the_fwd_instance(cuda):
+    # ssd_scan_fwd reads the flat layout: a (B, S, H, P) x is flattened for it,
+    # and its output comes back in x's layout
+    x, dt, a, bb, cc, d = ssd_inputs(cuda, 6, 2, 64, 3, 16, 8, torch.float32)
+    x4 = x.reshape(2, 3, 64, 16).permute(0, 2, 1, 3).contiguous()
+    launches.reset()
+    out = sk.ssd_scan_call(x4, dt, a, bb, cc, d, heads=3, chunk=32)
+    flat = sk.ssd_scan_call(x, dt, a, bb, cc, d, heads=3, chunk=32)
+    torch.cuda.synchronize()
+    assert launches.by("ssd_scan", "layout") == {"flat": 2}
+    assert launches.by("ssd_scan", "instance") == {"fwd": 2}
+    assert out.shape == x4.shape and out.is_contiguous()
+    assert torch.equal(out, flat.reshape(2, 3, 64, 16).permute(0, 2, 1, 3))
 
 
 @pytest.mark.parametrize("n", sk.SPLIT_STATE_DIMS)

@@ -351,6 +351,100 @@ def test_split_scan_takes_cuda_tensors_only():
         sk.SplitScan(*args, heads=2, chunk=32)
 
 
+# ---------------------------------------------------------------------------
+# the layouts of x: the wrapper's (B, S, H, P), which the split instance reads
+# where it lies, and the flat (B*H, S, P) of every other caller
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_wrapper_returns_the_mixers_layout_equal_to_ssd_chunked(groups):
+    b, s, h, p, n, chunk = 2, 128, 4, 16, 8, 32
+    x, dt, A, B, C, D = to_torch("float32", *ssd_inputs(21 + groups, b, s, h, p, n))
+    if groups > 1:  # (B, S, G, N): each group's B and C shared by its H/G heads
+        rng = np.random.default_rng(groups)
+        B, C = (torch.from_numpy(rng.standard_normal((b, s, groups, n), dtype=np.float32)) for _ in range(2))
+    got = ss.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    assert got.shape == (b, s, h, p) and got.dtype == x.dtype
+    torch.testing.assert_close(got, tssm.ssd_chunked(x, dt, A, B, C, D, chunk=chunk), **kernel_tol("float32"))
+
+
+@pytest.mark.parametrize("dtype,p,n", [("float32", 16, 8), ("bfloat16", 64, 128)])
+def test_wrapper_hands_x_on_as_it_lies(monkeypatch, dtype, p, n):
+    # one path for every instance: the wrapper flattens dt, A and D, never x;
+    # the kernel's call (or, here, the plain version) decides how x is read
+    b, s, h, chunk = 2, 64, 3, 32
+    x, dt, A, B, C, D = to_torch(dtype, *ssd_inputs(29, b, s, h, p, n))
+    seen = []
+
+    def plain(x_, *rest, **kw):
+        seen.append(x_)
+        return ssd_scan_ref(x_, *rest, **kw)
+    monkeypatch.setattr(ss.ops, "ssd_scan_ref", plain)
+    got = ss.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    assert len(seen) == 1 and seen[0] is x
+    assert torch.equal(got, unflat(ssd_scan_ref(*flat(x, dt, A, B, C, D), heads=h, chunk=chunk), b, h))
+
+
+@pytest.mark.parametrize("split_bf16", [False, True])
+def test_plain_version_takes_the_mixers_layout(split_bf16):
+    b, s, h, p, n, chunk = 2, 128, 3, 64, 64, 32
+    x, dt, A, B, C, D = to_torch("bfloat16", *ssd_inputs(23, b, s, h, p, n))
+    args = flat(x, dt, A, B, C, D)
+    got = ssd_scan_ref(x, *args[1:], heads=h, chunk=chunk, split_bf16=split_bf16)
+    want = ssd_scan_ref(*args, heads=h, chunk=chunk, split_bf16=split_bf16)
+    assert got.shape == (b, s, h, p)
+    assert torch.equal(got, unflat(want, b, h))
+
+
+def kernel_args(layout, *, p=16, n=8, dtype="float32", b=1, s=64, h=2):
+    """ssd_scan_call's operands on the CPU, contiguous: x flat (B*H, S, P) or
+    in the mixer's (B, S, H, P); dt, A and D flat."""
+    x, dt, A, B, C, D = to_torch(dtype, *ssd_inputs(19, b, s, h, p, n))
+    xf, *rest = (t.contiguous() for t in flat(x, dt, A, B, C, D))
+    return (xf if layout == "flat" else x, *rest)
+
+
+@pytest.mark.parametrize("layout", ["flat", "bshp"])
+@pytest.mark.parametrize("p,n,dtype,chunk", [(16, 8, "float32", 32), (8, 4, "float32", 64),
+                                             (64, 64, "bfloat16", 32), (64, 128, "bfloat16", 128)])
+def test_kernel_call_takes_either_layout_of_x(layout, p, n, dtype, chunk):
+    args = kernel_args(layout, p=p, n=n, dtype=dtype)
+    assert sk.heads_per_row(args[0]) == (2 if layout == "bshp" else 1)
+    assert sk.check_shapes(*args, heads=2, chunk=chunk) == (2, 64, p, n, min(chunk, 64))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sk.ssd_scan_call(*args, heads=2, chunk=chunk)
+    if sk.instance_for(args[0].dtype, p, n) == "split":
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            sk.SplitScan(*args, heads=2, chunk=chunk)
+
+
+def _non_contiguous(t):
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+# what ssd_scan_call refuses in the flat layout it refuses in the mixer's:
+# message -> (kernel_args' keywords, the change to its operands, heads, chunk)
+KERNEL_REFUSALS = {
+    "head dim 24": (dict(p=24), lambda a: a, 2, 32),
+    "state size 32": (dict(n=32), lambda a: a, 2, 32),
+    "multiple of chunk 48": ({}, lambda a: a, 2, 48),
+    "float32 or bfloat16": ({}, lambda a: (a[0].half(), a[1], a[2], a[3].half(), a[4].half(), a[5]), 2, 32),
+    "B is torch.bfloat16": ({}, lambda a: (*a[:3], a[3].bfloat16(), *a[4:]), 2, 32),
+    "do not hold 1 heads": ({}, lambda a: a, 1, 32),
+    "contiguous": ({}, lambda a: (_non_contiguous(a[0]), *a[1:]), 2, 32),
+    "ssd_scan takes x": ({}, lambda a: (a[0], a[1][None], *a[2:]), 2, 32),  # dt of three dims
+}
+
+
+@pytest.mark.parametrize("layout", ["flat", "bshp"])
+@pytest.mark.parametrize("refusal", list(KERNEL_REFUSALS))
+def test_kernel_call_refuses_the_same_inputs_in_either_layout(layout, refusal):
+    kw, change, heads, chunk = KERNEL_REFUSALS[refusal]
+    args = change(kernel_args(layout, **kw))
+    with pytest.raises(ValueError, match=refusal):
+        sk.check_shapes(*args, heads=heads, chunk=chunk)
+
+
 def test_build_keeps_what_ptxas_warns(monkeypatch, tmp_path):
     """A stand-in nvcc under a temporary CUDA_HOME warns on a build that
     succeeds; the warning stays on the library, and ptxas is asked for it."""
